@@ -1,0 +1,156 @@
+"""The port's CUDA kernels against their plain versions on the card, at small
+shapes (odd sizes and ragged tiles included), and the slice through the
+kernels against the slice through the plain versions.
+
+Needs an NVIDIA card with ``nvcc`` (sm_90a); marked ``cuda`` and skipped
+without one.  Run on the card with ``python -m pytest --noconftest -m cuda
+tests/test_torch_port_cuda.py`` (``tests/conftest.py`` sets up JAX, which
+neither this file nor the port needs).
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from yolov5_obb_tpu_torch.models import layers
+from yolov5_obb_tpu_torch.models.layers import C3
+from yolov5_obb_tpu_torch.ops.kernels import (
+    c3_kernel,
+    down_kernel,
+    neighbor_kernel,
+    stem_kernel,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bn(gen, c, dev):
+    r = lambda lo, hi: lo + (hi - lo) * torch.rand(c, generator=gen, device=dev)
+    return types.SimpleNamespace(weight=r(0.5, 1.5), bias=r(-0.2, 0.2),
+                                 running_mean=r(-0.3, 0.3),
+                                 running_var=r(0.5, 2.0))
+
+
+def _w(gen, co, ci, k, dev):
+    return torch.randn(co, ci, k, k, generator=gen, device=dev) / (ci * k * k) ** 0.5
+
+
+def _counted(kernel, fn):
+    before = kernel.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return out
+
+
+@pytest.mark.parametrize("H,W", [(64, 64), (70, 42)])
+def test_stem_l1_kernel(dev, H, W):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, 256, (2, H, 3 * W), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    ops = stem_kernel.fold_stem_l1_params(_w(gen, 16, 3, 6, dev), _bn(gen, 16, dev),
+                                          _w(gen, 32, 16, 3, dev), _bn(gen, 32, dev))
+    got = _counted(stem_kernel.KERNEL, lambda: stem_kernel.fused_stem_l1(x, *ops))
+    want = stem_kernel.fused_stem_l1_plain(x, *ops)
+    assert got.shape == want.shape
+    assert (got.float() - want.float()).abs().max() <= 0.05  # bf16 output ulps
+
+
+@pytest.mark.parametrize("H,W", [(32, 32), (33, 19)])
+def test_down_kernel(dev, H, W):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    conv = types.SimpleNamespace(weight=_w(gen, 32, 16, 3, dev))
+    wt, ss = down_kernel.fold_down_params(conv, _bn(gen, 32, dev))
+    x = torch.randn(2, H, W, 16, generator=gen, device=dev).to(torch.bfloat16)
+    got = _counted(down_kernel.KERNEL, lambda: down_kernel.fused_down(x, wt, ss))
+    want = down_kernel.fused_down_plain(x, wt, ss)
+    assert got.shape == want.shape == (2, (H + 1) // 2, (W + 1) // 2, 32)
+    assert (got.float() - want.float()).abs().max() <= 0.05
+
+
+@pytest.mark.parametrize("n,H,W", [(1, 32, 40), (2, 21, 13), (4, 16, 16)])
+def test_c3_kernel(dev, n, H, W):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    m = C3(16, 16, n).to(dev)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                co, ci, k, _ = mod.weight.shape
+                mod.weight.copy_(_w(gen, co, ci, k, dev))
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                st = _bn(gen, mod.num_features, dev)
+                for a in ("weight", "bias", "running_mean", "running_var"):
+                    getattr(mod, a).copy_(getattr(st, a))
+    p = c3_kernel.fold_c3_params(m)
+    x = torch.randn(2, H, W, 16, generator=gen, device=dev).to(torch.bfloat16)
+    got = _counted(c3_kernel.KERNEL, lambda: c3_kernel.fused_c3(x, p))
+    want = c3_kernel.fused_c3_plain(x, p)
+    assert (got.float() - want.float()).abs().max() <= 0.06
+
+
+@pytest.mark.parametrize("n,clustered", [(100, False), (300, True)])
+def test_neighbor_kernel(dev, n, clustered):
+    rng = np.random.default_rng(5)
+    B = 3
+    rb = np.zeros((B, n, 5), np.float32)
+    c = 200 + (rng.normal(0, 4, (B, n, 2)) if clustered
+               else rng.uniform(-200, 200, (B, n, 2)))
+    rb[..., :2] = c
+    rb[..., 2] = rng.uniform(20, 90, (B, n))
+    rb[..., 3] = rb[..., 2] * rng.uniform(0.3, 1.0, (B, n))
+    rb[..., 4] = rng.uniform(-np.pi / 2, np.pi / 2, (B, n))
+    boxes = torch.from_numpy(rb).to(dev)
+    cls = torch.from_numpy(rng.integers(0, 2, (B, n)).astype(np.int32)).to(dev)
+    valid = torch.arange(n, device=dev)[None].expand(B, n) < n - 5
+    valid = valid.contiguous()
+    idx, sup = _counted(neighbor_kernel.KERNEL, lambda: neighbor_kernel
+                        .fused_neighbor_iou(boxes, cls, valid, 0.45, 64))
+    pidx, psup = neighbor_kernel.fused_neighbor_iou_plain(boxes, cls, valid,
+                                                          0.45, 64)
+    assert torch.equal(idx, pidx) and torch.equal(sup, psup)
+    assert psup.any()
+    assert bool((pidx[..., -1] > 0).any()) == clustered  # rows overflowing M
+
+
+def test_slice_kernels_match_plain(dev, monkeypatch):
+    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+
+    monkeypatch.setattr(layers, "FUSED_C3_MIN_SPATIAL", 0)
+    monkeypatch.setattr(layers, "FUSED_DOWN_MIN_SPATIAL", 0)
+    model, meta = create_model("yolov5n.yaml", nc=15, dtype=torch.bfloat16,
+                               device="cuda", packed_stem=True)
+    rng = np.random.default_rng(7)  # detections at conf 0.25
+    with torch.no_grad():
+        for conv in model.model[-1].m:
+            b = conv.bias.view(meta.na, meta.no)
+            b[:, 4] += 4.0
+            b[:, 5:5 + meta.nc] += torch.as_tensor(
+                rng.normal(0.0, 2.0, (meta.na, meta.nc)), device=dev,
+                dtype=b.dtype)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(0, 256, (2, 128, 384), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    kinds = (stem_kernel.KERNEL, c3_kernel.KERNEL, down_kernel.KERNEL,
+             neighbor_kernel.KERNEL)
+    before = [k.launches for k in kinds]
+    d, num = make_predict_fn(model, meta, 0.25, 0.45, 300)(x)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kinds, before))
+    dp, nump = make_predict_fn(model, meta, 0.25, 0.45, 300, plain=True)(x)
+    assert d.shape == dp.shape == (2, 300, 7) and torch.isfinite(d).all()
+    assert int(nump.min()) > 0
+    # bf16 rounding differs between kernel and plain convs: a score may
+    # cross the threshold, so compare counts loosely
+    assert (num - nump).abs().max() <= 2

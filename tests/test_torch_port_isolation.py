@@ -1,0 +1,77 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points refuse to run on the CPU unless the caller asks for it."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+from yolov5_obb_tpu_torch.models.yolo import create_model
+from yolov5_obb_tpu_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "yolov5_obb_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import yolov5_obb_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+chip_smoke._named_kernels()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "yolov5_obb_tpu"
+             or m.startswith("yolov5_obb_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    # every module of the package but its root __init__ was imported
+    assert int(n) == len(list(PKG.rglob("*.py"))) - 1, out.stdout
+    assert bad == "[]", out.stdout
+
+
+def test_no_jax_import_in_source():
+    """Static check of every port source and chip_smoke.py, including the
+    imports inside functions that the fresh-process test does not reach."""
+    paths = [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for m in mods:
+                assert m.split(".")[0] not in (
+                    "jax", "jaxlib", "flax", "yolov5_obb_tpu"), \
+                    f"{path.relative_to(ROOT)}:{node.lineno} imports {m}"
+    assert len(paths) >= 20
+
+
+def test_entry_points_need_the_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is allowed to run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("yolov5n.yaml", nc=15)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("yolov5n.yaml", nc=15, device="cuda")
+    model, meta = create_model("yolov5n.yaml", nc=15, device="cpu",
+                               packed_stem=True)
+    assert next(model.parameters()).device.type == "cpu"
+    predict = make_predict_fn(model, meta, 0.25, 0.45, 100)
+    dets, num = predict(torch.zeros(1, 64, 64 * 3, dtype=torch.uint8))
+    assert dets.shape == (1, 100, 7) and num.shape == (1,)

@@ -1,0 +1,181 @@
+"""Layers of the YOLOv5-OBB graph, NHWC, inference.
+
+Counterparts of ``yolov5_obb_tpu/models/layers.py`` for the modules the
+yolov5n/s/m/l/x configs use.  Module and parameter names follow the
+reference PyTorch model (``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m``), so
+a reference state_dict maps onto them key for key.
+
+Activations are NHWC tensors; a convolution views them as channels-last
+NCHW for ``F.conv2d`` (no copy).  Convs compute in the activation dtype,
+BatchNorm and SiLU in float32 (the JAX package's eval numerics), BN eps 1e-3.
+
+Every module takes ``(x, plain=False)``; ``plain`` sends a kernel-bearing
+layer to its kernel's plain PyTorch version on any device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels.c3_kernel import fold_c3_params, fused_c3, fused_c3_plain
+from ..ops.kernels.down_kernel import fold_down_params, fused_down, fused_down_plain
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03  # flax momentum 0.97
+
+# Which layers run a hand-written kernel at inference: the same choice as the
+# JAX main path at 1024² (the layer-2 C3 and the layer-3 downsample, both at
+# 256² input).  These gates were measured on a TPU; an A/B on the H100 is an
+# open question (PERF.md).
+FUSED_C3_MIN_SPATIAL = 256 * 256
+FUSED_DOWN_MIN_SPATIAL = 256 * 256
+
+
+def autopad(k, p=None):
+    """'same'-style padding for odd kernels."""
+    if p is None:
+        p = k // 2 if isinstance(k, int) else [v // 2 for v in k]
+    return p
+
+
+def make_divisible(x, divisor=8):
+    return math.ceil(x / divisor) * divisor
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+class ConvBnAct(nn.Module):
+    """Conv2d + BatchNorm + SiLU (reference ``Conv``).
+
+    ``fused=True``: an eligible stride-2 3x3 downsample at a large enough
+    input runs as the downsample kernel (ops/kernels/down_kernel.py)."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True,
+                 fused: bool = False):
+        super().__init__()
+        self.k, self.s, self.p, self.g, self.act = k, s, p, g, act
+        self.fused = fused
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+    def down_eligible(self, x) -> bool:
+        ci, co = self.conv.in_channels, self.conv.out_channels
+        return (self.fused and self.k == 3 and self.s == 2 and self.g == 1
+                and self.act and self.p in (None, 1)
+                and ci % 2 == 0 and co % 8 == 0
+                and x.shape[1] * x.shape[2] >= FUSED_DOWN_MIN_SPATIAL)
+
+    def forward(self, x, plain: bool = False):
+        if self.down_eligible(x):
+            w, ss = fold_down_params(self.conv, self.bn, x.dtype)
+            return (fused_down_plain if plain else fused_down)(x, w, ss)
+        y = F.conv2d(_nchw(x), self.conv.weight.to(x.dtype), None,
+                     self.conv.stride, self.conv.padding, 1, self.g)
+        bn = self.bn
+        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+        y = (_nhwc(y).float() - bn.running_mean) * mul + bn.bias
+        y = y * torch.sigmoid(y) if self.act else y
+        return y.to(x.dtype)
+
+
+class Bottleneck(nn.Module):
+    """Residual bottleneck (reference models/common.py:94-104)."""
+
+    def __init__(self, c1, c2, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_, c2, 3, 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x, plain: bool = False):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs (reference models/common.py:126-138).
+
+    ``fused=True``: an eligible block (n <= 4, shortcut, c1 == c2, g == 1,
+    e == 0.5, large enough input) runs as the C3 kernel
+    (ops/kernels/c3_kernel.py)."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5,
+                 fused: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n, self.shortcut, self.g, self.e = n, shortcut, g, e
+        self.fused = fused
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c1, c_, 1, 1)
+        self.cv3 = ConvBnAct(2 * c_, c2, 1)
+        self.m = nn.Sequential(
+            *(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+    def eligible(self, x) -> bool:
+        c1, c2 = self.cv1.conv.in_channels, self.cv3.conv.out_channels
+        c_ = self.cv1.conv.out_channels
+        return (self.fused and 1 <= self.n <= 4 and self.shortcut
+                and c1 == c2 and self.g == 1 and self.e == 0.5
+                and c1 % 2 == 0 and c_ % 8 == 0 and c2 % 8 == 0
+                and x.shape[1] * x.shape[2] >= FUSED_C3_MIN_SPATIAL)
+
+    def forward(self, x, plain: bool = False):
+        if self.eligible(x):
+            p = fold_c3_params(self, x.dtype)
+            return (fused_c3_plain if plain else fused_c3)(x, p, self.shortcut)
+        y1 = self.cv1(x)
+        for b in self.m:
+            y1 = b(y1)
+        return self.cv3(torch.cat([y1, self.cv2(x)], -1))
+
+
+class SPPF(nn.Module):
+    """Fast SPP: 3 chained k-pools (reference models/common.py:181-196)."""
+
+    def __init__(self, c1, c2, k=5):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = k
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_ * 4, c2, 1, 1)
+
+    def forward(self, x, plain: bool = False):
+        x = self.cv1(x)
+        pool = lambda t: _nhwc(F.max_pool2d(_nchw(t), self.k, 1, self.k // 2))
+        y1 = pool(x)
+        y2 = pool(y1)
+        y3 = pool(y2)
+        return self.cv2(torch.cat([x, y1, y2, y3], -1))
+
+
+class Concat(nn.Module):
+    """Concatenate along channels."""
+
+    def forward(self, xs, plain: bool = False):
+        return torch.cat(xs, -1)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsample by an integer scale."""
+
+    def __init__(self, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x, plain: bool = False):
+        B, H, W, C = x.shape
+        s = self.scale
+        return (x[:, :, None, :, None, :].expand(B, H, s, W, s, C)
+                .reshape(B, H * s, W * s, C))

@@ -1,0 +1,332 @@
+"""YOLOv5-OBB model: YAML graph spec → PyTorch module graph, Detect head.
+
+Counterpart of ``yolov5_obb_tpu/models/yolo.py`` for inference.  The YAML
+spec is the single source of truth for the n/s/m/l/x variants
+(``models/configs``).  ``packed_stem`` builds the inference fast path:
+``forward`` then takes the raw ``(B, H, 3W)`` uint8 view, layers 0-1 run as
+the fused stem+L1 kernel, and the eligible C3 blocks and stride-2
+downsamples run as their kernels (models/layers.py gates).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+import yaml
+from torch import nn
+
+from ..ops.kernels.stem_kernel import (
+    fold_stem_l1_params,
+    fused_stem_l1,
+    fused_stem_l1_plain,
+)
+from ..utils.device import resolve_device
+from . import layers as L
+
+THETA_BINS = 180
+
+
+# ---------------------------------------------------------------------------
+# config parsing
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    index: int
+    frm: Any  # int or tuple of ints
+    repeats: int
+    name: str
+    args: tuple
+
+
+@dataclasses.dataclass
+class ModelMeta:
+    """Static model metadata needed by decode/NMS."""
+
+    nc: int
+    nl: int
+    na: int
+    strides: tuple  # per level, input pixels
+    anchors_px: np.ndarray  # (nl, na, 2) in input pixels
+    names: list | None = None
+
+    @property
+    def no(self) -> int:
+        return self.nc + 5 + THETA_BINS
+
+
+def load_config(cfg) -> dict:
+    if isinstance(cfg, dict):
+        return dict(cfg)
+    p = Path(cfg)
+    if not p.exists():
+        p = Path(__file__).parent / "configs" / p.name
+    with open(p) as f:
+        return yaml.safe_load(f)
+
+
+# modules whose first arg is an output-channel count subject to width scaling
+_CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C3"}
+# modules that additionally take the repeat count as a constructor arg
+_REPEAT_MODULES = {"C3"}
+
+
+def parse_model_config(d: dict, ch_in: int = 3):
+    """YAML dict → (specs, nc, na, anchors_px, detect_from); the reference
+    ``parse_model`` channel arithmetic."""
+    anchors, nc = d["anchors"], d["nc"]
+    gd, gw = d["depth_multiple"], d["width_multiple"]
+    na = len(anchors[0]) // 2
+
+    specs: list[LayerSpec] = []
+    ch = [ch_in]
+    detect_from = None
+    for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
+        name = {"nn.Upsample": "Upsample"}.get(name, name)
+        args = list(args)
+        n_eff = max(round(n * gd), 1) if n > 1 else n
+        if name in _CH_MODULES:
+            c1 = ch[f]
+            c2 = L.make_divisible(args[0] * gw, 8)
+            args = [c1, c2, *args[1:]]
+            if name in _REPEAT_MODULES:
+                args.insert(2, n_eff)
+                n_eff = 1
+        elif name == "Concat":
+            c2 = sum(ch[x] for x in f)
+        elif name == "Detect":
+            detect_from = tuple(f)
+            args = [tuple(ch[x] for x in f)]
+            c2 = None
+        elif name == "Upsample":
+            c2 = ch[f]
+        else:
+            raise ValueError(f"module {name!r} is not ported yet")
+        specs.append(LayerSpec(
+            i, tuple(f) if isinstance(f, list) else f, n_eff, name,
+            tuple(tuple(v) if isinstance(v, list) else v for v in args)))
+        if i == 0:
+            ch = []
+        ch.append(c2)
+    anchors_px = np.asarray(anchors, dtype=np.float32).reshape(
+        len(anchors), -1, 2)
+    return specs, nc, na, anchors_px, detect_from
+
+
+# ---------------------------------------------------------------------------
+# Detect head
+# ---------------------------------------------------------------------------
+
+
+class Detect(nn.Module):
+    """OBB head: per level a 1x1 conv → flat ``(B, ny*nx*na, no)`` map in the
+    compute dtype (bf16 at inference on the card), channel layout per
+    anchor ``[x y w h obj cls*nc theta*180]``."""
+
+    def __init__(self, nc: int, na: int, ch: tuple):
+        super().__init__()
+        self.nc, self.na = nc, na
+        self.no = nc + 5 + THETA_BINS
+        self.m = nn.ModuleList(nn.Conv2d(c, na * self.no, 1) for c in ch)
+
+    def forward(self, xs, plain: bool = False):
+        outs = []
+        for conv, x in zip(self.m, xs):
+            y = torch.nn.functional.conv2d(
+                L._nchw(x), conv.weight.to(x.dtype), conv.bias.to(x.dtype))
+            B, _, ny, nx = y.shape
+            outs.append(L._nhwc(y).reshape(B, ny * nx * self.na, self.no))
+        return outs
+
+
+# ---------------------------------------------------------------------------
+# full model graph
+# ---------------------------------------------------------------------------
+
+
+def _build_module(spec: LayerSpec, fused: bool):
+    kind, a = spec.name, spec.args
+    if kind == "Conv":
+        return L.ConvBnAct(*a, fused=fused)
+    if kind == "C3":
+        return L.C3(*a, fused=fused)
+    if kind == "Bottleneck":
+        return L.Bottleneck(*a)
+    if kind == "SPPF":
+        return L.SPPF(*a)
+    if kind == "Concat":
+        return L.Concat()
+    if kind == "Upsample":
+        return L.Upsample(int(a[1]) if len(a) > 1 else 2)
+    raise ValueError(f"unknown module {kind!r} in model config")
+
+
+class YoloModel(nn.Module):
+    """Backbone + PAN + Detect, built from parsed specs.
+
+    ``packed_stem``: ``forward`` takes the packed ``(B, H, 3W)`` uint8 image
+    and layers 0-1 run as the stem+L1 kernel (/255 folded into the stem
+    weights); layer 0's activation is never formed; the eligible C3 blocks
+    and downsamples run as their kernels.  Otherwise ``forward`` takes a
+    float NHWC image in [0, 1] and runs the stock layers.  ``dtype`` is the
+    compute dtype; parameters and BN statistics stay float32."""
+
+    def __init__(self, specs, nc: int, na: int, dtype=torch.float32,
+                 packed_stem: bool = False):
+        super().__init__()
+        self.specs = tuple(specs)
+        self.nc, self.na, self.dtype = nc, na, dtype
+        self.packed_stem = packed_stem
+        layers = []
+        for spec in self.specs:
+            if spec.name == "Detect":
+                layers.append(Detect(nc, na, spec.args[0]))
+            elif spec.repeats == 1:
+                layers.append(_build_module(spec, packed_stem))
+            else:
+                layers.append(nn.Sequential(*(_build_module(spec, packed_stem)
+                                              for _ in range(spec.repeats))))
+        self.model = nn.ModuleList(layers)
+
+    def _stem_l1(self, x, plain: bool):
+        m0, m1 = self.model[0], self.model[1]
+        ops = fold_stem_l1_params(m0.conv.weight, m0.bn, m1.conv.weight,
+                                  m1.bn, dtype=self.dtype)
+        fn = fused_stem_l1_plain if plain else fused_stem_l1
+        return fn(x, *ops, dtype=self.dtype)
+
+    def forward(self, x, plain: bool = False):
+        """Image batch → list of flat Detect maps ``(B, n_l, no)``."""
+        y: list = []
+        skip = 0
+        if self.packed_stem:
+            y = [None, self._stem_l1(x, plain)]
+            skip = 2
+        else:
+            x = x.to(self.dtype)
+
+        def fetch(j):
+            return (y[-1] if y else x) if j == -1 else y[j]
+
+        out = None
+        for spec, m in zip(self.specs[skip:], self.model[skip:]):
+            f = spec.frm
+            h = fetch(f) if isinstance(f, int) else [fetch(j) for j in f]
+            if isinstance(m, nn.Sequential):
+                for r in m:
+                    h = r(h, plain)
+            else:
+                h = m(h, plain)
+            if spec.name == "Detect":
+                out = h
+                h = None
+            y.append(h)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# construction helpers
+# ---------------------------------------------------------------------------
+
+
+def packed_l1_eligible(specs) -> bool:
+    """Layers 0-1 can run as the stem+L1 kernel: a Conv(c2, 6, 2) stem, a
+    Conv(c3, 3, 2) layer 1 reading it, and no later layer reading layer 0
+    (its activation is never formed)."""
+    if len(specs) < 2:
+        return False
+    s0, s1 = specs[0], specs[1]
+    refs0 = any((sp.frm == 0 if isinstance(sp.frm, int) else 0 in sp.frm)
+                for sp in specs[2:])
+    return (s0.name == "Conv" and list(s0.args[2:4]) == [6, 2]
+            and s1.name == "Conv" and list(s1.args[2:4]) == [3, 2]
+            and s1.frm == -1 and s1.repeats == 1 and not refs0)
+
+
+def build_model(cfg, nc: int | None = None, dtype=torch.float32,
+                packed_stem: bool = False):
+    """Load config → (YoloModel on the meta device, ModelMeta without
+    strides, raw dict)."""
+    d = load_config(cfg)
+    if nc is not None and nc != d.get("nc"):
+        d["nc"] = nc
+    specs, nc_, na, anchors_px, _ = parse_model_config(d)
+    if packed_stem and not packed_l1_eligible(specs):
+        raise NotImplementedError(
+            "packed_stem needs the stem+L1 pattern; the stem-only kernel "
+            "(fused_stem) is not ported yet")
+    with torch.device("meta"):
+        model = YoloModel(specs, nc_, na, dtype=dtype,
+                          packed_stem=packed_stem)
+    meta = ModelMeta(nc=nc_, nl=anchors_px.shape[0], na=na, strides=(),
+                     anchors_px=anchors_px)
+    return model, meta, d
+
+
+def _dummy_input(model: YoloModel, imgsz: int, device):
+    if model.packed_stem:
+        return torch.zeros(1, imgsz, imgsz * 3, dtype=torch.uint8,
+                           device=device)
+    return torch.zeros(1, imgsz, imgsz, 3, device=device)
+
+
+def probe_strides(model: YoloModel, meta: ModelMeta,
+                  imgsz: int = 256) -> ModelMeta:
+    """Per-level strides from a forward on the meta device (shapes only, no
+    arithmetic) — the counterpart of the JAX ``jax.eval_shape`` probe."""
+    with torch.no_grad():
+        outs = model.to("meta")(_dummy_input(model, imgsz, "meta"), plain=True)
+    strides = tuple(float(imgsz // round((o.shape[1] // meta.na) ** 0.5))
+                    for o in outs)
+    meta = dataclasses.replace(meta, strides=strides)
+    # anchor order must match stride order (reference check_anchor_order)
+    areas = meta.anchors_px.prod(-1).mean(-1)
+    if len(areas) > 1 and (np.argsort(areas) != np.argsort(strides)).any():
+        meta = dataclasses.replace(
+            meta, anchors_px=meta.anchors_px[np.argsort(np.argsort(strides))])
+    return meta
+
+
+def init_model(model: YoloModel, meta: ModelMeta,
+               generator: torch.Generator) -> None:
+    """Initialise in place, on the CPU, from ``generator``: conv kernels
+    LeCun-normal (truncated at 2σ, flax's default), BN identity, Detect
+    biases zero plus the focal-style priors (reference yolo.py:224-232)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            with torch.no_grad():
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+    det = model.model[-1]
+    with torch.no_grad():
+        for li, s in enumerate(meta.strides):
+            b = det.m[li].bias.view(meta.na, meta.no)
+            b[:, 4] += math.log(8 / (640 / s) ** 2)  # obj prior
+            b[:, 5:] += math.log(0.6 / (meta.nc - 0.999999))  # cls (+theta)
+
+
+def create_model(cfg, nc: int | None = None, dtype=torch.float32,
+                 device=None, seed: int = 0, packed_stem: bool = False):
+    """One-call constructor: ``(model, meta)``, weights random from ``seed``
+    (an explicit ``torch.Generator`` on the CPU), in eval mode on
+    ``device`` — the card unless ``device="cpu"`` is passed."""
+    dev = resolve_device(device)
+    model, meta, d = build_model(cfg, nc=nc, dtype=dtype,
+                                 packed_stem=packed_stem)
+    meta = probe_strides(model, meta)
+    meta.names = d.get("names")
+    model = model.to_empty(device="cpu")
+    init_model(model, meta, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval(), meta

@@ -1,0 +1,90 @@
+"""Fused image ingest + stem Conv(6,2,2) + layer-1 Conv(3,2), BN and SiLU
+folded into both (kernel 2 of the path).
+
+Counterpart of ``yolov5_obb_tpu/ops/pallas/stem_kernel.fused_stem_l1``
+(stem_kernel.py:599) and ``fold_stem_l1_params`` (:481).  The input is the
+packed ``(B, H, 3W)`` uint8 image — a free view of the NHWC batch — so the
+/255 normalize folds into the stem weights.  The kernel reads the 6x6 HWIO
+stem taps directly; the TPU tap remap (``remap_w6``) has no counterpart.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ._build import I, Kernel, P, check_cuda
+
+KERNEL = Kernel(
+    "stem_l1", "stem_l1_launch", [P, P, P, P, P, P, I, I, I, I, I],
+    replaces="yolov5_obb_tpu/ops/pallas/stem_kernel.py:599")
+
+
+def _bn_fold(bn, eps: float):
+    g = bn.weight / torch.sqrt(bn.running_var + eps)
+    return g, bn.bias - bn.running_mean * g
+
+
+@torch.no_grad()
+def fold_stem_l1_params(k0, bn0, k1, bn1, dtype=torch.bfloat16,
+                        eps: float = 1e-3):
+    """Stem + layer-1 Conv+BN → operands of :func:`fused_stem_l1`.
+
+    ``k0`` ``(c2, 3, 6, 6)`` and ``k1`` ``(c3, c2, 3, 3)`` are OIHW conv
+    weights; ``bn0``/``bn1`` BatchNorm modules (inference statistics).
+    Returns ``w0 (108, c2)`` float32, row ``(6*dy + dx)*3 + c``, with the BN
+    scale and the /255 folded in; ``b0 (c2,)``; ``w1 (9*c2, c3)`` in
+    ``dtype``, row ``(3*dy + dx)*c2 + ci``, BN scale folded; ``b1 (c3,)``.
+    """
+    g0, b0 = _bn_fold(bn0, eps)
+    g1, b1 = _bn_fold(bn1, eps)
+    w0 = (k0 * g0[:, None, None, None] / 255.0).permute(2, 3, 1, 0)
+    w1 = (k1 * g1[:, None, None, None]).permute(2, 3, 1, 0)
+    c2, c3 = w0.shape[-1], w1.shape[-1]
+    return (w0.reshape(108, c2).float().contiguous(), b0.float().contiguous(),
+            w1.reshape(9 * c2, c3).to(dtype).contiguous(),
+            b1.float().contiguous())
+
+
+def fused_stem_l1_plain(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
+    """Plain version: the stem in float32 from the uint8 values, rounded to
+    ``dtype`` before layer 1 (as the kernel does), layer 1 in float32 on the
+    ``dtype`` values.  Returns ``(B, H/4, W/4, c3)`` in ``dtype``."""
+    B, H, W3 = x_packed.shape
+    c2, c3 = b0.shape[0], b1.shape[0]
+    x = x_packed.reshape(B, H, W3 // 3, 3).permute(0, 3, 1, 2).float()
+    k0 = w0.float().reshape(6, 6, 3, c2).permute(3, 2, 0, 1)
+    s = F.conv2d(x, k0, b0.float(), stride=2, padding=2)
+    s = (s * torch.sigmoid(s)).to(dtype).float()
+    k1 = w1.float().reshape(3, 3, c2, c3).permute(3, 2, 0, 1)
+    y = F.conv2d(s, k1, b1.float(), stride=2, padding=1)
+    return (y * torch.sigmoid(y)).to(dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def fused_stem_l1(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
+    """Fused ingest + stem + layer 1 on the packed ``(B, H, 3W)`` uint8
+    image; operands from :func:`fold_stem_l1_params`.  Returns
+    ``(B, Ho, Wo, c3)``.  CPU tensors take the plain version; CUDA tensors
+    take the kernel, which computes bf16 outputs only."""
+    if x_packed.device.type == "cpu":
+        return fused_stem_l1_plain(x_packed, w0, b0, w1, b1, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the stem+L1 kernel computes bf16, not {dtype}")
+    check_cuda("x_packed", x_packed, torch.uint8, 3)
+    check_cuda("w0", w0, torch.float32, 2)
+    check_cuda("b0", b0, torch.float32, 1)
+    check_cuda("w1", w1, torch.bfloat16, 2)
+    check_cuda("b1", b1, torch.float32, 1)
+    B, H, W3 = x_packed.shape
+    W = W3 // 3
+    c2, c3 = b0.shape[0], b1.shape[0]
+    if (W3 % 3 or H < 2 or W < 2 or w0.shape != (108, c2)
+            or w1.shape != (9 * c2, c3) or c2 % 8 or c3 % 8):
+        raise ValueError(
+            f"stem+L1 kernel: bad shapes x {tuple(x_packed.shape)}, w0 "
+            f"{tuple(w0.shape)}, w1 {tuple(w1.shape)} (channels % 8 == 0)")
+    hs, ws = (H - 2) // 2 + 1, (W - 2) // 2 + 1
+    out = torch.empty(B, (hs + 1) // 2, (ws + 1) // 2, c3,
+                      dtype=torch.bfloat16, device=x_packed.device)
+    KERNEL.launch(x_packed, w0, b0, w1, b1, out, B, H, W, c2, c3)
+    return out

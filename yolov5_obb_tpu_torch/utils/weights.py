@@ -1,0 +1,110 @@
+"""Carry weights from the JAX package's variable tree into the port.
+
+:func:`from_jax_variables` takes the ``{"params", "batch_stats"}`` tree of a
+JAX yolov5 model as numpy arrays (for example ``utils/checkpoint.load_weights``
+output passed through ``np.asarray``) and returns a ``state_dict`` for the
+port's ``YoloModel`` of the same config: conv kernels HWIO → OIHW, BatchNorm
+``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``.
+
+Key map, per graph layer ``m{i}`` → ``model.{i}.`` (the reference PyTorch
+model's names):
+
+    Conv        Conv_0 → conv, BatchNorm_0 → bn
+    C3          ConvBnAct_0/1/2 → cv1/cv2/cv3, Bottleneck_j → m.j
+    Bottleneck  ConvBnAct_0/1 → cv1/cv2
+    SPPF        ConvBnAct_0/1 → cv1/cv2
+    Detect      conv{l}/{kernel,bias} → m.{l}.{weight,bias}
+    repeats     m{i}_{r} → model.{i}.{r}.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _cba(tp: str, jp: tuple) -> list:
+    """(torch key, tree path, kind) entries of one ConvBnAct."""
+    return [
+        (f"{tp}conv.weight", ("params", *jp, "Conv_0", "kernel"), "conv"),
+        (f"{tp}bn.weight", ("params", *jp, "BatchNorm_0", "scale"), "vec"),
+        (f"{tp}bn.bias", ("params", *jp, "BatchNorm_0", "bias"), "vec"),
+        (f"{tp}bn.running_mean", ("batch_stats", *jp, "BatchNorm_0", "mean"),
+         "vec"),
+        (f"{tp}bn.running_var", ("batch_stats", *jp, "BatchNorm_0", "var"),
+         "vec"),
+        (f"{tp}bn.num_batches_tracked", None, "count"),
+    ]
+
+
+def _module_entries(kind: str, args: tuple, frm, tp: str, jp: tuple) -> list:
+    if kind == "Conv":
+        return _cba(tp, jp)
+    if kind in ("Bottleneck", "SPPF"):
+        return (_cba(f"{tp}cv1.", (*jp, "ConvBnAct_0"))
+                + _cba(f"{tp}cv2.", (*jp, "ConvBnAct_1")))
+    if kind == "C3":
+        out = (_cba(f"{tp}cv1.", (*jp, "ConvBnAct_0"))
+               + _cba(f"{tp}cv2.", (*jp, "ConvBnAct_1"))
+               + _cba(f"{tp}cv3.", (*jp, "ConvBnAct_2")))
+        for j in range(args[2] if len(args) > 2 else 1):
+            out += (_cba(f"{tp}m.{j}.cv1.", (*jp, f"Bottleneck_{j}", "ConvBnAct_0"))
+                    + _cba(f"{tp}m.{j}.cv2.",
+                           (*jp, f"Bottleneck_{j}", "ConvBnAct_1")))
+        return out
+    if kind == "Detect":
+        out = []
+        for li in range(len(frm)):
+            out.append((f"{tp}m.{li}.weight", ("params", *jp, f"conv{li}",
+                                               "kernel"), "conv"))
+            out.append((f"{tp}m.{li}.bias", ("params", *jp, f"conv{li}",
+                                             "bias"), "vec"))
+        return out
+    if kind in ("Concat", "Upsample"):
+        return []
+    raise NotImplementedError(f"no weight map for module {kind!r}")
+
+
+def key_map(specs) -> list:
+    """``(torch key, tree path | None, kind)`` for every parameter and BN
+    statistic of the port model built from ``specs``."""
+    out = []
+    for spec in specs:
+        if spec.repeats == 1 or spec.name == "Detect":
+            out += _module_entries(spec.name, spec.args, spec.frm,
+                                   f"model.{spec.index}.", (f"m{spec.index}",))
+        else:
+            for r in range(spec.repeats):
+                out += _module_entries(spec.name, spec.args, spec.frm,
+                                       f"model.{spec.index}.{r}.",
+                                       (f"m{spec.index}_{r}",))
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree, np.float32)
+
+
+def from_jax_variables(variables, specs) -> dict:
+    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) + the parsed
+    specs of the same config → the port's ``state_dict``."""
+    sd = {}
+    missing = []
+    for key, path, kind in key_map(specs):
+        if kind == "count":
+            sd[key] = torch.tensor(0)
+            continue
+        try:
+            v = _get(variables, path)
+        except KeyError:
+            missing.append("/".join(path))
+            continue
+        if kind == "conv":
+            v = v.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        sd[key] = torch.from_numpy(np.ascontiguousarray(v))
+    if missing:
+        raise KeyError(f"{len(missing)} entries absent from the tree, e.g. "
+                       f"{missing[:5]} — wrong config for these weights?")
+    return sd
