@@ -5,17 +5,31 @@
 
 Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
-      four CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source,
-      in parallel), timed;
-  (b) each kernel against its plain PyTorch version on the card at the main
-      path's shapes (bf16 convs; neighbour kernel at n = 512/1024/2048 and on
-      a clustered input that overflows M=64), with kernel / plain / library
-      times and the bound from the bytes and operations of the shape;
-  (c) the main path: yolov5m, batch 16, 1024², conf 0.25, IoU 0.45,
+      CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
+      parallel), timed;
+  (b) each inference kernel against its plain PyTorch version on the card at
+      the main path's shapes (bf16 convs; neighbour kernel at n =
+      512/1024/2048 and on a clustered input that overflows M=64), with
+      kernel / plain / library times and the bound from the bytes and
+      operations of the shape;
+  (b') each train kernel (stem forward and weight gradient, downsample
+      forward and weight gradient) against its plain version at the train
+      path's shapes (the stem; the layer-1 and layer-3 downsamples), dW from
+      autograd with a seeded cotangent, the same times and bounds;
+  (c) the inference path: yolov5m, batch 16, 1024², conf 0.25, IoU 0.45,
       single-label, 2048 candidates, max_det 1500, random weights from a seed
-      with the detection density tuned to ~300 dets/img; every kernel's launch
-      count must move; the same path with the plain versions is the
-      reference (keep masks on the same candidates, detections per image).
+      with the detection density tuned to ~300 dets/img; every inference
+      kernel's launch count must move; the same path with the plain versions
+      is the reference (keep masks on the same candidates, detections per
+      image);
+  (d) the train path: yolov5m, batch 16, 1024², bf16, packed stem, random
+      weights from a seed, SGD at nominal batch 16, two seeded batches of 64
+      label slots with 8 live targets (tools/bench_train.py's recipe, CSL
+      rows from the port's csl_gaussian_labels); 2 warm-up steps, 12 timed
+      steps reading the loss every 4; train img/s, peak memory, a CUDA-event
+      breakdown of one step, the train kernels' launches per step (stem 1+1,
+      downsample 2+2), and loss and gradients against the same step on the
+      plain versions.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -42,6 +56,11 @@ IOU_OPS = 750
 BATCH, IMGSZ, MAXC, MAX_DET = 16, 1024, 2048, 1500
 CONF, IOU = 0.25, 0.45
 DENSITY = 300  # target dets/img for the density bisection
+# train path (tools/bench_train.py): label slots, live targets, timed steps
+MAX_LABELS, LIVE, TRAIN_ITERS, SYNC_EVERY = 64, 8, 12, 4
+# the train kernels' launches per train step at yolov5m 1024²
+TRAIN_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
+                  "down_train_fwd": 2, "down_train_wgrad": 2}
 
 
 def log(*a):
@@ -252,6 +271,151 @@ def check_down(gen, dev):
     }
 
 
+def _grad_check(fn, x, w, gen, plain_kw):
+    """Forward of ``fn`` on the kernel path and the plain path, and the
+    gradients of ``Σ z·cot`` (seeded non-uniform cotangent) w.r.t. ``x``
+    (when it takes one) and ``w``."""
+    import torch
+
+    out = {}
+    cot = None
+    for name, kw in (("kernel", {}), ("plain", plain_kw)):
+        z = fn(x, w, **kw)
+        if cot is None:
+            cot = torch.randn(z.shape, generator=gen, device=z.device)
+        wrt = (x, w) if x.requires_grad else (w,)
+        out[name] = (z.detach(), torch.autograd.grad(
+            (z.float() * cot).sum(), wrt))
+    torch.cuda.synchronize()
+    return out
+
+
+def _train_results(fwd, wgrad, got, flops, fwd_peak, fwd_bytes, wgrad_bytes,
+                   times):
+    """Per-kernel result dicts of a forward/weight-gradient pair: both do
+    ``flops`` operations, the forward's at ``fwd_peak`` (its operands'
+    type), the weight gradient's on bf16 operands."""
+    (zk, gk), (zp, gp) = got["kernel"], got["plain"]
+    f_err = float((zk.float() - zp.float()).abs().max())
+    f_tol = float(zp.float().abs().max()) / 128
+    w_err = float((gk[-1] - gp[-1]).abs().max())
+    w_tol = 2e-2 * float(gp[-1].abs().max())
+    return {
+        fwd: {"max_abs_err": f_err, "ok": f_err <= f_tol,
+              "tolerance": f"bf16: one ulp of the largest output, abs <= "
+                           f"{f_tol:.4g}",
+              "bound": bound(fwd_bytes, (flops, fwd_peak)),
+              "flops": flops, "bytes": fwd_bytes, **times[0]},
+        wgrad: {"max_abs_err": w_err, "ok": w_err <= w_tol,
+                "tolerance": f"2e-2 * max|dW| = {w_tol:.4g} (bf16 products, "
+                             f"float32 sums in another order)",
+                "bound": bound(wgrad_bytes, (flops, PEAK_BF16)),
+                "flops": flops, "bytes": wgrad_bytes, **times[1]},
+    }
+
+
+def check_stem_train(gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+    c2 = 48
+    x = torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ * 3), generator=gen,
+                      device=dev, dtype=torch.uint8)
+    w = (conv_weights(gen, c2, 3, 6, dev) / 255.0).requires_grad_()
+    got = _grad_check(S.stem_conv_train, x, w, gen, {"plain": True})
+    dz = got["kernel"][0]  # any bf16 tensor of dz's shape
+    xb = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = w.detach().to(torch.bfloat16)
+    dzb = dz.permute(0, 3, 1, 2)
+    wd = w.detach()
+    times = [
+        {"ms": cuda_time(lambda: S.stem_train_fwd(x, wd), 5),
+         "plain_ms": cuda_time(lambda: S.stem_train_fwd_plain(x, wd), 3),
+         "library_ms": cuda_time(lambda: F.conv2d(xb, wb, None, 2, 2), 5)},
+        {"ms": cuda_time(lambda: S.stem_train_wgrad(x, dz), 5),
+         "plain_ms": cuda_time(lambda: S.stem_train_wgrad_plain(x, dz), 3),
+         "library_ms": cuda_time(lambda: torch.nn.grad.conv2d_weight(
+             xb, wb.shape, dzb, 2, 2), 5)},
+    ]
+    hs = IMGSZ // 2
+    flops = 2 * BATCH * hs * hs * 108 * c2
+    # the forward multiplies uint8 values by float32 weights (float32 work);
+    # the weight gradient multiplies bf16 image values by bf16 dz
+    nbytes = x.numel() + dz.numel() * 2 + wd.numel() * 4
+    res = _train_results("stem_train_fwd", "stem_train_wgrad", got, flops,
+                         PEAK_FP32, nbytes, nbytes, times)
+    return {"stem_train_fwd": (S.TRAIN_FWD_KERNEL, res["stem_train_fwd"]),
+            "stem_train_wgrad": (S.TRAIN_WGRAD_KERNEL,
+                                 res["stem_train_wgrad"])}
+
+
+def check_down_train(gen, dev):
+    """The layer-1 (512² x 48 → 96) and layer-3 (256² x 96 → 192)
+    downsamples; each kernel's entry sums the two layers, as one train step
+    launches it at both."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+
+    per = {}
+    for layer, ci, co, H in (("L1", 48, 96, IMGSZ // 2),
+                             ("L3", 96, 192, IMGSZ // 4)):
+        x = torch.randn(BATCH, H, H, ci, generator=gen, device=dev).to(
+            torch.bfloat16).requires_grad_()
+        w = conv_weights(gen, co, ci, 3, dev).permute(2, 3, 1, 0).reshape(
+            9 * ci, co).contiguous().requires_grad_()
+        got = _grad_check(D.down_conv_train, x, w, gen, {"plain": True})
+        dxk, dxp = got["kernel"][1][0].float(), got["plain"][1][0].float()
+        dx_err = float((dxk - dxp).abs().max())
+        dx_tol = float(dxp.abs().max()) / 128
+        dz = got["kernel"][0]
+        xd, wq = x.detach(), w.detach().to(torch.bfloat16)
+        xn, dzn = xd.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+        k = wq.reshape(3, 3, ci, co).permute(3, 2, 0, 1)
+        times = [
+            {"ms": cuda_time(lambda: D.down_train_fwd(xd, wq), 5),
+             "plain_ms": cuda_time(lambda: D.down_train_fwd_plain(xd, wq), 3),
+             "library_ms": cuda_time(lambda: F.conv2d(xn, k, None, 2, 1), 5)},
+            {"ms": cuda_time(lambda: D.down_train_wgrad(xd, dz), 5),
+             "plain_ms": cuda_time(lambda: D.down_train_wgrad_plain(xd, dz),
+                                   3),
+             "library_ms": cuda_time(lambda: torch.nn.grad.conv2d_weight(
+                 xn, k.shape, dzn, 2, 1), 5)},
+        ]
+        flops = 2 * BATCH * (H // 2) ** 2 * 9 * ci * co
+        nbytes = x.numel() * 2 + dz.numel() * 2
+        res = _train_results("down_train_fwd", "down_train_wgrad", got, flops,
+                             PEAK_BF16, nbytes + wq.numel() * 2,
+                             nbytes + w.numel() * 4, times)
+        # the input gradient: the same transposed conv on both paths, but
+        # cuDNN may pick another algorithm (and sum order) per call
+        res["down_train_wgrad"]["dx_max_abs_err"] = dx_err
+        res["down_train_wgrad"]["dx_tolerance"] = dx_tol
+        res["down_train_wgrad"]["ok"] &= dx_err <= dx_tol
+        per[layer] = res
+        del x, w, got, dz
+        torch.cuda.empty_cache()
+    out = {}
+    for name, kern in (("down_train_fwd", D.TRAIN_FWD_KERNEL),
+                       ("down_train_wgrad", D.TRAIN_WGRAD_KERNEL)):
+        l1, l3 = per["L1"][name], per["L3"][name]
+        out[name] = (kern, {
+            "max_abs_err": max(l1["max_abs_err"], l3["max_abs_err"]),
+            "ok": l1["ok"] and l3["ok"],
+            "tolerance": f"L1: {l1['tolerance']}; L3: {l3['tolerance']}",
+            "bound": bound(l1["bytes"] + l3["bytes"],
+                           (l1["flops"] + l3["flops"], PEAK_BF16)),
+            **{k: l1[k] + l3[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "flops", "bytes")},
+            "cases": {"L1": {k: v for k, v in l1.items() if k != "bound"},
+                      "L3": {k: v for k, v in l3.items() if k != "bound"}},
+        })
+    return out
+
+
 def synthetic_candidates(gen, n, clustered, dev):
     import torch
 
@@ -375,7 +539,7 @@ def main_path(dev, report):
     require(all(xs[i].data_ptr() != xs[j].data_ptr()
                 for i in range(3) for j in range(i)), "batches share buffers")
     predict = make_predict_fn(model, meta, CONF, IOU, MAX_DET,
-                              max_candidates=MAXC)
+                              multi_label=False, max_candidates=MAXC)
 
     def set_obj(delta):
         with torch.no_grad():
@@ -394,12 +558,13 @@ def main_path(dev, report):
     log(f"density: obj delta {delta:.4f}  set-up {time.perf_counter() - t0:.1f}s")
 
     # the counted run: three distinct batches through the user entry point
-    for k in _named_kernels().values():
+    kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+    for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
     outs = [predict(x) for x in xs]
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in _named_kernels().items()}
+    launches = {name: k.launches for name, k in kernels.items()}
     log(f"launches over 3 predict calls: {launches}")
     require(all(v > 0 for v in launches.values()),
             f"kernel not launched: {launches}")
@@ -412,7 +577,8 @@ def main_path(dev, report):
 
     # reference: the same path through the plain versions on the card
     predict_plain = make_predict_fn(model, meta, CONF, IOU, MAX_DET,
-                                    max_candidates=MAXC, plain=True)
+                                    multi_label=False, max_candidates=MAXC,
+                                    plain=True)
     img_mismatch, det_diff, cls_mismatch, map_err = 0, 0, 0, 0.0
     keep_mismatch, idx_mismatch, sup_mismatch, cand = 0, 0, 0, 0
     with torch.inference_mode():
@@ -485,9 +651,294 @@ def main_path(dev, report):
         "images_differing_vs_plain": img_mismatch,
         "dets_abs_diff_vs_plain": det_diff,
         "keep_mask_mismatches": keep_mismatch,
-        "launches_per_3_predicts": launches,
+        "launches_per_3_predicts": dict(launches),
     })
     return launches
+
+
+# ---------------------------------------------------------------------------
+# (d) the train path
+# ---------------------------------------------------------------------------
+
+
+def train_batches(dev, csl_radius):
+    """Two distinct seeded batches as tools/bench_train.py builds them (64
+    label slots, 8 live targets), the CSL rows from the port's
+    csl_gaussian_labels; the image as the packed (B, H, 3W) view."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.geometry import csl_gaussian_labels
+
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(2):
+        img = rng.integers(0, 255, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+        tg = np.zeros((BATCH, MAX_LABELS, 186), np.float32)
+        tg[:, :LIVE, 0] = rng.integers(0, 15, (BATCH, LIVE))
+        tg[:, :LIVE, 1:3] = rng.uniform(100, 900, (BATCH, LIVE, 2))
+        tg[:, :LIVE, 3:5] = rng.uniform(20, 120, (BATCH, LIVE, 2))
+        tg[:, :LIVE, 5] = rng.uniform(-1.5, 1.5, (BATCH, LIVE))
+        tg[:, :LIVE, 6:] = csl_gaussian_labels(
+            tg[:, :LIVE, 5].reshape(-1) * 180 / np.pi + 90,
+            radius=csl_radius).reshape(BATCH, LIVE, 180)
+        mask = np.zeros((BATCH, MAX_LABELS), bool)
+        mask[:, :LIVE] = True
+        out.append(tuple(torch.from_numpy(a).to(dev) for a in (
+            img.reshape(BATCH, IMGSZ, -1), tg, mask)))
+    require(out[0][0].data_ptr() != out[1][0].data_ptr(),
+            "batches share buffers")
+    return out
+
+
+def _cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    n = float(a.norm() * b.norm())
+    return float(a @ b) / n if n else 1.0
+
+
+def compare_plain_step(model, loss_fn, opt, batch):
+    """Loss items and gradients of one step from the same state and batch,
+    through the kernels and through their plain versions (the BN running
+    statistics are put back after each).
+
+    The kernel layers' weight gradients of the kernel step are held
+    elementwise (2e-2 of the largest) to the plain weight gradient of the
+    same layer inputs and incoming gradients, recorded during that step.
+    The whole step's gradients cannot be held elementwise: a bf16 step's
+    gradients are dominated by rounding noise that train-mode BatchNorm
+    amplifies through the depth, so any one-ulp change moves them by tens of
+    percent (the JAX package's tests/test_packed_train.py found the same and
+    compares directions).  They are held to the direction of the plain
+    step's, no worse than a control: the plain step with the stem weights
+    scaled by 1 + 2^-8, a one-bf16-ulp perturbation."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels import down_kernel, stem_kernel
+
+    image, tg, mask = batch
+    recorded = []
+
+    def recording(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(x, dz):
+            dw = fn(x, dz)
+            recorded.append((name, x, dz, dw))
+            return dw
+        return fn, wrapper
+
+    patches = [(mod, name, *recording(mod, name)) for mod, name in (
+        (stem_kernel, "stem_train_wgrad"), (down_kernel, "down_train_wgrad"))]
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+    w0 = model.model[0].conv.weight
+    w0_saved = w0.detach().clone()
+    out = {}
+    model.train()
+    for name, plain, scale in (("kernel", False, 1.0), ("plain", True, 1.0),
+                               ("control", True, 1.0 + 2.0**-8)):
+        with torch.no_grad():
+            w0.mul_(scale)
+        total, items = loss_fn(model(image, plain=plain), tg, mask)
+        for mod, fn_name, _, wrapper in patches if name == "kernel" else ():
+            setattr(mod, fn_name, wrapper)
+        try:
+            grads = torch.autograd.grad(total, list(opt.params))
+        finally:
+            for mod, fn_name, fn, _ in patches:
+                setattr(mod, fn_name, fn)
+        out[name] = (items.detach().float(), dict(zip(opt.names, grads)))
+        with torch.no_grad():
+            w0.copy_(w0_saved)
+            for k, b in model.named_buffers():
+                b.copy_(saved[k])
+    model.eval()
+    ip, gp = out["plain"]
+    det = [n for n in gp if n.startswith(f"model.{len(model.model) - 1}.")]
+    groups = {"model.0.conv.weight": ["model.0.conv.weight"],
+              "model.1.conv.weight": ["model.1.conv.weight"],
+              "model.3.conv.weight": ["model.3.conv.weight"],
+              "detect": det, "all": list(gp)}
+    res = {"items_plain": ip.tolist()}
+    for name in ("kernel", "control"):
+        i, g = out[name]
+        rel = {n: float((g[n] - gp[n]).abs().max()
+                        / gp[n].abs().max().clamp(min=1e-30)) for n in gp}
+        res[name] = {
+            "items": i.tolist(),
+            "items_max_rel_err": float(((i - ip).abs() / ip.abs()).max()),
+            "cos": {k: _cos(torch.cat([g[n].flatten() for n in v]),
+                            torch.cat([gp[n].flatten() for n in v]))
+                    for k, v in groups.items()},
+            "grad_max_rel_err": {
+                "median": float(np.median(list(rel.values()))),
+                "max": max(rel.items(), key=lambda kv: kv[1]),
+                **{n: rel[n] for n in groups if n in rel}},
+        }
+    wgrads = []
+    with torch.no_grad():
+        for name, x, dz, dw in recorded:
+            plain_fn = (stem_kernel.stem_train_wgrad_plain if name.startswith(
+                "stem") else down_kernel.down_train_wgrad_plain)
+            want = plain_fn(x, dz)
+            wgrads.append((name, tuple(x.shape), float(
+                (dw - want).abs().max() / want.abs().max().clamp(min=1e-30))))
+    res["kernel_wgrads_in_step_rel_err"] = wgrads
+    del recorded
+    k, c = res["kernel"], res["control"]
+    require(k["items_max_rel_err"] <= 1e-2,
+            f"loss items differ from the plain step: {res}")
+    require([n for n, _, _ in wgrads] == ["down_train_wgrad"] * 2
+            + ["stem_train_wgrad"] and all(e <= 2e-2 for _, _, e in wgrads),
+            f"kernel weight gradients in the step: {wgrads}")
+    require(k["cos"]["detect"] > 0.9 and all(
+        k["cos"][n] >= c["cos"][n] - 0.05 for n in groups),
+        f"gradients point elsewhere than the plain step's: {res}")
+    return res
+
+
+def step_breakdown(model, loss_fn, opt, state, batch):
+    """CUDA-event times of one train step's parts (the body of
+    engine/trainer.make_train_step, timed piecewise)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.optim import ema_update
+
+    image, tg, mask = batch
+    params = list(opt.params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.train()
+    torch.cuda.synchronize()
+    ev[0].record()
+    total, items = loss_fn(model(image), tg, mask)
+    ev[1].record()
+    grads = torch.autograd.grad(total, params)
+    ev[2].record()
+    opt.apply(state.opt_state, grads)
+    state.ema_updates += 1
+    ema_update(state.ema.values(), params, state.ema_updates)
+    ev[3].record()
+    torch.cuda.synchronize()
+    model.eval()
+    return {"forward_loss_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "optimizer_ema_ms": ev[2].elapsed_time(ev[3])}
+
+
+# kernel-name substrings → group, first match wins: this port's kernels,
+# cuDNN/CUTLASS convolutions, reductions, elementwise passes
+_GROUPS = (("port kernels", ("stem_fwd_kernel", "stem_wgrad_kernel",
+                             "down_wgrad_kernel", "down_conv", "sum_partials")),
+           ("convolutions (cuDNN/CUTLASS)", ("conv", "cudnn", "xmma", "cutlass",
+                                             "implicit", "wgrad", "dgrad",
+                                             "gemm", "sm90")),
+           ("reductions", ("reduce",)),
+           ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def profile_step(step, state, batch, step_ms):
+    """Device time of one train step by kernel name (torch.profiler), in
+    the groups of ``_GROUPS``; the idle share compares the device time with
+    the unprofiled step time ``step_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(step(state, *batch)["loss"])
+    torch.cuda.synchronize()
+    # the kernels themselves: an aten op's entry repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_ms = sum(ms for _, ms, _ in rows)
+    groups = {g: 0.0 for g, _ in _GROUPS}
+    groups["other"] = 0.0
+    for name, ms, _ in rows:
+        low = name.lower()
+        g = next((g for g, keys in _GROUPS if any(k in low for k in keys)),
+                 "other")
+        groups[g] += ms
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": device_ms,
+            "idle_share": 1.0 - device_ms / step_ms if step_ms else None,
+            "by_group_ms": groups,
+            "top_kernels": [(n[:90], ms, c) for n, ms, c in rows[:12]]}
+
+
+def train_path(dev, report):
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
+    from yolov5_obb_tpu_torch.engine.optim import build_optimizer
+    from yolov5_obb_tpu_torch.engine.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
+
+    t0 = time.perf_counter()
+    model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
+                               device=dev, seed=0, packed_stem=True)
+    hyp = load_hyp()
+    loss_fn = ComputeLoss(meta, scale_hyp_gains(hyp, meta.nl, meta.nc, IMGSZ))
+    opt, _ = build_optimizer(model, hyp, epochs=10, steps_per_epoch=100,
+                             batch_size=BATCH, nominal_batch=BATCH)
+    state = create_train_state(opt)
+    step = make_train_step(model, loss_fn, opt, device=dev)
+    batches = train_batches(dev, hyp["csl_radius"])
+    log(f"train set-up {time.perf_counter() - t0:.1f}s")
+
+    # reference: the same step through the plain versions
+    cmp = compare_plain_step(model, loss_fn, opt, batches[0])
+    log("train step vs plain: " + json.dumps(cmp))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):  # warm-up
+        float(step(state, *batches[i])["loss"])
+    kernels = {n: k for n, k in _named_kernels().items()
+               if n in TRAIN_LAUNCHES}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = []
+    for i in range(TRAIN_ITERS):
+        m = step(state, *batches[i % 2])
+        if (i + 1) % SYNC_EVERY == 0:
+            losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = {n: k.launches for n, k in kernels.items()}
+    items = m["items"].float().tolist()
+    log(f"launches over {TRAIN_ITERS} train steps: {launches}")
+    require(all(launches[n] == TRAIN_ITERS * per
+                for n, per in TRAIN_LAUNCHES.items()),
+            f"train kernel launches {launches}, expected per step "
+            f"{TRAIN_LAUNCHES}")
+    require(bool(np.isfinite(losses + items).all()),
+            f"non-finite loss {losses} / items {items}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    breakdown = step_breakdown(model, loss_fn, opt, state, batches[0])
+    prof = profile_step(step, state, batches[1], dt * 1e3 / TRAIN_ITERS)
+    log("train step profile: " + json.dumps(prof))
+    require(prof["device_ms"] > 0, "the profiler saw no device time")
+    report.update({
+        "train_imgs_per_s": TRAIN_ITERS * BATCH / dt,
+        "train_step_ms": dt * 1e3 / TRAIN_ITERS,
+        "train_peak_mem_gib": peak, "train_losses": losses,
+        "train_items_last": items, "train_step_breakdown_ms": breakdown,
+        "train_launches_per_step": {n: v / TRAIN_ITERS
+                                    for n, v in launches.items()},
+        "train_vs_plain": cmp, "train_profile": prof,
+    })
+    return launches
+
+
+INFER = ("stem_l1", "c3", "down", "neighbor")
 
 
 def _named_kernels():
@@ -499,7 +950,11 @@ def _named_kernels():
     )
 
     return {"stem_l1": stem_kernel.KERNEL, "c3": c3_kernel.KERNEL,
-            "down": down_kernel.KERNEL, "neighbor": neighbor_kernel.KERNEL}
+            "down": down_kernel.KERNEL, "neighbor": neighbor_kernel.KERNEL,
+            "stem_train_fwd": stem_kernel.TRAIN_FWD_KERNEL,
+            "stem_train_wgrad": stem_kernel.TRAIN_WGRAD_KERNEL,
+            "down_train_fwd": down_kernel.TRAIN_FWD_KERNEL,
+            "down_train_wgrad": down_kernel.TRAIN_WGRAD_KERNEL}
 
 
 def main() -> int:
@@ -532,28 +987,39 @@ def main() -> int:
         log(f"--- ptxas {name}\n" + "\n".join(
             l for l in text.splitlines() if "registers" in l or "spill" in l))
 
-    # (b) kernels against their plain versions
+    # (b) inference kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for check in (check_stem, check_c3, check_down, check_neighbor):
         name, mod, res = check(gen, dev)
+        results[name] = (mod.KERNEL, res)
+        torch.cuda.empty_cache()
+    # (b') train kernels against their plain versions
+    for check in (check_stem_train, check_down_train):
+        results.update(check(gen, dev))
+        torch.cuda.empty_cache()
+    for name, (_, res) in results.items():
         log(f"{name}: " + json.dumps({k: v for k, v in res.items()
                                       if k not in ("bound",)}))
         require(res["ok"], f"{name} disagrees with its plain version")
-        results[name] = (mod, res)
-        torch.cuda.empty_cache()
 
-    # (c) the main path
+    # (c) the inference path
     report = {}
     launches = main_path(dev, report)
+    torch.cuda.empty_cache()
+    # (d) the train path
+    launches.update(train_path(dev, report))
     log("main path: " + json.dumps(report))
+    log(f"train: {report['train_imgs_per_s']:.2f} img/s at yolov5m b16 "
+        f"1024² on {card}; peak {report['train_peak_mem_gib']:.2f} GiB; "
+        f"step {report['train_step_breakdown_ms']}")
 
     kernels = []
-    for name, (mod, res) in results.items():
+    for name, (kern, res) in results.items():
         b_ms, b_by = res["bound"]
         kernels.append({
-            "name": name, "route": "cuda", "source": mod.KERNEL.path,
-            "replaces": mod.KERNEL.replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": kern.path,
+            "replaces": kern.replaces, "launches": launches[name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "kernel_ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,

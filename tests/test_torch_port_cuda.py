@@ -123,6 +123,60 @@ def test_neighbor_kernel(dev, n, clustered):
     assert bool((pidx[..., -1] > 0).any()) == clustered  # rows overflowing M
 
 
+@pytest.mark.parametrize("H,W,c2", [(64, 64, 16), (70, 42, 48), (34, 98, 8)])
+def test_stem_train_kernels(dev, H, W, c2):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B = 2
+    x = torch.randint(0, 256, (B, H, 3 * W), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w = (_w(gen, c2, 3, 6, dev) / 255.0).requires_grad_()
+    z = _counted(stem_kernel.TRAIN_FWD_KERNEL,
+                 lambda: stem_kernel.stem_conv_train(x, w))
+    zp = stem_kernel.stem_conv_train(x, w, plain=True)
+    assert z.shape == zp.shape == (B, (H - 2) // 2 + 1, (W - 2) // 2 + 1, c2)
+    assert z.dtype == torch.bfloat16
+    # bf16 output: at most one ulp of the largest value
+    assert (z.float() - zp.float()).abs().max() <= zp.float().abs().max() / 128
+    cot = torch.randn(z.shape, generator=gen, device=dev)
+    g = _counted(stem_kernel.TRAIN_WGRAD_KERNEL, lambda: torch.autograd.grad(
+        (z.float() * cot).sum(), w)[0])
+    gp = torch.autograd.grad((zp.float() * cot).sum(), w)[0]
+    assert g.shape == gp.shape == w.shape and g.dtype == torch.float32
+    # the tolerance of tests/test_stem_kernel.py: bf16 products, f32 sums
+    assert (g - gp).abs().max() <= 2e-2 * gp.abs().max()
+    # two stages, no atomics: repeated runs agree bit for bit
+    g2 = torch.autograd.grad((stem_kernel.stem_conv_train(x, w).float()
+                              * cot).sum(), w)[0]
+    assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("H,W,ci,co", [(32, 32, 16, 32), (33, 19, 48, 96),
+                                       (18, 40, 40, 24)])
+def test_down_train_kernels(dev, H, W, ci, co):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B = 2
+    x = torch.randn(B, H, W, ci, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_()
+    w = _w(gen, co, ci, 3, dev).permute(2, 3, 1, 0).reshape(9 * ci, co)
+    w = w.contiguous().requires_grad_()
+    z = _counted(down_kernel.TRAIN_FWD_KERNEL,
+                 lambda: down_kernel.down_conv_train(x, w))
+    zp = down_kernel.down_conv_train(x, w, plain=True)
+    assert z.shape == zp.shape == (B, (H + 1) // 2, (W + 1) // 2, co)
+    assert (z.float() - zp.float()).abs().max() <= 0.05  # bf16 output ulps
+    cot = torch.randn(z.shape, generator=gen, device=dev)
+    gx, gw = _counted(down_kernel.TRAIN_WGRAD_KERNEL, lambda: torch.autograd
+                      .grad((z.float() * cot).sum(), (x, w)))
+    gxp, gwp = torch.autograd.grad((zp.float() * cot).sum(), (x, w))
+    assert gw.dtype == torch.float32 and gx.dtype == torch.bfloat16
+    assert (gw - gwp).abs().max() <= 2e-2 * gwp.abs().max()
+    # the same transposed conv on both paths; cuDNN may sum in another order
+    assert (gx.float() - gxp.float()).abs().max() <= gxp.float().abs().max() / 128
+    gw2 = torch.autograd.grad((down_kernel.down_conv_train(x, w).float()
+                               * cot).sum(), w)[0]
+    assert torch.equal(gw, gw2)
+
+
 def test_slice_kernels_match_plain(dev, monkeypatch):
     from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
     from yolov5_obb_tpu_torch.models.yolo import create_model
@@ -145,10 +199,12 @@ def test_slice_kernels_match_plain(dev, monkeypatch):
     kinds = (stem_kernel.KERNEL, c3_kernel.KERNEL, down_kernel.KERNEL,
              neighbor_kernel.KERNEL)
     before = [k.launches for k in kinds]
-    d, num = make_predict_fn(model, meta, 0.25, 0.45, 300)(x)
+    d, num = make_predict_fn(model, meta, 0.25, 0.45, 300,
+                             multi_label=False)(x)
     torch.cuda.synchronize()
     assert all(k.launches > b for k, b in zip(kinds, before))
-    dp, nump = make_predict_fn(model, meta, 0.25, 0.45, 300, plain=True)(x)
+    dp, nump = make_predict_fn(model, meta, 0.25, 0.45, 300,
+                               multi_label=False, plain=True)(x)
     assert d.shape == dp.shape == (2, 300, 7) and torch.isfinite(d).all()
     assert int(nump.min()) > 0
     # bf16 rounding differs between kernel and plain convs: a score may

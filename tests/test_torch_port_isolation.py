@@ -72,6 +72,47 @@ def test_entry_points_need_the_card_unless_cpu_is_asked():
     model, meta = create_model("yolov5n.yaml", nc=15, device="cpu",
                                packed_stem=True)
     assert next(model.parameters()).device.type == "cpu"
-    predict = make_predict_fn(model, meta, 0.25, 0.45, 100)
+    predict = make_predict_fn(model, meta, 0.25, 0.45, 100, multi_label=False)
     dets, num = predict(torch.zeros(1, 64, 64 * 3, dtype=torch.uint8))
     assert dets.shape == (1, 100, 7) and num.shape == (1,)
+
+
+def test_train_step_needs_the_card_unless_cpu_is_asked():
+    from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
+    from yolov5_obb_tpu_torch.engine.optim import build_optimizer
+    from yolov5_obb_tpu_torch.engine.trainer import make_train_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is allowed to run")
+    model, meta = create_model("yolov5n.yaml", nc=15, device="cpu",
+                               packed_stem=True)
+    opt, _ = build_optimizer(model, {}, 1, 1, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, ComputeLoss(meta), opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, ComputeLoss(meta), opt, device="cuda")
+    make_train_step(model, ComputeLoss(meta), opt, device="cpu")
+    for kw in ({"remat": True}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError):
+            make_train_step(model, ComputeLoss(meta), opt, device="cpu", **kw)
+
+
+def test_predict_defaults_to_multi_label_like_jax():
+    """The JAX package's make_predict_fn defaults to multi-label; so does
+    the port's, which refuses it (not ported) rather than quietly returning
+    single-label detections."""
+    model, meta = create_model("yolov5n.yaml", nc=15, device="cpu",
+                               packed_stem=True)
+    with pytest.raises(NotImplementedError, match="multi-label"):
+        make_predict_fn(model, meta, 0.25, 0.45, 100)
+    make_predict_fn(model, meta, 0.25, 0.45, 100, multi_label=False)
+
+
+def test_packed_stem_layer_refuses_eval_mode():
+    """The stem-only inference kernel is not ported: a packed-stem model
+    folds layer 0 into the stem+L1 kernel at inference, and its PackedStem
+    layer runs only in train mode."""
+    model, _ = create_model("yolov5n.yaml", nc=15, device="cpu",
+                            packed_stem=True)
+    with pytest.raises(NotImplementedError, match="fused_stem"):
+        model.model[0](torch.zeros(1, 64, 64 * 3, dtype=torch.uint8))

@@ -12,80 +12,23 @@
 // bf16 tensor-core peak: bytes bound it, by a hair.  This first version uses
 // scalar float32 FMAs, so in practice operations limit it.
 //
-// Design: one block per 8x8 output tile of one image.  The block stages the
-// 17x17 input patch under the tile (zero outside the image: SAME padding) in
-// a padded bf16 shared tile, then each thread computes 8 output channels of
-// one pixel from it; a warp covers 32 pixels of one channel group, so the
-// weight reads are warp-uniform broadcasts.
-#include "common.cuh"
+// Design: the tiled conv of down_conv.cuh with a scale/shift + SiLU epilogue.
+#include "down_conv.cuh"
 
-namespace {
-
-constexpr int T = 8;                 // outputs per block side
-constexpr int IT = 2 * T + 1;        // input pixels per block side
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-down_kernel(const __nv_bfloat16* __restrict__ x,
-            const __nv_bfloat16* __restrict__ w, const float* __restrict__ ss,
-            __nv_bfloat16* __restrict__ out, int H, int W, int ci, int co,
-            int Ho, int Wo) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem4);
-  const int st = smem_stride(ci);
-  const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * T, ox0 = blockIdx.x * T;
-  const int iy0 = 2 * oy0 - 1, ix0 = 2 * ox0 - 1;
-  const __nv_bfloat16* xb = x + (size_t)b * H * W * ci;
-
-  // stage the patch two channels at a time
-  const int half = ci / 2;
-  for (int idx = threadIdx.x; idx < IT * IT * half; idx += kThreads) {
-    int p = idx / half, c2 = idx - p * half;
-    int r = p / IT, q = p - r * IT;
-    int gy = iy0 + r, gx = ix0 + q;
-    __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = reinterpret_cast<const __nv_bfloat162*>(
-          xb + ((size_t)gy * W + gx) * ci)[c2];
-    reinterpret_cast<__nv_bfloat162*>(tile + p * st)[c2] = v;
-  }
-  __syncthreads();
-
-  const int groups = co / 8;
-  for (int item = threadIdx.x; item < T * T * groups; item += kThreads) {
-    int g = item / (T * T), p = item - g * (T * T);
-    int py = p / T, px = p - py * T;
-    int oy = oy0 + py, ox = ox0 + px;
-    if (oy >= Ho || ox >= Wo) continue;
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx)
-        fma_pixel(tile + ((2 * py + dy) * IT + 2 * px + dx) * st, ci,
-                  w + (size_t)(dy * 3 + dx) * ci * co + g * 8, co, acc);
+// (at namespace scope: the type is a template argument of a kernel)
+struct BnSilu {
+  const float* ss;  // (2, co): scale row, then shift row
+  int co;
+  __device__ __forceinline__ void operator()(float* acc, int k0) const {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      acc[j] = silu(acc[j] * ss[g * 8 + j] + ss[co + g * 8 + j]);
-    store8_bf16(out + (((size_t)b * Ho + oy) * Wo + ox) * co + g * 8, acc);
+      acc[j] = silu(acc[j] * ss[k0 + j] + ss[co + k0 + j]);
   }
-}
-
-}  // namespace
+};
 
 extern "C" int down_launch(const void* x, const void* w, const float* ss,
                            void* out, int B, int H, int W, int ci, int co,
                            void* stream) {
-  const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  if (B == 0 || Ho == 0 || Wo == 0) return 0;
-  size_t smem = (size_t)IT * IT * smem_stride(ci) * sizeof(__nv_bfloat16);
-  cudaError_t err = allow_smem(down_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Wo + T - 1) / T, (Ho + T - 1) / T, B);
-  down_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x),
-      reinterpret_cast<const __nv_bfloat16*>(w), ss,
-      reinterpret_cast<__nv_bfloat16*>(out), H, W, ci, co, Ho, Wo);
-  return (int)cudaGetLastError();
+  return (int)down_conv::launch(x, w, BnSilu{ss, co}, out, B, H, W, ci, co,
+                                (cudaStream_t)stream);
 }

@@ -13,7 +13,7 @@ from ..ops.rotated_nms import non_max_suppression_from_maps
 
 
 def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
-                    multi_label=False, max_candidates=4096,
+                    multi_label=True, max_candidates=4096,
                     agnostic: bool = False, classes=None,
                     plain: bool = False):
     """Image → detections function, shared by the command-line tools.
@@ -26,7 +26,10 @@ def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
     reference the kernels are checked against.
 
     The returned ``predict(images) -> (dets (B, max_det, 7), num (B,))``
-    runs under ``torch.inference_mode``."""
+    runs under ``torch.inference_mode``.
+
+    ``multi_label`` defaults to True, as in the JAX package; only
+    single-label selection is ported, so pass ``multi_label=False``."""
     if multi_label:
         raise NotImplementedError(
             "multi-label inference (_batched_exact_pairs) is not ported yet")

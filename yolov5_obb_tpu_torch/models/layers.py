@@ -1,4 +1,4 @@
-"""Layers of the YOLOv5-OBB graph, NHWC, inference.
+"""Layers of the YOLOv5-OBB graph, NHWC, inference and training.
 
 Counterparts of ``yolov5_obb_tpu/models/layers.py`` for the modules the
 yolov5n/s/m/l/x configs use.  Module and parameter names follow the
@@ -7,7 +7,10 @@ a reference state_dict maps onto them key for key.
 
 Activations are NHWC tensors; a convolution views them as channels-last
 NCHW for ``F.conv2d`` (no copy).  Convs compute in the activation dtype,
-BatchNorm and SiLU in float32 (the JAX package's eval numerics), BN eps 1e-3.
+BatchNorm and SiLU in float32, BN eps 1e-3.  In eval mode BatchNorm uses its
+running statistics; in train mode (``module.train()``) it normalises with
+the batch statistics and updates the running ones as flax does (see
+:func:`batch_norm_train`).
 
 Every module takes ``(x, plain=False)``; ``plain`` sends a kernel-bearing
 layer to its kernel's plain PyTorch version on any device.
@@ -22,15 +25,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.c3_kernel import fold_c3_params, fused_c3, fused_c3_plain
-from ..ops.kernels.down_kernel import fold_down_params, fused_down, fused_down_plain
+from ..ops.kernels.down_kernel import (
+    down_conv_train,
+    fold_down_params,
+    fused_down,
+    fused_down_plain,
+)
+from ..ops.kernels.stem_kernel import stem_conv_train
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # flax momentum 0.97
 
-# Which layers run a hand-written kernel at inference: the same choice as the
-# JAX main path at 1024² (the layer-2 C3 and the layer-3 downsample, both at
-# 256² input).  These gates were measured on a TPU; an A/B on the H100 is an
-# open question (PERF.md).
+# Which layers run a hand-written kernel: the same choice as the JAX package
+# at 1024².  At inference the layer-2 C3 and the layer-3 downsample (both at
+# 256² input); in training the layer-1 and layer-3 downsamples (512² and 256²
+# input; the C3 kernel is inference-only).  These gates were measured on a
+# TPU; an A/B on the H100 is an open question (PERF.md).
 FUSED_C3_MIN_SPATIAL = 256 * 256
 FUSED_DOWN_MIN_SPATIAL = 256 * 256
 
@@ -54,11 +64,41 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def batch_norm_train(bn: nn.BatchNorm2d, z):
+    """Train-mode BatchNorm of an NHWC conv output, flax semantics: the
+    batch mean and the biased variance ``E[z²] - E[z]²`` (clamped at 0)
+    in float32, normalise in float32, and the running statistics updated as
+    ``0.97·old + 0.03·batch`` with that biased variance (``F.batch_norm``
+    would store the unbiased one).  Returns the float32 normalised ``z``."""
+    zf = z.float()
+    mean = zf.mean((0, 1, 2))
+    var = torch.clamp((zf * zf).mean((0, 1, 2)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(0.97 * bn.running_mean + 0.03 * mean)
+        bn.running_var.copy_(0.97 * bn.running_var + 0.03 * var)
+    return (zf - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
+
+
+def _bn_act(m, z, dtype):
+    """BatchNorm (batch statistics in train mode, running ones in eval) +
+    SiLU in float32 → ``dtype``."""
+    bn = m.bn
+    if m.training:
+        y = batch_norm_train(bn, z)
+    else:
+        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+        y = (z.float() - bn.running_mean) * mul + bn.bias
+    y = y * torch.sigmoid(y) if m.act else y
+    return y.to(dtype)
+
+
 class ConvBnAct(nn.Module):
     """Conv2d + BatchNorm + SiLU (reference ``Conv``).
 
     ``fused=True``: an eligible stride-2 3x3 downsample at a large enough
-    input runs as the downsample kernel (ops/kernels/down_kernel.py)."""
+    input runs on the downsample kernels (ops/kernels/down_kernel.py): at
+    inference the conv + BN + SiLU kernel, in training the raw conv kernel
+    (with its weight-gradient kernel) and live BatchNorm."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True,
                  fused: bool = False):
@@ -69,24 +109,64 @@ class ConvBnAct(nn.Module):
                               bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
 
-    def down_eligible(self, x) -> bool:
+    def _down_shape(self, x) -> bool:
         ci, co = self.conv.in_channels, self.conv.out_channels
         return (self.fused and self.k == 3 and self.s == 2 and self.g == 1
                 and self.act and self.p in (None, 1)
                 and ci % 2 == 0 and co % 8 == 0
                 and x.shape[1] * x.shape[2] >= FUSED_DOWN_MIN_SPATIAL)
 
+    def down_eligible(self, x) -> bool:
+        """Inference: the conv + BN + SiLU kernel (BN folded, so eval only)."""
+        return not self.training and self._down_shape(x)
+
+    def down_train_eligible(self, x) -> bool:
+        """Training: the raw conv kernel, then live BatchNorm."""
+        return (self.training and self._down_shape(x)
+                and self.conv.in_channels % 8 == 0)
+
     def forward(self, x, plain: bool = False):
         if self.down_eligible(x):
             w, ss = fold_down_params(self.conv, self.bn, x.dtype)
             return (fused_down_plain if plain else fused_down)(x, w, ss)
-        y = F.conv2d(_nchw(x), self.conv.weight.to(x.dtype), None,
-                     self.conv.stride, self.conv.padding, 1, self.g)
-        bn = self.bn
-        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-        y = (_nhwc(y).float() - bn.running_mean) * mul + bn.bias
-        y = y * torch.sigmoid(y) if self.act else y
-        return y.to(x.dtype)
+        if self.down_train_eligible(x):
+            ci, co = self.conv.in_channels, self.conv.out_channels
+            w = self.conv.weight.permute(2, 3, 1, 0).reshape(9 * ci, co)
+            z = down_conv_train(x, w, plain=plain)
+        else:
+            z = _nhwc(F.conv2d(_nchw(x), self.conv.weight.to(x.dtype), None,
+                               self.conv.stride, self.conv.padding, 1,
+                               self.g))
+        return _bn_act(self, z, x.dtype)
+
+
+class PackedStem(ConvBnAct):
+    """The stem Conv(c2, 6, 2, 2) + BatchNorm + SiLU reading the packed
+    ``(B, H, 3W)`` uint8 image (a free view of the NHWC batch); the /255
+    normalize folds into the conv weights.  Parameters and names are those
+    of ``ConvBnAct(3, c2, 6, 2, 2)``.
+
+    Train mode only: the raw stem conv kernel (with its weight-gradient
+    kernel, ops/kernels/stem_kernel.py) and live BatchNorm (JAX
+    ``PackedStem``'s train branch, layers.py:246-259).  At inference the
+    model folds this layer into the stem+L1 kernel instead; the stem-only
+    inference kernel (``fused_stem``) is not ported."""
+
+    def __init__(self, c1, c2, k=6, s=2, p=2, dtype=torch.bfloat16):
+        super().__init__(c1, c2, k, s, p)
+        if (c1, k, s, p) != (3, 6, 2, 2):
+            raise ValueError(f"PackedStem is the Conv(c2, 6, 2, 2) stem of a "
+                             f"3-channel image, got c1={c1} k={k} s={s} p={p}")
+        self.dtype = dtype
+
+    def forward(self, x, plain: bool = False):
+        if not self.training:
+            raise NotImplementedError(
+                "the stem-only inference kernel (fused_stem) is not ported; "
+                "a packed-stem model runs layers 0-1 as the stem+L1 kernel")
+        z = stem_conv_train(x, self.conv.weight / 255.0, self.dtype,
+                            plain=plain)
+        return _bn_act(self, z, self.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -124,9 +204,10 @@ class C3(nn.Module):
             *(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
 
     def eligible(self, x) -> bool:
+        """The C3 kernel folds BN: inference only."""
         c1, c2 = self.cv1.conv.in_channels, self.cv3.conv.out_channels
         c_ = self.cv1.conv.out_channels
-        return (self.fused and 1 <= self.n <= 4 and self.shortcut
+        return (not self.training and self.fused and 1 <= self.n <= 4 and self.shortcut
                 and c1 == c2 and self.g == 1 and self.e == 0.5
                 and c1 % 2 == 0 and c_ % 8 == 0 and c2 % 8 == 0
                 and x.shape[1] * x.shape[2] >= FUSED_C3_MIN_SPATIAL)

@@ -1,11 +1,12 @@
 """YOLOv5-OBB model: YAML graph spec → PyTorch module graph, Detect head.
 
-Counterpart of ``yolov5_obb_tpu/models/yolo.py`` for inference.  The YAML
-spec is the single source of truth for the n/s/m/l/x variants
-(``models/configs``).  ``packed_stem`` builds the inference fast path:
-``forward`` then takes the raw ``(B, H, 3W)`` uint8 view, layers 0-1 run as
-the fused stem+L1 kernel, and the eligible C3 blocks and stride-2
-downsamples run as their kernels (models/layers.py gates).
+Counterpart of ``yolov5_obb_tpu/models/yolo.py``.  The YAML spec is the
+single source of truth for the n/s/m/l/x variants (``models/configs``).
+``packed_stem`` builds the fast path: ``forward`` then takes the raw
+``(B, H, 3W)`` uint8 view.  In eval mode layers 0-1 run as the fused stem+L1
+kernel and the eligible C3 blocks and stride-2 downsamples as their kernels;
+in train mode layer 0 runs on the stem train kernels and the eligible
+downsamples on the downsample train kernels (models/layers.py gates).
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ class ModelMeta:
     strides: tuple  # per level, input pixels
     anchors_px: np.ndarray  # (nl, na, 2) in input pixels
     names: list | None = None
+
+    @property
+    def anchors_grid(self) -> np.ndarray:
+        """Anchors in feature-map units per level (reference yolo.py:124)."""
+        return self.anchors_px / np.asarray(self.strides)[:, None, None]
 
     @property
     def no(self) -> int:
@@ -125,9 +131,10 @@ def parse_model_config(d: dict, ch_in: int = 3):
 
 
 class Detect(nn.Module):
-    """OBB head: per level a 1x1 conv → flat ``(B, ny*nx*na, no)`` map in the
-    compute dtype (bf16 at inference on the card), channel layout per
-    anchor ``[x y w h obj cls*nc theta*180]``."""
+    """OBB head: per level a 1x1 conv → flat ``(B, ny*nx*na, no)`` map,
+    channel layout per anchor ``[x y w h obj cls*nc theta*180]``; in the
+    compute dtype at inference (bf16 on the card), float32 in train mode
+    for the loss (JAX yolo.py:196)."""
 
     def __init__(self, nc: int, na: int, ch: tuple):
         super().__init__()
@@ -141,7 +148,8 @@ class Detect(nn.Module):
             y = torch.nn.functional.conv2d(
                 L._nchw(x), conv.weight.to(x.dtype), conv.bias.to(x.dtype))
             B, _, ny, nx = y.shape
-            outs.append(L._nhwc(y).reshape(B, ny * nx * self.na, self.no))
+            flat = L._nhwc(y).reshape(B, ny * nx * self.na, self.no)
+            outs.append(flat.float() if self.training else flat)
         return outs
 
 
@@ -150,12 +158,14 @@ class Detect(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _build_module(spec: LayerSpec, fused: bool):
+def _build_module(spec: LayerSpec, packed_stem: bool, dtype):
     kind, a = spec.name, spec.args
+    if packed_stem and spec.index == 0:
+        return L.PackedStem(*a, dtype=dtype)
     if kind == "Conv":
-        return L.ConvBnAct(*a, fused=fused)
+        return L.ConvBnAct(*a, fused=packed_stem)
     if kind == "C3":
-        return L.C3(*a, fused=fused)
+        return L.C3(*a, fused=packed_stem)
     if kind == "Bottleneck":
         return L.Bottleneck(*a)
     if kind == "SPPF":
@@ -171,11 +181,15 @@ class YoloModel(nn.Module):
     """Backbone + PAN + Detect, built from parsed specs.
 
     ``packed_stem``: ``forward`` takes the packed ``(B, H, 3W)`` uint8 image
-    and layers 0-1 run as the stem+L1 kernel (/255 folded into the stem
-    weights); layer 0's activation is never formed; the eligible C3 blocks
-    and downsamples run as their kernels.  Otherwise ``forward`` takes a
-    float NHWC image in [0, 1] and runs the stock layers.  ``dtype`` is the
-    compute dtype; parameters and BN statistics stay float32."""
+    (/255 folded into the stem weights) and the eligible layers run on
+    kernels.  In eval mode layers 0-1 run as the stem+L1 kernel (layer 0's
+    activation is never formed) and the eligible C3 blocks and downsamples
+    as theirs.  In train mode layer 0 is a :class:`~.layers.PackedStem` on
+    the stem train kernels, layer 1 a ``ConvBnAct`` (JAX yolo.py:481-485:
+    the stem+L1 fold is inference-only) and the eligible downsamples run on
+    the downsample train kernels.  Otherwise ``forward`` takes a float NHWC
+    image in [0, 1] and runs the stock layers.  ``dtype`` is the compute
+    dtype; parameters and BN statistics stay float32."""
 
     def __init__(self, specs, nc: int, na: int, dtype=torch.float32,
                  packed_stem: bool = False):
@@ -188,10 +202,11 @@ class YoloModel(nn.Module):
             if spec.name == "Detect":
                 layers.append(Detect(nc, na, spec.args[0]))
             elif spec.repeats == 1:
-                layers.append(_build_module(spec, packed_stem))
+                layers.append(_build_module(spec, packed_stem, dtype))
             else:
-                layers.append(nn.Sequential(*(_build_module(spec, packed_stem)
-                                              for _ in range(spec.repeats))))
+                layers.append(nn.Sequential(*(
+                    _build_module(spec, packed_stem, dtype)
+                    for _ in range(spec.repeats))))
         self.model = nn.ModuleList(layers)
 
     def _stem_l1(self, x, plain: bool):
@@ -205,10 +220,10 @@ class YoloModel(nn.Module):
         """Image batch → list of flat Detect maps ``(B, n_l, no)``."""
         y: list = []
         skip = 0
-        if self.packed_stem:
+        if self.packed_stem and not self.training:
             y = [None, self._stem_l1(x, plain)]
             skip = 2
-        else:
+        elif not self.packed_stem:
             x = x.to(self.dtype)
 
         def fetch(j):
@@ -280,8 +295,11 @@ def probe_strides(model: YoloModel, meta: ModelMeta,
                   imgsz: int = 256) -> ModelMeta:
     """Per-level strides from a forward on the meta device (shapes only, no
     arithmetic) — the counterpart of the JAX ``jax.eval_shape`` probe."""
+    training = model.training
     with torch.no_grad():
-        outs = model.to("meta")(_dummy_input(model, imgsz, "meta"), plain=True)
+        outs = model.to("meta").eval()(_dummy_input(model, imgsz, "meta"),
+                                       plain=True)
+    model.train(training)
     strides = tuple(float(imgsz // round((o.shape[1] // meta.na) ** 0.5))
                     for o in outs)
     meta = dataclasses.replace(meta, strides=strides)
@@ -321,7 +339,8 @@ def create_model(cfg, nc: int | None = None, dtype=torch.float32,
                  device=None, seed: int = 0, packed_stem: bool = False):
     """One-call constructor: ``(model, meta)``, weights random from ``seed``
     (an explicit ``torch.Generator`` on the CPU), in eval mode on
-    ``device`` — the card unless ``device="cpu"`` is passed."""
+    ``device`` — the card unless ``device="cpu"`` is passed.  ``model.train()``
+    switches it to the train path (:mod:`..engine.trainer`)."""
     dev = resolve_device(device)
     model, meta, d = build_model(cfg, nc=nc, dtype=dtype,
                                  packed_stem=packed_stem)

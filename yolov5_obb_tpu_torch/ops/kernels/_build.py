@@ -36,7 +36,7 @@ _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # match the plain PyTorch version bit for bit on all but borderline pairs
 _EXTRA_FLAGS = {"neighbor": ["-fmad=false"]}
 
-SOURCES = ("neighbor", "stem_l1", "down", "c3")
+SOURCES = ("neighbor", "stem_l1", "down", "c3", "stem_train", "down_train")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: dict[str, str] = {}
@@ -149,3 +149,14 @@ def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def partial_count(device, tiles: int, chunks: int = 1) -> int:
+    """CTAs along the pixel axis of a two-stage weight gradient (each writes
+    one partial sum): with the ``chunks`` CTAs of the other grid axis, three
+    for every SM of the card (as many as the shared memory of both
+    weight-gradient kernels lets reside at once), and at most one per tile.
+    Fixed for a card and a shape, so repeated runs add the same partials in
+    the same order."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(tiles, -(-sms * 3 // chunks)))

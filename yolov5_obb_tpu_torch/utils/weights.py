@@ -15,6 +15,11 @@ model's names):
     SPPF        ConvBnAct_0/1 → cv1/cv2
     Detect      conv{l}/{kernel,bias} → m.{l}.{weight,bias}
     repeats     m{i}_{r} → model.{i}.{r}.
+
+A gradient tree maps the same way: :func:`grads_from_jax` takes the JAX
+``params`` gradients (``jax.grad`` of the same loss) and returns them by
+the port's parameter names, so they compare key for key with the port's
+``named_parameters`` gradients.
 """
 
 from __future__ import annotations
@@ -87,24 +92,37 @@ def _get(tree, path):
     return np.asarray(tree, np.float32)
 
 
-def from_jax_variables(variables, specs) -> dict:
-    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) + the parsed
-    specs of the same config → the port's ``state_dict``."""
+def _to_torch(tree, entries) -> dict:
     sd = {}
     missing = []
-    for key, path, kind in key_map(specs):
+    for key, path, kind in entries:
         if kind == "count":
             sd[key] = torch.tensor(0)
             continue
         try:
-            v = _get(variables, path)
+            v = _get(tree, path)
         except KeyError:
             missing.append("/".join(path))
             continue
         if kind == "conv":
             v = v.transpose(3, 2, 0, 1)  # HWIO → OIHW
-        sd[key] = torch.from_numpy(np.ascontiguousarray(v))
+        sd[key] = torch.from_numpy(np.array(v))
     if missing:
         raise KeyError(f"{len(missing)} entries absent from the tree, e.g. "
                        f"{missing[:5]} — wrong config for these weights?")
     return sd
+
+
+def from_jax_variables(variables, specs) -> dict:
+    """JAX ``{"params", "batch_stats"}`` tree (numpy leaves) + the parsed
+    specs of the same config → the port's ``state_dict``."""
+    return _to_torch(variables, key_map(specs))
+
+
+def grads_from_jax(grads, specs) -> dict:
+    """JAX gradient tree (the ``params`` layout, numpy leaves) + the parsed
+    specs → ``{port parameter name: gradient}``; the BatchNorm statistics
+    take no gradient and have no entry."""
+    return _to_torch({"params": grads},
+                     [e for e in key_map(specs)
+                      if e[1] is not None and e[1][0] == "params"])
