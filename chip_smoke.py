@@ -29,7 +29,16 @@ Phases, each fatal on failure:
       steps reading the loss every 4; train img/s, peak memory, a CUDA-event
       breakdown of one step, the train kernels' launches per step (stem 1+1,
       downsample 2+2), and loss and gradients against the same step on the
-      plain versions.
+      plain versions;
+  (b") the fused train passes (1x1 forward and backward at the four 1x1
+      structures of the C3 region, 3x3 s1 at the bottleneck, 3x3 s2 at
+      down1 and down2) against their plain versions at the region's shapes,
+      with bit-for-bit repeats of their statistics and weight gradients;
+  (e) the fused train path: the same model, batches and timing as (d) with
+      ``fused_train`` (layers 0-3 as the stat-carrying pass chain), its
+      launches per step (stem 1+1, 3x3 s2 2, 1x1 4+4, 3x3 s1 2, downsample
+      0), agreement with the same step on the plain versions, and loss items
+      and running statistics against the stock step of phase (d).
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -61,6 +70,13 @@ MAX_LABELS, LIVE, TRAIN_ITERS, SYNC_EVERY = 64, 8, 12, 4
 # the train kernels' launches per train step at yolov5m 1024²
 TRAIN_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "down_train_fwd": 2, "down_train_wgrad": 2}
+# ... and per fused train step (layers 0-3 as the pass chain)
+FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
+                  "pass_3x3s2": 2, "pass_1x1_fwd": 4, "pass_1x1_bwd": 4,
+                  "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
+# float32 operations per activated element: silu(z·g + b) forward; the
+# recomputed activation, silu' and the products of the backward
+ACT_OPS, DACT_OPS = 5, 12
 
 
 def log(*a):
@@ -416,6 +432,191 @@ def check_down_train(gen, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# (b") the fused train passes against their plain versions
+# ---------------------------------------------------------------------------
+
+# the region's 1x1 structures at yolov5m (c1 = 96, c_ = 48): name → (ns,
+# groups, outs, ci, weight shapes)
+_PASS_1X1 = {
+    "cv1_cv2": ((True,), ((0,),), (((0, 0),), ((0, 1),)), 96, (48, 48)),
+    "b0_cv1": ((True,), ((0,),), (((0, 0),),), 48, (48,)),
+    "b1_cv1": ((True, True), ((0, 1),), (((0, 0),),), 48, (48,)),
+    "cv3": ((True,) * 4, ((0, 1, 2), (3,)), (((0, 0), (1, 1)),), 48,
+            (96, 96)),
+}
+
+
+def _gb(gen, c, dev):
+    import torch
+
+    return torch.stack([1.0 + 0.3 * torch.randn(c, generator=gen, device=dev),
+                        0.2 * torch.randn(c, generator=gen, device=dev)])
+
+
+def _ulp_err(got, want):
+    """(max |Δ|, one bf16 ulp of the largest value)."""
+    return (float((got.float() - want.float()).abs().max()),
+            float(want.float().abs().max()) / 128)
+
+
+def _rel_err(got, want):
+    """max |Δ| over the largest |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def _sum_cases(kern, cases):
+    """One kernel's entry over the cases one train step launches it at."""
+    tot = lambda k: sum(c[k] for c in cases.values())
+    return kern, {
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "ok": all(c["ok"] for c in cases.values()),
+        "tolerance": cases[next(iter(cases))]["tolerance"],
+        "bound": bound(tot("bytes"), (tot("flops"), PEAK_BF16),
+                       (tot("act_ops"), PEAK_FP32)),
+        **{k: tot(k) for k in ("ms", "plain_ms", "library_ms", "flops",
+                               "bytes", "act_ops")},
+        "cases": cases,
+    }
+
+
+def check_pass_3x3(gen, dev):
+    """pass_3x3s2 at down1 (512² x 48 → 96) and down2 (256² x 96 → 192),
+    pass_3x3s1 at the two bottleneck 3x3s (256² x 48 → 48)."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    per = {1: {}, 2: {}}
+    for name, stride, ci, co, H in (("down1", 2, 48, 96, IMGSZ // 2),
+                                    ("down2", 2, 96, 192, IMGSZ // 4),
+                                    ("b0", 1, 48, 48, IMGSZ // 4),
+                                    ("b1", 1, 48, 48, IMGSZ // 4)):
+        z = torch.randn(BATCH, H, H, ci, generator=gen, device=dev).to(
+            torch.bfloat16)
+        gb = _gb(gen, ci, dev)
+        w = conv_weights(gen, co, ci, 3, dev).permute(2, 3, 1, 0).reshape(
+            9 * ci, co).contiguous()
+        zk, sk = TF.pass_3x3_fwd(z, gb, w, stride)
+        zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, stride)
+        repeat = torch.equal(sk, TF.pass_3x3_fwd(z, gb, w, stride)[1])
+        torch.cuda.synchronize()
+        f_err, f_tol = _ulp_err(zk, zp)
+        s_err = _rel_err(sk, sp)
+        y = (F.silu(z.float() * gb[0] + gb[1]).to(torch.bfloat16)
+             .permute(0, 3, 1, 2))
+        k = w.to(torch.bfloat16).reshape(3, 3, ci, co).permute(3, 2, 0, 1)
+        per[stride][name] = {
+            "max_abs_err": f_err, "stats_rel_err": s_err,
+            "stats_repeat_bitwise": repeat,
+            "ok": f_err <= f_tol and s_err <= 1e-4 and repeat,
+            "tolerance": "z: one bf16 ulp of the largest; stats: 1e-4 of "
+                         "the largest; stats repeat bit for bit",
+            "ms": cuda_time(lambda: TF.pass_3x3_fwd(z, gb, w, stride), 5),
+            "plain_ms": cuda_time(
+                lambda: TF.pass_3x3_fwd_plain(z, gb, w, stride), 3),
+            # the conv alone on the already-activated input (cuDNN, bf16)
+            "library_ms": cuda_time(
+                lambda: F.conv2d(y, k, None, stride, 1), 5),
+            "flops": 2 * zk.numel() * 9 * ci, "act_ops": z.numel() * ACT_OPS,
+            "bytes": z.numel() * 2 + zk.numel() * 2 + w.numel() * 2
+                     + 4 * (gb.numel() + sk.numel()),
+        }
+        del z, zk, zp, y
+        torch.cuda.empty_cache()
+    return {"pass_3x3s1": _sum_cases(TF.KERNEL_3X3S1, per[1]),
+            "pass_3x3s2": _sum_cases(TF.KERNEL_3X3S2, per[2])}
+
+
+def check_pass_1x1(gen, dev):
+    """pass_1x1 forward and backward at the four 1x1 passes of a step
+    (256², batch 16), the backward from seeded cotangents."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    H = IMGSZ // 4
+    fwd, bwd = {}, {}
+    for name, (ns, groups, outs, ci, cos) in _PASS_1X1.items():
+        zs = [torch.randn(BATCH, H, H, ci, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in ns]
+        gbs = [_gb(gen, ci, dev) for _ in ns]
+        ws = [torch.randn(ci, co, generator=gen, device=dev) / ci ** 0.5
+              for co in cos]
+        args = (ns, groups, outs, zs, gbs, ws)
+        zk, sk = TF.pass_1x1_fwd(*args)
+        zp, sp = TF.pass_1x1_fwd_plain(*args)
+        s_repeat = all(torch.equal(a, b) for a, b in zip(
+            sk, TF.pass_1x1_fwd(*args)[1]))
+        dz = [torch.randn(z.shape, generator=gen, device=dev).to(
+            torch.bfloat16) for z in zp]
+        dst = [1e-3 * torch.randn(2, z.shape[-1], generator=gen, device=dev)
+               for z in zp]
+        bargs = (*args, zp, dz, dst)
+        gk = TF.pass_1x1_bwd(*bargs)
+        gp = TF.pass_1x1_bwd_plain(*bargs)
+        gk2 = TF.pass_1x1_bwd(*bargs)
+        g_repeat = all(torch.equal(a, b) for a, b in zip(
+            [*gk[1], *gk[2]], [*gk2[1], *gk2[2]]))
+        torch.cuda.synchronize()
+        f_errs = [_ulp_err(a, b) for a, b in zip(zk, zp)]
+        s_err = max(_rel_err(a, b) for a, b in zip(sk, sp))
+        dz_errs = [_ulp_err(a, b) for a, b in zip(gk[0], gp[0])]
+        w_err = max(_rel_err(a, b) for a, b in zip(gk[2], gp[2]))
+        gb_err = max(_rel_err(a, b) for a, b in zip(gk[1], gp[1]))
+        # the library yardsticks: one bf16 cuDNN 1x1 conv over the
+        # activated group values (the groups side by side, the weights
+        # stacked), and its weight and input gradients
+        gv = torch.cat(TF._group_values(ns, groups, zs, gbs), -1).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        wl = (torch.cat([torch.cat([ws[w] for _, w in o], 0) for o in outs], 1)
+              .T.contiguous().to(torch.bfloat16)[:, :, None, None])
+        el = torch.cat(dz, -1).permute(0, 3, 1, 2)
+        macs = sum(ci * ws[w].shape[1] for o in outs for _, w in o)
+        n_px = BATCH * H * H
+        in_b = sum(z.numel() for z in zs) * 2
+        out_b = sum(z.numel() for z in zp) * 2
+        w_b = sum(w.numel() for w in ws)
+        fwd[name] = {
+            "max_abs_err": max(e for e, _ in f_errs), "stats_rel_err": s_err,
+            "stats_repeat_bitwise": s_repeat,
+            "ok": all(e <= t for e, t in f_errs) and s_err <= 1e-4
+                  and s_repeat,
+            "tolerance": "z: one bf16 ulp of the largest; stats: 1e-4 of "
+                         "the largest; stats repeat bit for bit",
+            "ms": cuda_time(lambda: TF.pass_1x1_fwd(*args), 5),
+            "plain_ms": cuda_time(lambda: TF.pass_1x1_fwd_plain(*args), 3),
+            "library_ms": cuda_time(lambda: F.conv2d(gv, wl), 5),
+            "flops": 2 * n_px * macs, "act_ops": in_b // 2 * ACT_OPS,
+            "bytes": in_b + out_b + 2 * w_b,
+        }
+        bwd[name] = {
+            "max_abs_err": max(e for e, _ in dz_errs), "dw_rel_err": w_err,
+            "dgb_rel_err": gb_err, "grads_repeat_bitwise": g_repeat,
+            "ok": all(e <= t for e, t in dz_errs) and w_err <= 2e-2
+                  and gb_err <= 2e-2 and g_repeat,
+            "tolerance": "dz_in: one bf16 ulp of the largest; dW, (dg, db): "
+                         "2e-2 of the largest; dW, (dg, db) repeat bit for "
+                         "bit",
+            "ms": cuda_time(lambda: TF.pass_1x1_bwd(*bargs), 5),
+            "plain_ms": cuda_time(lambda: TF.pass_1x1_bwd_plain(*bargs), 3),
+            "library_ms": cuda_time(lambda: (
+                torch.nn.grad.conv2d_weight(gv, wl.shape, el),
+                torch.nn.grad.conv2d_input(gv.shape, wl, el)), 5),
+            "flops": 4 * n_px * macs, "act_ops": in_b // 2 * DACT_OPS,
+            # inputs, outputs and their cotangents read; input gradients
+            # written; weights read and dW written
+            "bytes": 2 * in_b + 2 * out_b + 6 * w_b
+                     + 8 * len(zs) * ci,
+        }
+        del zs, zk, zp, dz, gk, gp, gk2, gv, el
+        torch.cuda.empty_cache()
+    return {"pass_1x1_fwd": _sum_cases(TF.KERNEL_1X1, fwd),
+            "pass_1x1_bwd": _sum_cases(TF.KERNEL_1X1_BWD, bwd)}
+
+
 def synthetic_candidates(gen, n, clustered, dev):
     import torch
 
@@ -696,10 +897,13 @@ def _cos(a, b) -> float:
     return float(a @ b) / n if n else 1.0
 
 
-def compare_plain_step(model, loss_fn, opt, batch):
+def compare_plain_step(model, loss_fn, opt, batch, fused=False):
     """Loss items and gradients of one step from the same state and batch,
     through the kernels and through their plain versions (the BN running
-    statistics are put back after each).
+    statistics are put back after each).  ``fused``: the model runs the
+    fused train region, whose kernel-bearing weights are the stem's and the
+    1x1 passes' (the 3x3 passes' weight gradients are the same library call
+    on both paths).
 
     The kernel layers' weight gradients of the kernel step are held
     elementwise (2e-2 of the largest) to the plain weight gradient of the
@@ -714,6 +918,7 @@ def compare_plain_step(model, loss_fn, opt, batch):
     import torch
 
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel, stem_kernel
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
     image, tg, mask = batch
     recorded = []
@@ -721,14 +926,24 @@ def compare_plain_step(model, loss_fn, opt, batch):
     def recording(mod, name):
         fn = getattr(mod, name)
 
-        def wrapper(x, dz):
-            dw = fn(x, dz)
-            recorded.append((name, x, dz, dw))
-            return dw
+        def wrapper(*args):
+            out = fn(*args)
+            recorded.append((name, args, out))
+            return out
         return fn, wrapper
 
-    patches = [(mod, name, *recording(mod, name)) for mod, name in (
-        (stem_kernel, "stem_train_wgrad"), (down_kernel, "down_train_wgrad"))]
+    # each recorded kernel's plain version and its weight gradient(s)
+    plain_dw = {
+        "stem_train_wgrad": (stem_kernel.stem_train_wgrad_plain,
+                             lambda out: [out]),
+        "down_train_wgrad": (down_kernel.down_train_wgrad_plain,
+                             lambda out: [out]),
+        "pass_1x1_bwd": (TF.pass_1x1_bwd_plain, lambda out: list(out[2])),
+    }
+    hooked = ((stem_kernel, "stem_train_wgrad"), (TF, "pass_1x1_bwd")) \
+        if fused else ((stem_kernel, "stem_train_wgrad"),
+                       (down_kernel, "down_train_wgrad"))
+    patches = [(mod, name, *recording(mod, name)) for mod, name in hooked]
     saved = {k: b.clone() for k, b in model.named_buffers()}
     w0 = model.model[0].conv.weight
     w0_saved = w0.detach().clone()
@@ -758,6 +973,8 @@ def compare_plain_step(model, loss_fn, opt, batch):
               "model.1.conv.weight": ["model.1.conv.weight"],
               "model.3.conv.weight": ["model.3.conv.weight"],
               "detect": det, "all": list(gp)}
+    if fused:
+        groups["model.2 (C3)"] = [n for n in gp if n.startswith("model.2.")]
     res = {"items_plain": ip.tolist()}
     for name in ("kernel", "control"):
         i, g = out[name]
@@ -776,19 +993,22 @@ def compare_plain_step(model, loss_fn, opt, batch):
         }
     wgrads = []
     with torch.no_grad():
-        for name, x, dz, dw in recorded:
-            plain_fn = (stem_kernel.stem_train_wgrad_plain if name.startswith(
-                "stem") else down_kernel.down_train_wgrad_plain)
-            want = plain_fn(x, dz)
-            wgrads.append((name, tuple(x.shape), float(
-                (dw - want).abs().max() / want.abs().max().clamp(min=1e-30))))
+        for name, args, out in recorded:
+            plain_fn, dws = plain_dw[name]
+            want = dws(plain_fn(*args))
+            shape = args[3][0].shape if name == "pass_1x1_bwd" else args[0].shape
+            wgrads.append((name, tuple(shape), max(
+                float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(dws(out), want))))
     res["kernel_wgrads_in_step_rel_err"] = wgrads
     del recorded
     k, c = res["kernel"], res["control"]
     require(k["items_max_rel_err"] <= 1e-2,
             f"loss items differ from the plain step: {res}")
-    require([n for n, _, _ in wgrads] == ["down_train_wgrad"] * 2
-            + ["stem_train_wgrad"] and all(e <= 2e-2 for _, _, e in wgrads),
+    want_names = ["pass_1x1_bwd"] * 4 if fused else ["down_train_wgrad"] * 2
+    require(sorted(n for n, _, _ in wgrads)
+            == sorted(want_names + ["stem_train_wgrad"])
+            and all(e <= 2e-2 for _, _, e in wgrads),
             f"kernel weight gradients in the step: {wgrads}")
     require(k["cos"]["detect"] > 0.9 and all(
         k["cos"][n] >= c["cos"][n] - 0.05 for n in groups),
@@ -827,7 +1047,8 @@ def step_breakdown(model, loss_fn, opt, state, batch):
 # kernel-name substrings → group, first match wins: this port's kernels,
 # cuDNN/CUTLASS convolutions, reductions, elementwise passes
 _GROUPS = (("port kernels", ("stem_fwd_kernel", "stem_wgrad_kernel",
-                             "down_wgrad_kernel", "down_conv", "sum_partials")),
+                             "down_wgrad_kernel", "down_conv", "sum_partials",
+                             "p1x1_fwd_kernel", "p1x1_bwd_kernel")),
            ("convolutions (cuDNN/CUTLASS)", ("conv", "cudnn", "xmma", "cutlass",
                                              "implicit", "wgrad", "dgrad",
                                              "gemm", "sm90")),
@@ -867,7 +1088,90 @@ def profile_step(step, state, batch, step_ms):
             "top_kernels": [(n[:90], ms, c) for n, ms, c in rows[:12]]}
 
 
-def train_path(dev, report):
+def compare_stock_step(model, loss_fn, batch):
+    """The fused train step against the stock train step (phase d's path:
+    ``fused_train`` off) from the same state and batch: loss items within
+    3e-2 relative, and the running statistics of layers 0-3 after the step
+    within 2e-2 of their scale (tests/test_fused_region.py's bars for the
+    JAX region).  The statistics are put back after each step."""
+    import torch
+
+    image, tg, mask = batch
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+    region = ("model.0.", "model.1.", "model.2.", "model.3.")
+    out = {}
+    model.train()
+    for name, flag in (("fused", True), ("stock", False)):
+        model.fused_train = flag
+        try:
+            with torch.no_grad():
+                _, items = loss_fn(model(image), tg, mask)
+        finally:
+            model.fused_train = True
+        out[name] = (items.float(), {
+            k: b.clone() for k, b in model.named_buffers()
+            if k.startswith(region) and "running" in k})
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(saved[k])
+    model.eval()
+    (fi, fs), (si, ss) = out["fused"], out["stock"]
+    stats_err = {k: float((fs[k] - a).abs().max()
+                          / max(float(a.abs().max()), 1.0))
+                 for k, a in ss.items()}
+    worst = max(stats_err.items(), key=lambda kv: kv[1])
+    res = {"items_fused": fi.tolist(), "items_stock": si.tolist(),
+           "items_max_rel_err": float(((fi - si).abs() / si.abs()).max()),
+           "running_stats_worst_rel_err": worst,
+           "running_stats_compared": len(stats_err)}
+    require(res["items_max_rel_err"] <= 3e-2 and worst[1] < 2e-2,
+            f"the fused step differs from the stock step: {res}")
+    return res
+
+
+def region_times(model, image, gen):
+    """Layers 0-3 alone, in train mode, as the fused pass chain and as the
+    stock layers (PackedStem, ConvBnAct with the downsample train kernels,
+    C3): CUDA-event ms of the forward and of forward + backward (a seeded
+    cotangent on layer 3's output; gradients of layers 0-3's parameters).
+    The BN running statistics are put back."""
+    import torch
+
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+    params = [p for m in model.model[:4] for p in m.parameters()]
+    m0, m1, c3, m3 = model.model[:4]
+    runs = {"fused": lambda: model._fused_train_region(image, False),
+            "stock": lambda: m3(c3(m1(m0(image))))}
+    cot = None
+    out = {}
+    model.train()
+    for name in ("stock", "fused", "fused", "stock"):
+        fwd = runs[name]
+        if cot is None:
+            h = fwd()
+            cot = torch.randn(h.shape, generator=gen, device=h.device).to(
+                h.dtype)
+            del h
+
+        def both():
+            torch.autograd.grad(fwd(), params, cot)
+
+        with torch.no_grad():
+            f_ms = cuda_time(fwd, 5)
+        fb_ms = cuda_time(both, 5)
+        prev = out.get(name, (0.0, 0.0))
+        out[name] = (prev[0] + f_ms / 2, prev[1] + fb_ms / 2)
+    model.eval()
+    with torch.no_grad():
+        for k, b in model.named_buffers():
+            b.copy_(saved[k])
+    return {f"{name}_{part}_ms": v[i] for name, v in out.items()
+            for i, part in enumerate(("forward", "forward_backward"))}
+
+
+def train_path(dev, report, fused=False):
+    """Phase (d), or with ``fused`` phase (e): the train step of a
+    ``fused_train`` model."""
     import torch
 
     from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
@@ -879,9 +1183,12 @@ def train_path(dev, report):
     from yolov5_obb_tpu_torch.models.yolo import create_model
     from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
 
+    pre = "fused_train_" if fused else "train_"
+    expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
     t0 = time.perf_counter()
     model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
-                               device=dev, seed=0, packed_stem=True)
+                               device=dev, seed=0, packed_stem=True,
+                               fused_train=fused)
     hyp = load_hyp()
     loss_fn = ComputeLoss(meta, scale_hyp_gains(hyp, meta.nl, meta.nc, IMGSZ))
     opt, _ = build_optimizer(model, hyp, epochs=10, steps_per_epoch=100,
@@ -889,18 +1196,25 @@ def train_path(dev, report):
     state = create_train_state(opt)
     step = make_train_step(model, loss_fn, opt, device=dev)
     batches = train_batches(dev, hyp["csl_radius"])
-    log(f"train set-up {time.perf_counter() - t0:.1f}s")
+    log(f"{pre}set-up {time.perf_counter() - t0:.1f}s")
 
-    # reference: the same step through the plain versions
-    cmp = compare_plain_step(model, loss_fn, opt, batches[0])
-    log("train step vs plain: " + json.dumps(cmp))
+    # reference: the same step through the plain versions (and, for the
+    # fused region, through the stock layers)
+    cmp = compare_plain_step(model, loss_fn, opt, batches[0], fused)
+    log(f"{pre}step vs plain: " + json.dumps(cmp))
+    if fused:
+        stock = compare_stock_step(model, loss_fn, batches[0])
+        log(f"{pre}step vs stock: " + json.dumps(stock))
+        region = region_times(model, batches[0][0],
+                              torch.Generator(device=dev).manual_seed(2))
+        log(f"layers 0-3 alone (stock, fused, fused, stock; mean ms): "
+            + json.dumps(region))
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for i in range(2):  # warm-up
         float(step(state, *batches[i])["loss"])
-    kernels = {n: k for n, k in _named_kernels().items()
-               if n in TRAIN_LAUNCHES}
+    kernels = {n: k for n, k in _named_kernels().items() if n in expected}
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -914,28 +1228,29 @@ def train_path(dev, report):
     dt = time.perf_counter() - t
     launches = {n: k.launches for n, k in kernels.items()}
     items = m["items"].float().tolist()
-    log(f"launches over {TRAIN_ITERS} train steps: {launches}")
+    log(f"launches over {TRAIN_ITERS} {pre}steps: {launches}")
     require(all(launches[n] == TRAIN_ITERS * per
-                for n, per in TRAIN_LAUNCHES.items()),
-            f"train kernel launches {launches}, expected per step "
-            f"{TRAIN_LAUNCHES}")
+                for n, per in expected.items()),
+            f"train kernel launches {launches}, expected per step {expected}")
     require(bool(np.isfinite(losses + items).all()),
             f"non-finite loss {losses} / items {items}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     breakdown = step_breakdown(model, loss_fn, opt, state, batches[0])
     prof = profile_step(step, state, batches[1], dt * 1e3 / TRAIN_ITERS)
-    log("train step profile: " + json.dumps(prof))
+    log(f"{pre}step profile: " + json.dumps(prof))
     require(prof["device_ms"] > 0, "the profiler saw no device time")
     report.update({
-        "train_imgs_per_s": TRAIN_ITERS * BATCH / dt,
-        "train_step_ms": dt * 1e3 / TRAIN_ITERS,
-        "train_peak_mem_gib": peak, "train_losses": losses,
-        "train_items_last": items, "train_step_breakdown_ms": breakdown,
-        "train_launches_per_step": {n: v / TRAIN_ITERS
+        f"{pre}imgs_per_s": TRAIN_ITERS * BATCH / dt,
+        f"{pre}step_ms": dt * 1e3 / TRAIN_ITERS,
+        f"{pre}peak_mem_gib": peak, f"{pre}losses": losses,
+        f"{pre}items_last": items, f"{pre}step_breakdown_ms": breakdown,
+        f"{pre}launches_per_step": {n: v / TRAIN_ITERS
                                     for n, v in launches.items()},
-        "train_vs_plain": cmp, "train_profile": prof,
+        f"{pre}vs_plain": cmp, f"{pre}profile": prof,
+        **({f"{pre}vs_stock": stock, "layers_0_3_ms": region}
+           if fused else {}),
     })
-    return launches
+    return {n: v for n, v in launches.items() if v}
 
 
 INFER = ("stem_l1", "c3", "down", "neighbor")
@@ -948,13 +1263,16 @@ def _named_kernels():
         neighbor_kernel,
         stem_kernel,
     )
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
     return {"stem_l1": stem_kernel.KERNEL, "c3": c3_kernel.KERNEL,
             "down": down_kernel.KERNEL, "neighbor": neighbor_kernel.KERNEL,
             "stem_train_fwd": stem_kernel.TRAIN_FWD_KERNEL,
             "stem_train_wgrad": stem_kernel.TRAIN_WGRAD_KERNEL,
             "down_train_fwd": down_kernel.TRAIN_FWD_KERNEL,
-            "down_train_wgrad": down_kernel.TRAIN_WGRAD_KERNEL}
+            "down_train_wgrad": down_kernel.TRAIN_WGRAD_KERNEL,
+            "pass_1x1_fwd": TF.KERNEL_1X1, "pass_1x1_bwd": TF.KERNEL_1X1_BWD,
+            "pass_3x3s1": TF.KERNEL_3X3S1, "pass_3x3s2": TF.KERNEL_3X3S2}
 
 
 def main() -> int:
@@ -994,8 +1312,10 @@ def main() -> int:
         name, mod, res = check(gen, dev)
         results[name] = (mod.KERNEL, res)
         torch.cuda.empty_cache()
-    # (b') train kernels against their plain versions
-    for check in (check_stem_train, check_down_train):
+    # (b') train kernels and (b") the fused train passes against their
+    # plain versions
+    for check in (check_stem_train, check_down_train, check_pass_3x3,
+                  check_pass_1x1):
         results.update(check(gen, dev))
         torch.cuda.empty_cache()
     for name, (_, res) in results.items():
@@ -1009,10 +1329,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # (d) the train path
     launches.update(train_path(dev, report))
+    torch.cuda.empty_cache()
+    # (e) the fused train path
+    launches.update(train_path(dev, report, fused=True))
     log("main path: " + json.dumps(report))
-    log(f"train: {report['train_imgs_per_s']:.2f} img/s at yolov5m b16 "
-        f"1024² on {card}; peak {report['train_peak_mem_gib']:.2f} GiB; "
-        f"step {report['train_step_breakdown_ms']}")
+    for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
+        log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "
+            f"1024² on {card}; peak {report[pre + 'peak_mem_gib']:.2f} GiB; "
+            f"step {report[pre + 'step_breakdown_ms']}; device idle "
+            f"{report[pre + 'profile']['idle_share']:.3f}")
+    log("fused / stock train img/s: "
+        f"{report['fused_train_imgs_per_s'] / report['train_imgs_per_s']:.4f}")
 
     kernels = []
     for name, (kern, res) in results.items():

@@ -210,3 +210,134 @@ def test_slice_kernels_match_plain(dev, monkeypatch):
     # bf16 rounding differs between kernel and plain convs: a score may
     # cross the threshold, so compare counts loosely
     assert (num - nump).abs().max() <= 2
+
+
+# ---------------------------------------------------------------------------
+# the fused train passes (ops/kernels/train_fused.py)
+# ---------------------------------------------------------------------------
+
+_PASS_STRUCTS = {
+    "cv1_cv2": ((True,), ((0,),), (((0, 0),), ((0, 1),))),
+    "b0_cv1": ((True,), ((0,),), (((0, 0),),)),
+    "b1_cv1": ((True, True), ((0, 1),), (((0, 0),),)),
+    "cv3": ((True, True, True, True), ((0, 1, 2), (3,)),
+            (((0, 0), (1, 1)),)),
+    "plain_input": ((True, False), ((0,), (1,)), (((0, 0), (1, 1)),)),
+}
+
+
+def _gbt(gen, c, dev):
+    return torch.stack([1.0 + 0.3 * torch.randn(c, generator=gen, device=dev),
+                        0.2 * torch.randn(c, generator=gen, device=dev)])
+
+
+def _ulp(got, want):
+    """bf16: within one ulp of the largest value."""
+    return (got.float() - want.float()).abs().max() <= want.float().abs().max() / 128
+
+
+def _rel(got, want, rel):
+    return (got - want).abs().max() <= rel * want.abs().max()
+
+
+@pytest.mark.parametrize("struct", sorted(_PASS_STRUCTS))
+@pytest.mark.parametrize("H,W,ci,co", [(16, 16, 16, 32), (13, 21, 24, 40)])
+def test_pass_1x1_kernels(dev, struct, H, W, ci, co):
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    ns, groups, outs = _PASS_STRUCTS[struct]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    B = 2
+    zs = [torch.randn(B, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
+          for _ in ns]
+    gbs = [_gbt(gen, ci, dev) for _ in ns]
+    nw = 1 + max(w for o in outs for _, w in o)
+    ws = [torch.randn(ci, co, generator=gen, device=dev) / ci ** 0.5
+          for _ in range(nw)]
+    args = (ns, groups, outs, zs, gbs, ws)
+    (zk, sk) = _counted(TF.KERNEL_1X1, lambda: TF.pass_1x1_fwd(*args))
+    zp, sp = TF.pass_1x1_fwd_plain(*args)
+    for a, b in zip(zk, zp):
+        assert a.shape == b.shape and _ulp(a, b)
+    for a, b in zip(sk, sp):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    dz = [torch.randn(z.shape, generator=gen, device=dev).to(torch.bfloat16)
+          for z in zp]
+    dst = [1e-3 * torch.randn(2, co, generator=gen, device=dev) for _ in zp]
+    bargs = (*args, zp, dz, dst)
+    gk = _counted(TF.KERNEL_1X1_BWD, lambda: TF.pass_1x1_bwd(*bargs))
+    gp = TF.pass_1x1_bwd_plain(*bargs)
+    for a, b in zip(gk[0], gp[0]):
+        assert a.dtype == torch.bfloat16 and _ulp(a, b)
+    for a, b, f in zip(gk[1], gp[1], ns):
+        if f:
+            assert _rel(a, b, 2e-2)
+    for a, b in zip(gk[2], gp[2]):
+        assert a.dtype == torch.float32 and _rel(a, b, 2e-2)
+    # two stages, no atomics: repeated runs agree bit for bit
+    sk2 = TF.pass_1x1_fwd(*args)[1]
+    gk2 = TF.pass_1x1_bwd(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip(sk, sk2))
+    assert all(torch.equal(a, b) for a, b in zip(gk[2], gk2[2]))
+    assert all(torch.equal(a, b) for a, b in zip(gk[1], gk2[1]))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("H,W,ci,co", [(32, 32, 16, 32), (19, 27, 24, 40),
+                                       (33, 18, 48, 96)])
+def test_pass_3x3_kernels(dev, stride, H, W, ci, co):
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B = 2
+    z = torch.randn(B, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
+    gb = _gbt(gen, ci, dev)
+    w = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
+    kern = TF.KERNEL_3X3S1 if stride == 1 else TF.KERNEL_3X3S2
+    zk, sk = _counted(kern, lambda: TF.pass_3x3_fwd(z, gb, w, stride))
+    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, stride)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    assert zk.shape == zp.shape == (B, Ho, Wo, co)
+    assert _ulp(zk, zp)
+    assert (sk - sp).abs().max() <= 1e-4 * sp.abs().max()
+    assert torch.equal(sk, TF.pass_3x3_fwd(z, gb, w, stride)[1])
+
+
+def test_fused_region_kernels_match_plain(dev):
+    """The yolov5n fused train step through the kernels against the same
+    step through the plain versions: launches per step and the loss."""
+    from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    model, meta = create_model("yolov5n.yaml", nc=3, dtype=torch.bfloat16,
+                               device="cuda", packed_stem=True,
+                               fused_train=True)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randint(0, 256, (2, 96, 96 * 3), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    tg = torch.zeros(2, 4, 186, device=dev)
+    tg[:, :2, 1:5] = torch.tensor([40.0, 50.0, 30.0, 20.0], device=dev)
+    tg[:, :2, 6 + 90] = 1.0
+    mask = torch.zeros(2, 4, dtype=torch.bool, device=dev)
+    mask[:, :2] = True
+    loss_fn = ComputeLoss(meta)
+    kinds = (stem_kernel.TRAIN_FWD_KERNEL, stem_kernel.TRAIN_WGRAD_KERNEL,
+             TF.KERNEL_3X3S2, TF.KERNEL_1X1, TF.KERNEL_1X1_BWD,
+             TF.KERNEL_3X3S1, down_kernel.TRAIN_FWD_KERNEL)
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+    losses = []
+    for plain in (False, True):
+        before = [k.launches for k in kinds]
+        model.train()
+        total, _ = loss_fn(model(x, plain=plain), tg, mask)
+        total.backward()
+        torch.cuda.synchronize()
+        moved = [k.launches - b for k, b in zip(kinds, before)]
+        assert moved == ([0] * 7 if plain else [1, 1, 2, 3, 3, 1, 0]), moved
+        losses.append(float(total.detach()))
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(saved[k])
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])

@@ -1,0 +1,452 @@
+"""The fused train region on the CPU: the port's stat-carrying passes (plain
+versions) against the JAX package's Pallas passes (interpret mode, as
+tests/test_train_fused.py runs them), a short pass chain through
+``finalize_gb``, and the whole yolov5n region against JAX and against the
+port's own stock train path.
+
+Inputs are made with numpy from a seed and handed to both packages; every
+comparison states its tolerance.  bf16 outputs agree to one ulp of the
+largest value (the same bf16 roundings at the same places, float32 sums in
+another order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolov5_obb_tpu.ops.pallas import train_fused as JTF
+from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+
+def _np(t):
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t).astype(jnp.float32))
+
+
+def _pair(a, dtype=jnp.bfloat16):
+    """The same values as a jax array and a torch tensor (bf16 or f32)."""
+    j = jnp.asarray(a, dtype)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32)))
+    return j, (t.to(torch.bfloat16) if dtype == jnp.bfloat16 else t)
+
+
+def _ulp_close(got, want):
+    """bf16: within one ulp of the largest value."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= np.abs(want).max() / 128, (err, np.abs(want).max())
+
+
+def _rel_close(got, want, rel):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= rel * max(np.abs(want).max(), 1e-30), (err, rel,
+                                                         np.abs(want).max())
+
+
+def _gb(rng, c):
+    return np.stack([rng.normal(1.0, 0.3, c), rng.normal(0, 0.2, c)]).astype(
+        np.float32)
+
+
+B, H, W, CI, CO = 2, 32, 32, 16, 24
+
+# the three 1x1 structures of the region: (ns_flags, groups, outs, cos)
+_STRUCTS = {
+    # C3 cv1 + cv2: one group, two outputs
+    "shared_two_outputs": ((True,), ((0,),), (((0, 0),), ((0, 1),)),
+                           (CO, CO)),
+    # bottleneck 1x1: the residual chain summed into one group
+    "residual_group": ((True, True, True), ((0, 1, 2),), (((0, 0),),),
+                       (CO,)),
+    # C3 cv3: two groups, split weights into one output (and a plain input)
+    "two_groups_split": ((True, True, False), ((0, 1), (2,)),
+                         (((0, 0), (1, 1)),), (CO, CO)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_STRUCTS))
+def test_pass_1x1_matches_jax(name):
+    """Forward (outputs, stats) and the backward from seeded ``(dz,
+    dstats)`` cotangents via ``jax.vjp``: dz_in one bf16 ulp, dW and
+    (dg, db) within 1e-3 of their largest."""
+    ns, groups, outs, cos = _STRUCTS[name]
+    rng = np.random.default_rng(10)
+    n_in = len(ns)
+    zs = [_pair(rng.standard_normal((B, H, W, CI))) for _ in range(n_in)]
+    gbs = [_pair(_gb(rng, CI), jnp.float32) for _ in range(n_in)]
+    ws = [_pair((rng.standard_normal((CI, co)) / np.sqrt(CI)).astype(
+        np.float32), jnp.float32) for co in cos]
+    dz = [rng.standard_normal((B, H, W, cos[p[0][1]])) for p in outs]
+    dst = [rng.normal(0, 1e-3, (2, cos[p[0][1]])).astype(np.float32)
+           for p in outs]
+
+    def jfn(z_, g_, w_):
+        return JTF.pass_1x1(ns, groups, outs, tuple(z_), tuple(g_), tuple(w_))
+
+    jargs = ([z[0] for z in zs], [g[0] for g in gbs], [w[0] for w in ws])
+    (jz, jst), vjp = jax.vjp(jfn, *jargs)
+    jdz, jdg, jdw = vjp((tuple(jnp.asarray(d, jnp.bfloat16) for d in dz),
+                         tuple(jnp.asarray(s) for s in dst)))
+
+    tz = [z[1].requires_grad_() for z in zs]
+    tg = [g[1].requires_grad_() for g in gbs]
+    tw = [w[1].requires_grad_() for w in ws]
+    pz, pst = TF.pass_1x1(ns, groups, outs, tz, tg, tw)
+    for a, b in zip(pz, jz):
+        assert a.dtype == torch.bfloat16
+        _ulp_close(a, b)
+    for a, b in zip(pst, jst):
+        _rel_close(a, b, 1e-4)
+    cot = ([torch.from_numpy(np.array(jnp.asarray(d, jnp.bfloat16).astype(
+        jnp.float32))).to(torch.bfloat16) for d in dz]
+        + [torch.from_numpy(s) for s in dst])
+    grads = torch.autograd.grad([*pz, *pst], [*tz, *tg, *tw], cot)
+    gz, gg, gw = grads[:n_in], grads[n_in:2 * n_in], grads[2 * n_in:]
+    for a, b in zip(gz, jdz):
+        assert a.dtype == torch.bfloat16
+        _ulp_close(a, b)
+    for a, b, f in zip(gg, jdg, ns):
+        if f:
+            _rel_close(a, b, 1e-3)
+        else:
+            assert not _np(a).any() and not _np(b).any()
+    for a, b in zip(gw, jdw):
+        assert a.dtype == torch.float32
+        _rel_close(a, b, 1e-3)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_pass_3x3_matches_jax(stride):
+    """Forward and the library backward of the 3x3 passes."""
+    rng = np.random.default_rng(11 + stride)
+    jz, tz = _pair(rng.standard_normal((B, H, W, CI)))
+    jg, tg = _pair(_gb(rng, CI), jnp.float32)
+    jw, tw = _pair((rng.standard_normal((9 * CI, CO)) / np.sqrt(9 * CI))
+                   .astype(np.float32), jnp.float32)
+    jfn = JTF.pass_3x3s1 if stride == 1 else JTF.pass_3x3s2
+    (jo, jst), vjp = jax.vjp(jfn, jz, jg, jw)
+    Ho = H // stride
+    dz = rng.standard_normal((B, Ho, Ho, CO))
+    dst = rng.normal(0, 1e-3, (2, CO)).astype(np.float32)
+    jd = vjp((jnp.asarray(dz, jnp.bfloat16), jnp.asarray(dst)))
+
+    fn = TF.pass_3x3s1 if stride == 1 else TF.pass_3x3s2
+    args = [t.requires_grad_() for t in (tz, tg, tw)]
+    po, pst = fn(*args)
+    _ulp_close(po, jo)
+    _rel_close(pst, jst, 1e-4)
+    dzt = _pair(dz)[1]
+    pd = torch.autograd.grad([po, pst], args, [dzt, torch.from_numpy(dst)])
+    assert pd[0].dtype == torch.bfloat16 and pd[2].dtype == torch.float32
+    _ulp_close(pd[0], jd[0])
+    _rel_close(pd[1], jd[1], 1e-3)
+    _rel_close(pd[2], jd[2], 1e-3)
+
+
+def test_finalize_gb_matches_jax():
+    """mean and var (no clamp) exactly; g and b to the rounding of rsqrt,
+    which XLA's CPU backend computes to within a few float32 ulps rather
+    than correctly rounded (it differs from torch.rsqrt in ~36% of inputs,
+    from float64 rounded in ~15%)."""
+    rng = np.random.default_rng(13)
+    s1 = rng.normal(0, 50, 24).astype(np.float32)
+    s2 = (s1 ** 2 / 100 + rng.uniform(1, 50, 24)).astype(np.float32)
+    s2[0] = s1[0] ** 2 / 100 - 1e-4  # a negative variance stays negative
+    gamma, beta = _gb(rng, 24)
+    jg, jb, jm, jv = map(_np, JTF.finalize_gb(
+        *map(jnp.asarray, (s1, s2, gamma, beta)), 100))
+    g, b, m, v = map(_np, TF.finalize_gb(
+        *map(torch.from_numpy, (s1, s2, gamma, beta)), 100))
+    np.testing.assert_array_equal(m, jm)
+    np.testing.assert_array_equal(v, jv)
+    assert v[0] < 0
+    ulp = np.finfo(np.float32).eps
+    assert (np.abs(g - jg) <= 4 * ulp * np.abs(jg)).all()
+    assert (np.abs(b - jb) <= 4 * ulp * (np.abs(beta) + np.abs(m * jg))).all()
+
+
+def test_chain_matches_jax():
+    """s2 → 1x1 → 3x3 through ``finalize_gb`` (tests/test_train_fused.py's
+    chain): the loss and the gradient of the input, every weight and every
+    (γ, β), port against JAX, within 1e-2 of each one's largest."""
+    rng = np.random.default_rng(14)
+    Bc, Hc, c0, c1, c2 = 2, 32, 8, 16, 16
+    arrays = [rng.standard_normal((Bc, Hc, Hc, c0)).astype(np.float32),
+              rng.normal(0, 0.3, (9 * c0, c1)).astype(np.float32),
+              rng.normal(0, 0.3, (c1, c2)).astype(np.float32),
+              rng.normal(0, 0.3, (9 * c2, c2)).astype(np.float32)]
+    for c, (g, b) in ((c0, (1.0, 0.0)), (c1, (1.1, 0.05)), (c2, (0.9, -0.05))):
+        arrays += [np.full(c, g, np.float32), np.full(c, b, np.float32)]
+    n0, n1 = Bc * Hc * Hc, Bc * (Hc // 2) ** 2
+
+    def chain(lib, sums, stack, p3s2, p1, p3s1, params):
+        z0, wd, wa, wt, g0, b0, g1, b1, g2, b2 = params
+        z0f = z0.float() if isinstance(z0, torch.Tensor) else z0.astype(
+            jnp.float32)
+        gg, bb, _, _ = lib.finalize_gb(sums(z0f), sums(z0f * z0f), g0, b0, n0)
+        zd, std = p3s2(z0, stack([gg, bb]), wd)
+        gg1, bb1, _, _ = lib.finalize_gb(std[0], std[1], g1, b1, n1)
+        (za,), (sta,) = p1((True,), ((0,),), (((0, 0),),), (zd,),
+                           (stack([gg1, bb1]),), (wa,))
+        gg2, bb2, _, _ = lib.finalize_gb(sta[0], sta[1], g2, b2, n1)
+        zt, _ = p3s1(za, stack([gg2, bb2]), wt)
+        return zt
+
+    def jloss(params):
+        params = (params[0].astype(jnp.bfloat16), *params[1:])
+        zt = chain(JTF, lambda t: jnp.sum(t, (0, 1, 2)), jnp.stack,
+                   JTF.pass_3x3s2, JTF.pass_1x1, JTF.pass_3x3s1, params)
+        return jnp.sum(zt.astype(jnp.float32) ** 2)
+
+    jl, jg = jax.value_and_grad(jloss)(tuple(map(jnp.asarray, arrays)))
+
+    tp = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    zt = chain(TF, lambda t: t.sum((0, 1, 2)), torch.stack, TF.pass_3x3s2,
+               TF.pass_1x1, TF.pass_3x3s1, (tp[0].to(torch.bfloat16), *tp[1:]))
+    tl = (zt.float() ** 2).sum()
+    tg = torch.autograd.grad(tl, tp)
+    assert abs(tl.item() - float(jl)) <= 1e-2 * abs(float(jl))
+    names = ["z0", "w_down", "w_1x1", "w_3x3", "g0", "b0", "g1", "b1",
+             "g2", "b2"]
+    for name, a, b in zip(names, tg, jg):
+        err = np.abs(_np(a) - _np(b)).max()
+        assert err <= 1e-2 * np.abs(_np(b)).max(), (name, err)
+
+
+# ---------------------------------------------------------------------------
+# the whole region: yolov5n, nc 3, 128², B=2, bf16
+# ---------------------------------------------------------------------------
+
+S, NC, BM = 128, 3, 2
+
+
+def _targets(rng):
+    tg = np.zeros((BM, 8, 186), np.float32)
+    tg[:, :4, 0] = rng.integers(0, NC, (BM, 4))
+    tg[:, :4, 1:3] = rng.uniform(20, 100, (BM, 4, 2))
+    tg[:, :4, 3:5] = rng.uniform(8, 40, (BM, 4, 2))
+    tg[:, :4, 5] = rng.uniform(-1.5, 1.5, (BM, 4))
+    tg[:, :4, 6:] = rng.uniform(0, 1, (BM, 4, 180))
+    mask = np.zeros((BM, 8), bool)
+    mask[:, :4] = True
+    return tg, mask
+
+
+def _port_step(model, loss_fn, batch):
+    """Loss, items, gradients by name and the BN running statistics after
+    one train-mode forward/backward; the statistics are put back."""
+    saved = {k: b.clone() for k, b in model.named_buffers()}
+    model.train()
+    x, tg, mask = (torch.from_numpy(a) for a in batch)
+    total, items = loss_fn(model(x), tg, mask)
+    names, params = zip(*model.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(total, params)))
+    stats = {k: b.clone() for k, b in model.named_buffers() if "running" in k}
+    model.eval()
+    with torch.no_grad():
+        for k, b in model.named_buffers():
+            b.copy_(saved[k])
+    return float(total.detach()), _np(items), grads, stats
+
+
+def _cos(a, b):
+    a = np.concatenate([_np(t).ravel() for t in a]).astype(np.float64)
+    b = np.concatenate([_np(t).ravel() for t in b]).astype(np.float64)
+    n = np.linalg.norm(a) * np.linalg.norm(b)
+    return float(a @ b / n) if n else 1.0
+
+
+def _agree(got, want, loss_rtol, stats_rel, det_cos, layer_cos):
+    """``got``/``want``: (loss, items, grads, stats) of two runs of the same
+    step; the bars of tests/test_fused_region.py."""
+    assert abs(got[0] - want[0]) <= loss_rtol * abs(want[0]), (got[0],
+                                                               want[0])
+    for k, a in want[3].items():
+        b = got[3][k]
+        scale = max(float(a.abs().max()), 1.0)
+        assert float((a - b).abs().max()) / scale < stats_rel, k
+    det = f"model.{max(int(n.split('.')[1]) for n in want[2])}."
+    groups = {"detect": det, **{f"m{i}": f"model.{i}." for i in range(5)}}
+    for name, prefix in groups.items():
+        keys = [n for n in want[2] if n.startswith(prefix)]
+        c = _cos([got[2][n] for n in keys], [want[2][n] for n in keys])
+        assert c > (det_cos if name == "detect" else layer_cos), (name, c)
+
+
+@pytest.fixture(scope="module")
+def region():
+    """The JAX fused model (interpret-mode passes) and the port's fused
+    model with its weights, one batch, and each package's step."""
+    from yolov5_obb_tpu.engine.loss import ComputeLoss as JaxLoss
+    from yolov5_obb_tpu.models.yolo import build_model as jax_build
+    from yolov5_obb_tpu.models.yolo import probe_strides as jax_probe
+    from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
+    from yolov5_obb_tpu_torch.utils.weights import (
+        from_jax_variables,
+        grads_from_jax,
+    )
+
+    jm, jmeta, _ = jax_build("yolov5n.yaml", nc=NC, dtype=jnp.bfloat16,
+                             packed_stem=True, fused_train=True)
+    assert jm.fused_train
+    jmeta = jax_probe(jm, jmeta, imgsz=S)
+    # numpy-seeded variables of the model's tree (running the JAX init
+    # would trace the interpret-mode stem+L1 kernel)
+    wrng = np.random.default_rng(1)
+
+    def fill(path, sd):
+        name = path[-1].key
+        if name == "kernel":
+            return (wrng.standard_normal(sd.shape)
+                    / np.sqrt(np.prod(sd.shape[:-1]))).astype(np.float32)
+        if name in ("scale", "var"):
+            return wrng.uniform(0.5, 1.5, sd.shape).astype(np.float32)
+        return wrng.normal(0, 0.1, sd.shape).astype(np.float32)
+
+    v = jax.tree_util.tree_map_with_path(fill, dict(jax.eval_shape(
+        jm.init, jax.random.PRNGKey(0), jnp.zeros((1, S, 3 * S), jnp.uint8))))
+    model, meta = create_model("yolov5n.yaml", nc=NC, dtype=torch.bfloat16,
+                               device="cpu", packed_stem=True,
+                               fused_train=True)
+    sd = from_jax_variables(v, model.specs)
+    assert sd.keys() == model.state_dict().keys()
+    model.load_state_dict(sd)
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 255, (BM, S, S, 3), dtype=np.uint8)
+    batch = (img.reshape(BM, S, -1), *_targets(rng))
+
+    hyp = scale_hyp_gains(load_hyp(), meta.nl, NC, S)
+    jloss = JaxLoss(jmeta, hyp)
+
+    def loss_of(p):
+        outs, mut = jm.apply({"params": p, "batch_stats": v["batch_stats"]},
+                             jnp.asarray(batch[0]), train=True, flat=True,
+                             mutable=["batch_stats"])
+        total, items = jloss(outs, jnp.asarray(batch[1]),
+                             jnp.asarray(batch[2]))
+        return total, (items, mut)
+
+    (jl, (ji, mut)), jg = jax.jit(jax.value_and_grad(loss_of, has_aux=True))(
+        jax.tree.map(jnp.asarray, v["params"]))
+    jstats = from_jax_variables({"params": v["params"], "batch_stats":
+                                 jax.tree.map(np.asarray,
+                                              mut["batch_stats"])},
+                                model.specs)
+    want = (float(jl), _np(ji),
+            grads_from_jax(jax.tree.map(np.asarray, jg), model.specs),
+            {k: t for k, t in jstats.items() if "running" in k})
+    return model, ComputeLoss(meta, hyp), batch, want
+
+
+def test_region_matches_jax(region, monkeypatch):
+    """The port's fused step (plain passes) against the JAX fused step on
+    the same weights and batch: loss within 3e-2, running statistics within
+    2e-2 of their scale, gradient directions (tests/test_fused_region.py's
+    bars).  The passes run once each per step, layer 1 and 3 as 3x3 s2."""
+    model, loss_fn, batch, want = region
+    calls = []
+    for name in ("pass_1x1", "pass_3x3s1", "pass_3x3s2"):
+        fn = getattr(TF, name)
+        monkeypatch.setattr(TF, name, lambda *a, _n=name, _f=fn, **k: (
+            calls.append(_n), _f(*a, **k))[1])
+    got = _port_step(model, loss_fn, batch)
+    assert sorted(calls) == sorted(["pass_3x3s2"] * 2 + ["pass_1x1"] * 3
+                                   + ["pass_3x3s1"])
+    _agree(got, want, 3e-2, 2e-2, 0.9, 0.7)
+
+
+def test_region_matches_stock_path(region):
+    """The port's fused step against the port's stock train step (layer 0
+    PackedStem, stock layers 1-3) from the same state, as
+    tests/test_fused_region.py holds the JAX region to the JAX stock path."""
+    model, loss_fn, batch, _ = region
+    fused = _port_step(model, loss_fn, batch)
+    model.fused_train = False
+    try:
+        stock = _port_step(model, loss_fn, batch)
+    finally:
+        model.fused_train = True
+    _agree(fused, stock, 3e-2, 2e-2, 0.9, 0.7)
+
+
+def test_region_takes_any_shape():
+    """The port keeps the structural gate and drops the TPU's shape terms:
+    a 96x96 batch (H/4 = W/4 = 24, no multiple of 16) runs the region
+    and gives finite gradients for layers 0-3."""
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+
+    model, _ = create_model("yolov5n.yaml", nc=NC, dtype=torch.bfloat16,
+                            device="cpu", packed_stem=True, fused_train=True)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.integers(0, 255, (1, 96, 96 * 3),
+                                      dtype=np.uint8))
+    model.train()
+    maps = model(x)
+    sum(m.float().square().mean() for m in maps).backward()
+    for i in range(4):
+        for n, p in model.model[i].named_parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all(), (i, n)
+    assert model.model[0].bn.running_mean.abs().sum() > 0
+
+
+def test_specs_gate():
+    from yolov5_obb_tpu_torch.models.yolo import (
+        _fused_train_specs_ok,
+        build_model,
+    )
+
+    for cfg in ("yolov5n.yaml", "yolov5m.yaml", "yolov5x.yaml"):
+        model, _, _ = build_model(cfg, nc=NC)
+        assert _fused_train_specs_ok(model.specs), cfg
+    specs = list(model.specs)
+    for j in (0, 1, 2):  # a later layer reading a layer the region skips
+        bad = specs[:5] + [dataclasses.replace(specs[5], frm=(-1, j))] \
+            + specs[6:]
+        assert not _fused_train_specs_ok(bad), j
+    assert _fused_train_specs_ok(
+        specs[:5] + [dataclasses.replace(specs[5], frm=(-1, 3))] + specs[6:])
+    no_shortcut = dataclasses.replace(specs[2], args=(*specs[2].args[:3],
+                                                      False))
+    assert not _fused_train_specs_ok(specs[:2] + [no_shortcut] + specs[3:])
+
+
+def test_fused_train_needs_the_packed_stem(monkeypatch):
+    """Without ``packed_stem`` the flag is off and the stock path runs."""
+    from yolov5_obb_tpu_torch.models.yolo import build_model, create_model
+
+    model, _, _ = build_model("yolov5n.yaml", nc=NC, packed_stem=True,
+                              fused_train=True)
+    assert model.fused_train
+    model, _ = create_model("yolov5n.yaml", nc=NC, device="cpu",
+                            fused_train=True)
+    assert not model.fused_train
+    calls = []
+    monkeypatch.setattr(TF, "pass_1x1", lambda *a, **k: calls.append(a))
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 255, (1, 64, 64, 3), dtype=np.uint8)).float() / 255.0
+    model.train()
+    assert len(model(x)) == 3 and not calls
+
+
+def test_weights_map_identically():
+    """The fused model's parameters and statistics are the stock model's,
+    key for key, so ``from_jax_variables`` needs nothing new."""
+    from yolov5_obb_tpu_torch.models.yolo import build_model
+    from yolov5_obb_tpu_torch.utils.weights import key_map
+
+    fused, _, _ = build_model("yolov5m.yaml", nc=NC, packed_stem=True,
+                              fused_train=True)
+    stock, _, _ = build_model("yolov5m.yaml", nc=NC, packed_stem=True)
+    assert fused.state_dict().keys() == stock.state_dict().keys()
+    assert [k for k, _, _ in key_map(fused.specs)] == list(
+        stock.state_dict().keys())

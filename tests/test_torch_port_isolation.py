@@ -97,6 +97,16 @@ def test_train_step_needs_the_card_unless_cpu_is_asked():
             make_train_step(model, ComputeLoss(meta), opt, device="cpu", **kw)
 
 
+def test_fused_train_model_needs_the_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is allowed to run")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model("yolov5n.yaml", nc=15, packed_stem=True, fused_train=True)
+    model, _ = create_model("yolov5n.yaml", nc=15, device="cpu",
+                            packed_stem=True, fused_train=True)
+    assert model.fused_train and next(model.parameters()).device.type == "cpu"
+
+
 def test_predict_defaults_to_multi_label_like_jax():
     """The JAX package's make_predict_fn defaults to multi-label; so does
     the port's, which refuses it (not ported) rather than quietly returning

@@ -12,7 +12,8 @@
 // bf16 tensor-core peak: bytes bound it, by a hair.  This first version uses
 // scalar float32 FMAs, so in practice operations limit it.
 //
-// Design: the tiled conv of down_conv.cuh with a scale/shift + SiLU epilogue.
+// Design: the tiled conv of down_conv.cuh at stride 2 with a scale/shift +
+// SiLU epilogue.
 #include "down_conv.cuh"
 
 // (at namespace scope: the type is a template argument of a kernel)
@@ -29,6 +30,7 @@ struct BnSilu {
 extern "C" int down_launch(const void* x, const void* w, const float* ss,
                            void* out, int B, int H, int W, int ci, int co,
                            void* stream) {
-  return (int)down_conv::launch(x, w, BnSilu{ss, co}, out, B, H, W, ci, co,
-                                (cudaStream_t)stream);
+  return (int)down_conv::launch<2>(x, w, down_conv::Identity{},
+                                   BnSilu{ss, co}, out, nullptr, B, H, W,
+                                   ci, co, (cudaStream_t)stream);
 }

@@ -32,11 +32,6 @@
 #include "down_conv.cuh"
 #include "wgrad.cuh"
 
-// (at namespace scope: the type is a template argument of a kernel)
-struct Raw {
-  __device__ __forceinline__ void operator()(float*, int) const {}
-};
-
 namespace {
 
 constexpr int CC = 16;                   // input channels per CTA
@@ -147,8 +142,9 @@ down_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
 extern "C" int down_train_fwd_launch(const void* x, const void* w, void* z,
                                      int B, int H, int W, int ci, int co,
                                      void* stream) {
-  return (int)down_conv::launch(x, w, Raw{}, z, B, H, W, ci, co,
-                                (cudaStream_t)stream);
+  return (int)down_conv::launch<2>(x, w, down_conv::Identity{},
+                                   down_conv::Raw{}, z, nullptr, B, H, W,
+                                   ci, co, (cudaStream_t)stream);
 }
 
 // partial: parts * 9*ci*co floats of scratch; dw: 9*ci*co floats.

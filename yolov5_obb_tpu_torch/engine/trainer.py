@@ -47,6 +47,8 @@ def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
     the model must be.  The step runs the model in train mode, the loss
     ``loss_fn(maps, targets, t_mask) -> (total, items)``, the backward
     pass, the optimizer (an update every ``accumulate`` steps) and the EMA.
+    A model built with ``packed_stem`` and ``fused_train`` runs its layers
+    0-3 in train mode as the fused pass chain (``models/yolo.py``).
     ``metrics`` holds ``loss`` and the ``(4,)`` ``items`` as device tensors:
     reading them synchronises, so read them only when needed.
 

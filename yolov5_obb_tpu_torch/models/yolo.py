@@ -7,6 +7,8 @@ single source of truth for the n/s/m/l/x variants (``models/configs``).
 kernel and the eligible C3 blocks and stride-2 downsamples as their kernels;
 in train mode layer 0 runs on the stem train kernels and the eligible
 downsamples on the downsample train kernels (models/layers.py gates).
+``fused_train`` (with ``packed_stem``) runs layers 0-3 in train mode as the
+stat-carrying pass chain of ``ops/kernels/train_fused.py``.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ import torch
 import yaml
 from torch import nn
 
+from ..ops.kernels import train_fused as TF
 from ..ops.kernels.stem_kernel import (
     fold_stem_l1_params,
     fused_stem_l1,
     fused_stem_l1_plain,
+    stem_conv_train,
 )
 from ..utils.device import resolve_device
 from . import layers as L
@@ -177,6 +181,43 @@ def _build_module(spec: LayerSpec, packed_stem: bool, dtype):
     raise ValueError(f"unknown module {kind!r} in model config")
 
 
+def _fused_train_specs_ok(specs) -> bool:
+    """True iff layers 0-3 form the standard high-resolution prefix stem
+    Conv(6,2) → Conv(3,2) → C3(c,c,n shortcut) → Conv(3,2) and no later
+    layer references layers 0-2 (whose activations the fused train region
+    never forms).  A copy of the JAX package's structural gate
+    (yolo.py:269-296); its Mosaic shape terms have no counterpart."""
+    if len(specs) < 5:
+        return False
+    s0, s1, s2, s3 = specs[:4]
+    if not (s0.name == "Conv" and list(s0.args[2:4]) == [6, 2]):
+        return False
+    if not (s1.name == "Conv" and list(s1.args[2:4]) == [3, 2]
+            and s1.frm == -1 and s1.repeats == 1):
+        return False
+    if not (s2.name == "C3" and s2.frm == -1 and s2.repeats == 1):
+        return False
+    a2 = list(s2.args)
+    if a2[0] != a2[1] or a2[1] % 2 or (len(a2) > 3 and not a2[3]):
+        return False
+    if len(a2) > 4 and a2[4] != 1:  # groups
+        return False
+    if not (s3.name == "Conv" and list(s3.args[2:4]) == [3, 2]
+            and s3.frm == -1 and s3.repeats == 1):
+        return False
+    for sp in specs[4:]:
+        refs = (sp.frm,) if isinstance(sp.frm, int) else tuple(sp.frm)
+        if any(j in (0, 1, 2) for j in refs):
+            return False
+    return True
+
+
+def _bn_update(bn, mean, var) -> None:
+    """flax's running-statistic update, ``0.97·old + 0.03·batch``."""
+    bn.running_mean.copy_(0.97 * bn.running_mean + 0.03 * mean)
+    bn.running_var.copy_(0.97 * bn.running_var + 0.03 * var)
+
+
 class YoloModel(nn.Module):
     """Backbone + PAN + Detect, built from parsed specs.
 
@@ -189,14 +230,20 @@ class YoloModel(nn.Module):
     the stem+L1 fold is inference-only) and the eligible downsamples run on
     the downsample train kernels.  Otherwise ``forward`` takes a float NHWC
     image in [0, 1] and runs the stock layers.  ``dtype`` is the compute
-    dtype; parameters and BN statistics stay float32."""
+    dtype; parameters and BN statistics stay float32.
+
+    ``fused_train`` (set only with ``packed_stem``): in train mode, when
+    :func:`_fused_train_specs_ok` holds, layers 0-3 run as the
+    stat-carrying pass chain (:meth:`_fused_train_region`).  The modules
+    and parameter names are those of the stock graph."""
 
     def __init__(self, specs, nc: int, na: int, dtype=torch.float32,
-                 packed_stem: bool = False):
+                 packed_stem: bool = False, fused_train: bool = False):
         super().__init__()
         self.specs = tuple(specs)
         self.nc, self.na, self.dtype = nc, na, dtype
         self.packed_stem = packed_stem
+        self.fused_train = fused_train
         layers = []
         for spec in self.specs:
             if spec.name == "Detect":
@@ -216,11 +263,87 @@ class YoloModel(nn.Module):
         fn = fused_stem_l1_plain if plain else fused_stem_l1
         return fn(x, *ops, dtype=self.dtype)
 
+    def _fused_train_region(self, x, plain: bool):
+        """Layers 0-3 as the stat-carrying pass chain (train mode only;
+        JAX ``YoloModel._fused_train_region``, yolo.py:348-436).  Returns
+        layer 3's activation in the model dtype and updates the running
+        statistics of layers 0-3 and of every C3 sub-conv."""
+        m0, m1, c3, m3 = self.model[:4]
+        c_ = c3.cv1.conv.out_channels
+        updates = []
+
+        def fin(st, conv_bn, n):
+            g, b, mean, var = TF.finalize_gb(st[0], st[1], conv_bn.bn.weight,
+                                             conv_bn.bn.bias, n)
+            updates.append((conv_bn.bn, mean, var))
+            return torch.stack([g, b])
+
+        def taps(m):
+            w = m.conv.weight
+            return w.permute(2, 3, 1, 0).reshape(9 * w.shape[1], w.shape[0])
+
+        def w1x1(m):
+            return m.conv.weight[:, :, 0, 0].t()  # (ci, co)
+
+        def npix(z):
+            return z.shape[0] * z.shape[1] * z.shape[2]
+
+        # the stem conv (kernel; its stat cotangents reach the weight
+        # gradient kernel through the torch sums)
+        z0 = stem_conv_train(x, m0.conv.weight / 255.0, torch.bfloat16,
+                             plain=plain)
+        z0f = z0.float()
+        st0 = torch.stack([z0f.sum((0, 1, 2)), (z0f * z0f).sum((0, 1, 2))])
+        gb0 = fin(st0, m0, npix(z0))
+        # down1: the stem's BN+SiLU fused with the stride-2 conv
+        z1, st1 = TF.pass_3x3s2(z0, gb0, taps(m1), plain)
+        n1 = npix(z1)
+        gb1 = fin(st1, m1, n1)
+        # C3 cv1 + cv2: one read of z1, two outputs
+        (zc1, zc2), (sta, stb) = TF.pass_1x1(
+            (True,), ((0,),), (((0, 0),), ((0, 1),)), (z1,), (gb1,),
+            (w1x1(c3.cv1), w1x1(c3.cv2)), plain)
+        gba = fin(sta, c3.cv1, n1)
+        gbb = fin(stb, c3.cv2, n1)
+        # bottlenecks: the residual sums stay in z-space — bottleneck k's
+        # input is the sum of the activations of cv1's output and of every
+        # earlier bottleneck's 3x3 output
+        chain, gbs = [zc1], [gba]
+        for b in c3.m:
+            m = len(chain)
+            (zd,), (std,) = TF.pass_1x1(
+                (True,) * m, (tuple(range(m)),), (((0, 0),),), tuple(chain),
+                tuple(gbs), (w1x1(b.cv1),), plain)
+            gbd = fin(std, b.cv1, n1)
+            ze, ste = TF.pass_3x3s1(zd, gbd, taps(b.cv2), plain)
+            chain.append(ze)
+            gbs.append(fin(ste, b.cv2, n1))
+        # cv3 on concat(chain, cv2): its weight split at c_ into two groups
+        m = len(chain)
+        wc3 = w1x1(c3.cv3)
+        (z3,), (st3,) = TF.pass_1x1(
+            (True,) * (m + 1), (tuple(range(m)), (m,)), (((0, 0), (1, 1)),),
+            (*chain, zc2), (*gbs, gbb), (wc3[:c_], wc3[c_:]), plain)
+        gb3 = fin(st3, c3.cv3, n1)
+        # down2
+        zd2, std2 = TF.pass_3x3s2(z3, gb3, taps(m3), plain)
+        gbo = fin(std2, m3, npix(zd2))
+        # hand-off to layer 4: BN+SiLU in float32, cast to the model dtype
+        h = zd2.float() * gbo[0] + gbo[1]
+        with torch.no_grad():
+            for bn, mean, var in updates:
+                _bn_update(bn, mean, var)
+        return (h * torch.sigmoid(h)).to(self.dtype)
+
     def forward(self, x, plain: bool = False):
         """Image batch → list of flat Detect maps ``(B, n_l, no)``."""
         y: list = []
         skip = 0
-        if self.packed_stem and not self.training:
+        if (self.training and self.fused_train and x.dim() == 3
+                and _fused_train_specs_ok(self.specs)):
+            y = [None, None, None, self._fused_train_region(x, plain)]
+            skip = 4
+        elif self.packed_stem and not self.training:
             y = [None, self._stem_l1(x, plain)]
             skip = 2
         elif not self.packed_stem:
@@ -265,9 +388,10 @@ def packed_l1_eligible(specs) -> bool:
 
 
 def build_model(cfg, nc: int | None = None, dtype=torch.float32,
-                packed_stem: bool = False):
+                packed_stem: bool = False, fused_train: bool = False):
     """Load config → (YoloModel on the meta device, ModelMeta without
-    strides, raw dict)."""
+    strides, raw dict).  ``fused_train`` takes effect only with
+    ``packed_stem`` (JAX yolo.py:542)."""
     d = load_config(cfg)
     if nc is not None and nc != d.get("nc"):
         d["nc"] = nc
@@ -278,7 +402,8 @@ def build_model(cfg, nc: int | None = None, dtype=torch.float32,
             "(fused_stem) is not ported yet")
     with torch.device("meta"):
         model = YoloModel(specs, nc_, na, dtype=dtype,
-                          packed_stem=packed_stem)
+                          packed_stem=packed_stem,
+                          fused_train=fused_train and packed_stem)
     meta = ModelMeta(nc=nc_, nl=anchors_px.shape[0], na=na, strides=(),
                      anchors_px=anchors_px)
     return model, meta, d
@@ -336,14 +461,18 @@ def init_model(model: YoloModel, meta: ModelMeta,
 
 
 def create_model(cfg, nc: int | None = None, dtype=torch.float32,
-                 device=None, seed: int = 0, packed_stem: bool = False):
+                 device=None, seed: int = 0, packed_stem: bool = False,
+                 fused_train: bool = False):
     """One-call constructor: ``(model, meta)``, weights random from ``seed``
     (an explicit ``torch.Generator`` on the CPU), in eval mode on
     ``device`` — the card unless ``device="cpu"`` is passed.  ``model.train()``
-    switches it to the train path (:mod:`..engine.trainer`)."""
+    switches it to the train path (:mod:`..engine.trainer`); with
+    ``packed_stem`` and ``fused_train`` that path runs layers 0-3 as the
+    fused pass chain."""
     dev = resolve_device(device)
     model, meta, d = build_model(cfg, nc=nc, dtype=dtype,
-                                 packed_stem=packed_stem)
+                                 packed_stem=packed_stem,
+                                 fused_train=fused_train)
     meta = probe_strides(model, meta)
     meta.names = d.get("names")
     model = model.to_empty(device="cpu")

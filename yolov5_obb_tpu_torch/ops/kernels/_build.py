@@ -36,7 +36,8 @@ _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # match the plain PyTorch version bit for bit on all but borderline pairs
 _EXTRA_FLAGS = {"neighbor": ["-fmad=false"]}
 
-SOURCES = ("neighbor", "stem_l1", "down", "c3", "stem_train", "down_train")
+SOURCES = ("neighbor", "stem_l1", "down", "c3", "stem_train", "down_train",
+           "train_fused_1x1", "train_fused_3x3")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: dict[str, str] = {}
@@ -151,12 +152,12 @@ def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def partial_count(device, tiles: int, chunks: int = 1) -> int:
-    """CTAs along the pixel axis of a two-stage weight gradient (each writes
-    one partial sum): with the ``chunks`` CTAs of the other grid axis, three
-    for every SM of the card (as many as the shared memory of both
-    weight-gradient kernels lets reside at once), and at most one per tile.
-    Fixed for a card and a shape, so repeated runs add the same partials in
-    the same order."""
+def partial_count(device, tiles: int, chunks: int = 1, per_sm: int = 3) -> int:
+    """CTAs along the pixel axis of a two-stage reduction (each writes one
+    partial sum: a weight gradient, per-channel statistics): with the
+    ``chunks`` CTAs of the other grid axis, ``per_sm`` for every SM of the
+    card (as many as the kernel's shared memory and registers let reside at
+    once), and at most one per tile.  Fixed for a card and a shape, so
+    repeated runs add the same partials in the same order."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, -(-sms * 3 // chunks)))
+    return max(1, min(tiles, -(-sms * per_sm // chunks)))
