@@ -8,10 +8,12 @@ Phases, each fatal on failure:
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
       parallel), timed;
   (b) each inference kernel against its plain PyTorch version on the card at
-      the main path's shapes (bf16 convs; neighbour kernel at n =
-      512/1024/2048 and on a clustered input that overflows M=64), with
-      kernel / plain / library times and the bound from the bytes and
-      operations of the shape;
+      the main path's shapes (bf16 convs; the stem+L1 kernel and the
+      stem-only kernel at yolov5m b16 1024²; neighbour kernel at n =
+      512/1024/2048 and on a clustered input that overflows M=64; the
+      pair-IoU kernel on the clustered input at n = 4096), with kernel /
+      plain / library times and the bound from the bytes and operations of
+      the shape;
   (b') each train kernel (stem forward and weight gradient, downsample
       forward and weight gradient) against its plain version at the train
       path's shapes (the stem; the layer-1 and layer-3 downsamples), dW from
@@ -38,7 +40,19 @@ Phases, each fatal on failure:
       ``fused_train`` (layers 0-3 as the stat-carrying pass chain), its
       launches per step (stem 1+1, 3x3 s2 2, 1x1 4+4, 3x3 s1 2, downsample
       0), agreement with the same step on the plain versions, and loss items
-      and running statistics against the stock step of phase (d).
+      and running statistics against the stock step of phase (d);
+  (f) the val path: phase (c)'s model through ``evaluate`` (multi-label,
+      conf 0.01, IoU 0.4, 4096 candidates) on 48 seeded images whose labels
+      are the plain path's conf-0.25 detections, against the plain run (mAP
+      within 0.01, per-image detection counts within 1%, keep masks on the
+      same candidates equal, at most 1% of the detections without a
+      counterpart in the other run); ms/img of evaluate and of the predict
+      calls, candidates per image and tiers; the iou-ordered NMS (pair-IoU
+      kernel) on one batch's candidates and on clustered candidates whose
+      rows overflow M, kernel against plain; the stem-only kernel on yolov5m
+      with PACKED_L1=0 (the PACKED_L1 A/B) and on yolov5s-ghost, layer 0
+      held to one bf16 ulp of its plain version on every batch and the
+      detections to the plain path's.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -65,6 +79,9 @@ IOU_OPS = 750
 BATCH, IMGSZ, MAXC, MAX_DET = 16, 1024, 2048, 1500
 CONF, IOU = 0.25, 0.45
 DENSITY = 300  # target dets/img for the density bisection
+# the val path (val.py's regime): multi-label, conf 0.01, IoU 0.4, 4096
+# candidates; 48 seeded images in three batches, <= 100 labels each
+VAL_CONF, VAL_IOU, VAL_MAXC, VAL_IMAGES, VAL_LABELS = 0.01, 0.4, 4096, 48, 100
 # train path (tools/bench_train.py): label slots, live targets, timed steps
 MAX_LABELS, LIVE, TRAIN_ITERS, SYNC_EVERY = 64, 8, 12, 4
 # the train kernels' launches per train step at yolov5m 1024²
@@ -177,7 +194,7 @@ def check_stem(gen, dev):
     f_l1 = 2 * BATCH * (hs // 2) ** 2 * 9 * c2 * c3
     flops = f_stem + f_l1
     nbytes = x.numel() + got.numel() * 2
-    return "stem_l1", S, {
+    return "stem_l1", S.KERNEL, {
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.float().abs().clamp(min=1e-2)).max()),
         "tolerance": "bf16: 1 ulp of the output, abs <= 0.05",
@@ -187,6 +204,44 @@ def check_stem(gen, dev):
         "library_ms": cuda_time(library, 5),
         "bound": bound(nbytes, (f_stem, PEAK_FP32), (f_l1, PEAK_BF16)),
         "flops": flops, "bytes": nbytes,
+    }
+
+
+def check_stem_only(gen, dev):
+    """The stem alone (fused_stem: layer 0 of a model whose layer 1 cannot
+    join it) at the yolov5m shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+    c2 = 48
+    x = torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ * 3), generator=gen,
+                      device=dev, dtype=torch.uint8)
+    w0, b0 = S.fold_stem_params(conv_weights(gen, c2, 3, 6, dev),
+                                bn_stats(gen, c2, dev))
+    got = S.fused_stem(x, w0, b0)
+    want = S.fused_stem_plain(x, w0, b0)
+    torch.cuda.synchronize()
+    err, tol = _ulp_err(got, want)
+    k0 = w0.reshape(6, 6, 3, c2).permute(3, 2, 0, 1).to(torch.bfloat16)
+    xb = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
+
+    def library():  # the same conv (+ bias, SiLU) through cuDNN in bf16
+        return F.silu(F.conv2d(xb, k0, b0.bfloat16(), 2, 2))
+
+    hs = IMGSZ // 2
+    flops = 2 * BATCH * hs * hs * 108 * c2  # uint8 x float32 weights
+    nbytes = x.numel() + got.numel() * 2
+    return "stem", S.STEM_KERNEL, {
+        "max_abs_err": err,
+        "tolerance": f"bf16: one ulp of the largest output, abs <= {tol:.4g}",
+        "ok": err <= tol,
+        "ms": cuda_time(lambda: S.fused_stem(x, w0, b0), 5),
+        "plain_ms": cuda_time(lambda: S.fused_stem_plain(x, w0, b0), 3),
+        "library_ms": cuda_time(library, 5),
+        "bound": bound(nbytes, (flops, PEAK_FP32)), "flops": flops,
+        "bytes": nbytes,
     }
 
 
@@ -234,7 +289,7 @@ def check_c3(gen, dev):
     macs = c * c_ + n * (c_ * c_ + 9 * c_ * c_) + c * c_ + 2 * c_ * c
     flops = 2 * BATCH * H * H * macs
     nbytes = 2 * x.numel() * 2
-    return "c3", K, {
+    return "c3", K.KERNEL, {
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.float().abs().clamp(min=1e-2)).max()),
         "tolerance": "bf16 rounding of the intermediates, abs <= 0.06",
@@ -274,7 +329,7 @@ def check_down(gen, dev):
 
     flops = 2 * BATCH * (H // 2) ** 2 * 9 * ci * co
     nbytes = x.numel() * 2 + got.numel() * 2
-    return "down", D, {
+    return "down", D.KERNEL, {
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.float().abs().clamp(min=1e-2)).max()),
         "tolerance": "bf16: 1 ulp of the output, abs <= 0.05",
@@ -694,7 +749,7 @@ def check_neighbor(gen, dev):
     nbytes = BATCH * n * (5 * 4 + 4 + 1) + BATCH * n * M * 5
     mism = sum(c["nbr_idx_mismatches"] + c["sup_in_mismatches"]
                for c in cases.values())
-    return "neighbor", N, {
+    return "neighbor", N.KERNEL, {
         "max_abs_err": float(mism),
         "tolerance": "exact: 0 nbr_idx and 0 sup_in mismatches",
         "ok": mism == 0,
@@ -706,27 +761,63 @@ def check_neighbor(gen, dev):
     }
 
 
+def check_pairs_iou(gen, dev):
+    """The pair-IoU kernel (sparse form) on the clustered candidates of
+    check_neighbor at n = 4096, every row's first M = 64 admissible
+    neighbours (rows overflow M): IoU values and the suppression decisions
+    iou > thr against the plain version."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels import iou as K
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+
+    n, M = 4096, 64
+    rb, cls, valid = synthetic_candidates(gen, n, True, dev)
+    idx, nbr_valid = N.first_m_neighbors(N.edge_matrix(rb, cls, valid, IOU), M)
+    _, sup = N.fused_neighbor_iou(rb, cls, valid, IOU, M)
+    got = K.sparse_rotated_iou(rb, idx)
+    want = K.sparse_rotated_iou_plain(rb, idx)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    decisions = int(((got > IOU) != (want > IOU)).sum())
+    pairs = idx.numel()
+    nbytes = rb.numel() * 4 + pairs * 8
+    return "pairs_iou", K.KERNEL, {
+        "max_abs_err": err, "decision_mismatches": decisions,
+        "rows_over_M": int(nbr_valid[..., -1].sum()),
+        # the neighbour kernel's decisions on the same slots
+        "sup_in_vs_neighbor_kernel_mismatches": int(
+            (((got > IOU) & nbr_valid) != sup).sum()),
+        "tolerance": "IoU |Δ| <= 1e-5 and 0 decision mismatches",
+        "ok": err <= 1e-5 and decisions == 0,
+        "ms": cuda_time(lambda: K.sparse_rotated_iou(rb, idx), 10),
+        "plain_ms": cuda_time(lambda: K.sparse_rotated_iou_plain(rb, idx), 2,
+                              1),
+        "library_ms": None,
+        "bound": bound(nbytes, (pairs * IOU_OPS, PEAK_FP32)),
+        "flops": pairs * IOU_OPS, "bytes": nbytes,
+    }
+
+
 # ---------------------------------------------------------------------------
 # (c) the main path
 # ---------------------------------------------------------------------------
 
 
-def main_path(dev, report):
+def density_model(dev, cfg="yolov5m.yaml", **kw):
+    """A bf16 packed-stem model, random weights from seed 0, with the class
+    biases spread so that conf = obj*cls clears 0.25 for some (anchor,
+    class) pairs (bench.py's recipe), Conv+BN folded; and ``set_obj(δ)``,
+    which moves every Detect obj bias by δ."""
     import torch
 
-    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
     from yolov5_obb_tpu_torch.models.yolo import create_model
-    from yolov5_obb_tpu_torch.ops import rotated_nms as R
-    from yolov5_obb_tpu_torch.ops.kernels import _build
     from yolov5_obb_tpu_torch.utils.fuse import fuse_conv_bn
 
-    t0 = time.perf_counter()
-    model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
-                               device=dev, seed=0, packed_stem=True)
+    model, meta = create_model(cfg, nc=15, dtype=torch.bfloat16, device=dev,
+                               seed=0, packed_stem=True, **kw)
     det = model.model[-1]
     na, no, nc = meta.na, meta.no, meta.nc
-    # spread the class biases so conf = obj*cls clears 0.25 for some
-    # (anchor, class) pairs (bench.py's recipe), then fold Conv+BN
     rngb = np.random.default_rng(7)
     with torch.no_grad():
         for li in range(meta.nl):
@@ -734,6 +825,37 @@ def main_path(dev, report):
             b[:, 5:5 + nc] += torch.as_tensor(
                 rngb.normal(0.0, 2.0, (na, nc)), dtype=b.dtype, device=dev)
     fuse_conv_bn(model)
+
+    def set_obj(delta):
+        with torch.no_grad():
+            for li in range(meta.nl):
+                det.m[li].bias.view(na, no)[:, 4] += delta
+
+    return model, meta, set_obj
+
+
+def tune_density(predict, set_obj, x) -> float:
+    """Bisect the obj-bias move to ~DENSITY dets/img on ``x`` (dets/img is
+    monotone in it) and apply it; returns it."""
+    lo, hi = 0.0, 10.0
+    for _ in range(7):
+        mid = (lo + hi) / 2
+        set_obj(mid)
+        d = float(predict(x)[1].float().mean())
+        set_obj(-mid)
+        lo, hi = (mid, hi) if d < DENSITY else (lo, mid)
+    set_obj((lo + hi) / 2)
+    return (lo + hi) / 2
+
+
+def main_path(dev, report):
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+    from yolov5_obb_tpu_torch.ops import rotated_nms as R
+
+    t0 = time.perf_counter()
+    model, meta, set_obj = density_model(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     xs = [torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ * 3), generator=gen,
                         device=dev, dtype=torch.uint8) for _ in range(3)]
@@ -741,21 +863,7 @@ def main_path(dev, report):
                 for i in range(3) for j in range(i)), "batches share buffers")
     predict = make_predict_fn(model, meta, CONF, IOU, MAX_DET,
                               multi_label=False, max_candidates=MAXC)
-
-    def set_obj(delta):
-        with torch.no_grad():
-            for li in range(meta.nl):
-                det.m[li].bias.view(na, no)[:, 4] += delta
-
-    lo, hi = 0.0, 10.0  # dets/img is monotone in the obj-bias delta
-    for _ in range(7):
-        mid = (lo + hi) / 2
-        set_obj(mid)
-        d = float(predict(xs[0])[1].float().mean())
-        set_obj(-mid)
-        lo, hi = (mid, hi) if d < DENSITY else (lo, mid)
-    delta = (lo + hi) / 2
-    set_obj(delta)
+    delta = tune_density(predict, set_obj, xs[0])
     log(f"density: obj delta {delta:.4f}  set-up {time.perf_counter() - t0:.1f}s")
 
     # the counted run: three distinct batches through the user entry point
@@ -1253,6 +1361,379 @@ def train_path(dev, report, fused=False):
     return {n: v for n, v in launches.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# (f) the val path
+# ---------------------------------------------------------------------------
+
+
+class SeededValSet:
+    """An in-memory eval dataset (the ``get_eval_sample`` surface of
+    data/dota.DotaDataset, no files, no OpenCV): ``images`` (N, H, W, 3)
+    uint8 RGB at the model's size, ``labels`` per image (n, 6) ``[cls cx cy
+    l s theta]`` in its pixels."""
+
+    def __init__(self, images, labels, names):
+        self.images, self.labels, self.names = images, labels, names
+        self.img_size = images.shape[1]
+        self.img_files = [f"val_{i:02d}.png" for i in range(len(images))]
+
+    def __len__(self):
+        return len(self.images)
+
+    def get_eval_sample(self, i):
+        t = np.zeros((VAL_LABELS, 186), np.float32)
+        m = np.zeros(VAL_LABELS, bool)
+        n = len(self.labels[i])
+        t[:n, :6], m[:n] = self.labels[i], True
+        return {"image": self.images[i], "targets": t, "target_mask": m,
+                "index": np.int32(i),
+                "orig_hw": np.array(self.images.shape[1:3], np.int32)}
+
+
+def val_candidates(model, meta, x):
+    """The kernel path's multi-label candidates of one batch at the tier
+    the suppression takes: (rb, scores, cls, per-image counts, tier)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops import rotated_nms as R
+
+    with torch.inference_mode():
+        pl = R.decode_planes(model(x), meta, multi_label=True)
+        sc, idx, cid = R.exact_select_pairs(pl["conf"], VAL_CONF, VAL_MAXC)
+        counts = (sc > 0).sum(1)
+        kk = R._tier(sc.shape[1], int(counts.max()))
+        th = (torch.gather(pl["th"], 1, idx).float() - 90.0) / 180.0 * R.PI
+        rb = torch.stack([torch.gather(pl[c], 1, idx) for c in "xywh"]
+                         + [th], -1)
+    return (rb[:, :kk].contiguous(), sc[:, :kk].contiguous(),
+            cid[:, :kk].contiguous(), counts.tolist(), kk)
+
+
+def _count_diff(got, want) -> int:
+    """Images whose detection counts differ by more than 1% (at least 1)."""
+    return sum(abs(int(a) - int(b)) > max(1, 0.01 * int(b))
+               for a, b in zip(got, want))
+
+
+def _unmatched(a, b, tol) -> int:
+    """Rows of ``a`` (features..., class) with no row of ``b`` of the same
+    class within ``tol`` (one row per row of ``b``, one column per
+    feature), plus the rows of ``b`` with none in ``a``."""
+    if not len(a) or not len(b):
+        return len(a) + len(b)
+    ok = ((a[:, None, :-1] - b[None, :, :-1]).abs() <= tol[None]).all(-1) \
+        & (a[:, None, -1] == b[None, :, -1])
+    return int((~ok.any(1)).sum()) + int((~ok.any(0)).sum())
+
+
+def _rows_tol(d):
+    """Tolerance of predict rows ``[cx cy l s theta conf cls]`` kernel vs
+    plain (bf16 maps that differ by an ulp or two): 1 px on the centre,
+    1 px + 2% on each side, one angle bin, 0.005 + 2% on the confidence."""
+    import torch
+
+    one = torch.ones_like(d[:, 0])
+    return torch.stack([one, one, 1 + 0.02 * d[:, 2], 1 + 0.02 * d[:, 3],
+                        one * (np.pi / 180 + 1e-4), 0.005 + 0.02 * d[:, 5]], -1)
+
+
+def _polys_tol(d):
+    """Tolerance of evaluate rows ``[poly (8) conf cls]``: 1 px + 3% of the
+    box's larger HBB extent on each corner coordinate (the sides' and one
+    angle bin's share), 0.005 + 2% on the confidence."""
+    import torch
+
+    ext = torch.maximum(d[:, 0:8:2].amax(1) - d[:, 0:8:2].amin(1),
+                        d[:, 1:8:2].amax(1) - d[:, 1:8:2].amin(1))
+    return torch.cat([(1 + 0.03 * ext)[:, None].expand(-1, 8),
+                      (0.005 + 0.02 * d[:, 8])[:, None]], -1)
+
+
+def _predict_diff(dk, nk, dp, np_):
+    """One batch's predict outputs, kernel against plain: (detections with
+    no counterpart in the other run, detections in both runs, images whose
+    rows are bit-identical)."""
+    import torch
+
+    unmatched, same = 0, 0
+    for i in range(len(nk)):
+        a, b = dk[i, :int(nk[i])].float(), dp[i, :int(np_[i])].float()
+        unmatched += _unmatched(a, b, _rows_tol(b))
+        same += a.shape == b.shape and bool(torch.equal(a, b))
+    return unmatched, int(nk.sum()) + int(np_.sum()), same
+
+
+def _evaluate_diff(res, res_p, dev):
+    """``evaluate``'s detections (native-resolution polys), kernel run
+    against plain run: (unmatched, total, bit-identical images)."""
+    import torch
+
+    rows = lambda d: torch.as_tensor(np.concatenate(
+        [d["polys"], d["conf"][:, None], d["cls"][:, None]], 1),
+        dtype=torch.float64, device=dev)
+    unmatched, total, same = 0, 0, 0
+    for dk, dp in zip(res["detections"], res_p["detections"]):
+        a, b = rows(dk), rows(dp)
+        unmatched += _unmatched(a, b, _polys_tol(b))
+        total += len(a) + len(b)
+        same += a.shape == b.shape and bool(torch.equal(a, b))
+    return unmatched, total, same
+
+
+def _stem_run(model, meta, xs, name):
+    """Row 6 on the val path: the multi-label predict of a model whose
+    layer 0 is the stem kernel (layer 1 stock), one call per batch, its
+    stem launches; then on each batch layer 0 against its plain version
+    (one bf16 ulp of the largest output), the Detect maps, and the
+    detections against the plain path's (counts within 1%, at most 1% of
+    the detections without a counterpart within ``_rows_tol``)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+    from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+    require(model.packed_stem and not model.packed_l1,
+            f"{name}: layer 0 is not the stem-only kernel")
+    kw = dict(max_candidates=VAL_MAXC)
+    predict = make_predict_fn(model, meta, VAL_CONF, VAL_IOU, MAX_DET, **kw)
+    plain = make_predict_fn(model, meta, VAL_CONF, VAL_IOU, MAX_DET,
+                            plain=True, **kw)
+    predict(xs[0])  # warm-up
+    torch.cuda.synchronize()
+    S.STEM_KERNEL.launches = 0
+    S.KERNEL.launches = 0
+    outs = [predict(x) for x in xs]
+    torch.cuda.synchronize()
+    launches = S.STEM_KERNEL.launches
+    require(launches == len(xs) and S.KERNEL.launches == 0,
+            f"{name}: stem launches {launches}, stem+L1 {S.KERNEL.launches} "
+            f"over {len(xs)} predicts")
+    stem_err, maps_err, unmatched, total, same = 0.0, 0.0, 0, 0, 0
+    got, want = [], []
+    with torch.inference_mode():
+        for x, (dk, nk) in zip(xs, outs):
+            err, tol = _ulp_err(model.model[0](x),
+                                model.model[0](x, plain=True))
+            require(err <= tol, f"{name}: layer 0 differs from its plain "
+                    f"version by {err} > one bf16 ulp {tol}")
+            stem_err = max(stem_err, err)
+            maps_err = max(maps_err, max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(model(x), model(x, plain=True))))
+            dp, np_ = plain(x)
+            u, t, s_ = _predict_diff(dk, nk, dp, np_)
+            unmatched, total, same = unmatched + u, total + t, same + s_
+            got += nk.tolist()
+            want += np_.tolist()
+    diff = _count_diff(got, want)
+    require(diff == 0, f"{name}: detection counts differ from the plain "
+            f"path by > 1% on {diff} images: {got} vs {want}")
+    require(unmatched <= 0.01 * total, f"{name}: {unmatched} of {total} "
+            "detections have no counterpart in the other run")
+    with torch.inference_mode():
+        fwd = cuda_time(lambda: model(xs[1]), 5)
+    return {"stem_launches": launches, "dets_per_img": float(np.mean(got)),
+            "dets_per_img_plain": float(np.mean(want)),
+            "stem_max_abs_err_vs_plain": stem_err,
+            "maps_max_abs_err_vs_plain": maps_err,
+            "dets_unmatched_vs_plain": [unmatched, total],
+            "images_bit_identical_vs_plain": same,
+            "forward_ms_per_batch": fwd}, launches
+
+
+def val_path(dev, report, delta):
+    """Phase (f): yolov5m b16 1024² bf16 with phase (c)'s density-tuned
+    weights through ``evaluate`` (multi-label, conf 0.01, IoU 0.4, 4096
+    candidates, max_det 1500) on 48 seeded images whose labels are the
+    plain path's conf-0.25 detections; the kernel run against the plain
+    run (metrics, counts, detections matched elementwise); the iou-ordered
+    NMS on one batch's candidates and on clustered candidates that
+    overflow M; the stem kernel on yolov5m with PACKED_L1=0 and on
+    yolov5s-ghost."""
+    import os
+
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.evaluator import evaluate, make_predict_fn
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.ops import rotated_nms as R
+    from yolov5_obb_tpu_torch.ops.kernels import iou as K
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+
+    t0 = time.perf_counter()
+    model, meta, set_obj = density_model(dev)
+    set_obj(delta)
+    rng = np.random.default_rng(3)
+    images = rng.integers(0, 256, (VAL_IMAGES, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    xs = [torch.from_numpy(images[i:i + BATCH]).to(dev).reshape(
+        BATCH, IMGSZ, -1) for i in range(0, VAL_IMAGES, BATCH)]
+    labeler = make_predict_fn(model, meta, CONF, IOU, VAL_LABELS,
+                              multi_label=False, max_candidates=MAXC,
+                              plain=True)
+    labels = []
+    for x in xs:
+        d, n = labeler(x)
+        labels += [d[i, :int(n[i])][:, [6, 0, 1, 2, 3, 4]].cpu().numpy()
+                   for i in range(BATCH)]
+    ds = SeededValSet(images, labels, [f"c{i}" for i in range(meta.nc)])
+    n_labels = sum(len(t) for t in labels)
+    require(n_labels > 10 * VAL_IMAGES, f"only {n_labels} labels")
+    log(f"val set-up {time.perf_counter() - t0:.1f}s, {n_labels} labels")
+
+    kw = dict(batch_size=BATCH, conf_thres=VAL_CONF, iou_thres=VAL_IOU,
+              max_det=MAX_DET)
+    kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    res = evaluate(model, meta, ds, **kw)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(v > 0 for v in launches.values()),
+            f"val path: kernel not launched: {launches}")
+    res_p = evaluate(model, meta, ds, plain=True, **kw)
+    nk = [len(d["conf"]) for d in res["detections"]]
+    npl = [len(d["conf"]) for d in res_p["detections"]]
+    metrics = {k: (res[k], res_p[k]) for k in ("mp", "mr", "map50", "map")}
+    log(f"val metrics (kernel, plain): {metrics}")
+    require(abs(res["map50"] - res_p["map50"]) <= 0.01
+            and abs(res["map"] - res_p["map"]) <= 0.01,
+            f"val mAP differs from the plain run: {metrics}")
+    require(res["map50"] > 0.05, f"trivial val mAP: {metrics}")
+    diff = _count_diff(nk, npl)
+    require(diff == 0, f"detection counts differ by > 1% on {diff} images")
+    ev_unmatched, ev_total, ev_same = _evaluate_diff(res, res_p, dev)
+    log(f"evaluate detections without a counterpart in the plain run: "
+        f"{ev_unmatched} of {ev_total}; bit-identical images {ev_same}")
+    require(ev_unmatched <= 0.01 * ev_total, f"evaluate: {ev_unmatched} of "
+            f"{ev_total} detections have no counterpart in the plain run")
+
+    # the predict calls alone, as phase (c) times them
+    predict = make_predict_fn(model, meta, VAL_CONF, VAL_IOU, MAX_DET,
+                              max_candidates=VAL_MAXC)
+    predict(xs[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    acc = torch.zeros((), device=dev)
+    for i in range(6):
+        d_, n_ = predict(xs[i % 3])
+        acc = acc + d_.sum() + n_.sum()
+    require(np.isfinite(float(acc)), "non-finite val checksum")
+    predict_ms = (time.perf_counter() - t) / 6 * 1e3
+
+    # the same candidates through both NMS versions, in both neighbour
+    # orders; the pair-IoU kernel's launches are those of the iou order
+    keep_mism, counts, tiers = 0, [], []
+    for bi, x in enumerate(xs):
+        rb, sc, cid, cnt, kk = val_candidates(model, meta, x)
+        counts += cnt
+        tiers.append(kk)
+        keep_k = R.nms_rotated(rb, sc, VAL_IOU, cid, presorted=True)
+        keep_p = R.nms_rotated(rb, sc, VAL_IOU, cid, presorted=True,
+                               plain=True)
+        keep_mism += int((keep_k != keep_p).sum())
+        if bi == 0:
+            K.KERNEL.launches = 0
+            keep_i = R.nms_rotated(rb, sc, VAL_IOU, cid, presorted=True,
+                                   neighbor_order="iou")
+            torch.cuda.synchronize()
+            iou_launches = K.KERNEL.launches
+            keep_ip = R.nms_rotated(rb, sc, VAL_IOU, cid, presorted=True,
+                                    neighbor_order="iou", plain=True)
+            edges = N.edge_matrix(rb, cid, sc > 0, VAL_IOU).sum(-1)
+            over = (edges > 64).any(-1)
+            del edges
+            iou_mism = int((keep_i != keep_ip).sum())
+            order_mism = int((keep_i != keep_k)[~over].sum())
+            order_diff_over = int((keep_i != keep_k)[over].sum())
+    log(f"val candidates/img {min(counts)}..{max(counts)} (mean "
+        f"{np.mean(counts):.0f}), tiers {tiers}; keep mismatches {keep_mism}; "
+        f"iou order: kernel vs plain {iou_mism}, vs score order on images "
+        f"without overflow {order_mism} ({int(over.sum())} images overflow M, "
+        f"{order_diff_over} differences there)")
+    require(keep_mism == 0, "keep masks differ on the val candidates")
+    require(iou_mism == 0 and order_mism == 0 and iou_launches == 1,
+            f"iou-ordered NMS: {iou_mism} kernel/plain and {order_mism} "
+            f"order mismatches, {iou_launches} pair-IoU launches")
+    # the iou order where it differs from the score order: clustered
+    # candidates (4096 per image, descending scores) whose rows overflow M,
+    # through the same entry point, kernel against plain
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rb_c, cls_c, valid_c = synthetic_candidates(gen, VAL_MAXC, True, dev)
+    sc_c = torch.linspace(1.0, 0.02, VAL_MAXC, device=dev) * valid_c
+    K.KERNEL.launches = 0
+    keep_ci = R.nms_rotated(rb_c, sc_c, VAL_IOU, cls_c, presorted=True,
+                            neighbor_order="iou")
+    torch.cuda.synchronize()
+    iou_launches += K.KERNEL.launches
+    keep_cp = R.nms_rotated(rb_c, sc_c, VAL_IOU, cls_c, presorted=True,
+                            neighbor_order="iou", plain=True)
+    keep_cs = R.nms_rotated(rb_c, sc_c, VAL_IOU, cls_c, presorted=True)
+    over_c = (N.edge_matrix(rb_c, cls_c, valid_c, VAL_IOU).sum(-1) > 64)
+    clustered = {"images_overflowing_M": int(over_c.any(-1).sum()),
+                 "rows_overflowing_M": int(over_c.sum()),
+                 "kernel_vs_plain_mismatches": int((keep_ci != keep_cp).sum()),
+                 "vs_score_order_differences": int((keep_ci != keep_cs).sum()),
+                 "kept_per_img": float(keep_ci.sum(1).float().mean())}
+    log(f"iou order on clustered candidates: {clustered}")
+    require(clustered["images_overflowing_M"] == BATCH
+            and clustered["kernel_vs_plain_mismatches"] == 0
+            and iou_launches == 2,
+            f"iou-ordered NMS on overflowing rows: {clustered}, "
+            f"{iou_launches} pair-IoU launches")
+
+    # row 6: yolov5m with PACKED_L1=0 (the stem kernel, layer 1 stock) —
+    # also the PACKED_L1 A/B against the stem+L1 model — and yolov5s-ghost
+    old = os.environ.get("PACKED_L1")
+    os.environ["PACKED_L1"] = "0"
+    try:
+        m0, meta0 = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
+                                 device=dev, seed=0, packed_stem=True)
+    finally:
+        if old is None:
+            del os.environ["PACKED_L1"]
+        else:
+            os.environ["PACKED_L1"] = old
+    m0.load_state_dict(model.state_dict())
+    l1_off, stem_a = _stem_run(m0, meta0, xs, "yolov5m PACKED_L1=0")
+    with torch.inference_mode():
+        fw = [cuda_time(lambda: m(xs[1]), 5) for m in (model, m0, m0, model)]
+    l1_off["stem_l1_forward_ms_per_batch"] = (fw[0] + fw[3]) / 2
+    l1_off["forward_ms_per_batch"] = (fw[1] + fw[2]) / 2
+    del m0
+    torch.cuda.empty_cache()
+    g, gmeta, g_set_obj = density_model(dev, "yolov5s-ghost.yaml")
+    g_delta = tune_density(make_predict_fn(
+        g, gmeta, CONF, IOU, MAX_DET, multi_label=False, max_candidates=MAXC),
+        g_set_obj, xs[0])
+    ghost, stem_b = _stem_run(g, gmeta, xs, "yolov5s-ghost")
+    ghost["obj_delta"] = g_delta
+    log(f"PACKED_L1=0: {l1_off}; yolov5s-ghost: {ghost}")
+
+    report.update({
+        "val_evaluate_ms_per_img": res["speed_ms_per_img"],
+        "val_predict_ms_per_img": predict_ms / BATCH,
+        "val_candidates_per_img": float(np.mean(counts)),
+        "val_candidates_max": max(counts), "val_tiers": tiers,
+        "val_dets_per_img": float(np.mean(nk)),
+        "val_dets_per_img_plain": float(np.mean(npl)),
+        "val_peak_mem_gib": peak, "val_metrics_kernel_plain": metrics,
+        "val_labels": n_labels, "val_keep_mask_mismatches": keep_mism,
+        "val_iou_order": {"kernel_vs_plain_mismatches": iou_mism,
+                          "vs_score_order_mismatches_no_overflow": order_mism,
+                          "images_overflowing_M": int(over.sum()),
+                          "differences_on_overflowing_images": order_diff_over,
+                          "clustered": clustered},
+        "val_evaluate_dets_unmatched_vs_plain": [ev_unmatched, ev_total],
+        "val_evaluate_images_bit_identical_vs_plain": ev_same,
+        "val_launches_per_evaluate": launches,
+        "packed_l1_off": l1_off, "yolov5s_ghost": ghost,
+    })
+    return {"pairs_iou": iou_launches, "stem": stem_a + stem_b}
+
+
 INFER = ("stem_l1", "c3", "down", "neighbor")
 
 
@@ -1260,6 +1741,7 @@ def _named_kernels():
     from yolov5_obb_tpu_torch.ops.kernels import (
         c3_kernel,
         down_kernel,
+        iou,
         neighbor_kernel,
         stem_kernel,
     )
@@ -1272,7 +1754,8 @@ def _named_kernels():
             "down_train_fwd": down_kernel.TRAIN_FWD_KERNEL,
             "down_train_wgrad": down_kernel.TRAIN_WGRAD_KERNEL,
             "pass_1x1_fwd": TF.KERNEL_1X1, "pass_1x1_bwd": TF.KERNEL_1X1_BWD,
-            "pass_3x3s1": TF.KERNEL_3X3S1, "pass_3x3s2": TF.KERNEL_3X3S2}
+            "pass_3x3s1": TF.KERNEL_3X3S1, "pass_3x3s2": TF.KERNEL_3X3S2,
+            "stem": stem_kernel.STEM_KERNEL, "pairs_iou": iou.KERNEL}
 
 
 def main() -> int:
@@ -1308,9 +1791,10 @@ def main() -> int:
     # (b) inference kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for check in (check_stem, check_c3, check_down, check_neighbor):
-        name, mod, res = check(gen, dev)
-        results[name] = (mod.KERNEL, res)
+    for check in (check_stem, check_stem_only, check_c3, check_down,
+                  check_neighbor, check_pairs_iou):
+        name, kern, res = check(gen, dev)
+        results[name] = (kern, res)
         torch.cuda.empty_cache()
     # (b') train kernels and (b") the fused train passes against their
     # plain versions
@@ -1332,6 +1816,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # (e) the fused train path
     launches.update(train_path(dev, report, fused=True))
+    torch.cuda.empty_cache()
+    # (f) the val path
+    launches.update(val_path(dev, report, report["obj_delta"]))
     log("main path: " + json.dumps(report))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "

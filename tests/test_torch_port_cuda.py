@@ -19,6 +19,7 @@ from yolov5_obb_tpu_torch.models.layers import C3
 from yolov5_obb_tpu_torch.ops.kernels import (
     c3_kernel,
     down_kernel,
+    iou,
     neighbor_kernel,
     stem_kernel,
 )
@@ -65,6 +66,74 @@ def test_stem_l1_kernel(dev, H, W):
     want = stem_kernel.fused_stem_l1_plain(x, *ops)
     assert got.shape == want.shape
     assert (got.float() - want.float()).abs().max() <= 0.05  # bf16 output ulps
+
+
+@pytest.mark.parametrize("H,W,c2", [(64, 64, 48), (70, 42, 32), (37, 51, 8)])
+def test_stem_kernel(dev, H, W, c2):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randint(0, 256, (2, H, 3 * W), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    w0, b0 = stem_kernel.fold_stem_params(_w(gen, c2, 3, 6, dev),
+                                          _bn(gen, c2, dev))
+    got = _counted(stem_kernel.STEM_KERNEL,
+                   lambda: stem_kernel.fused_stem(x, w0, b0))
+    want = stem_kernel.fused_stem_plain(x, w0, b0)
+    assert got.shape == want.shape == (2, (H - 2) // 2 + 1, (W - 2) // 2 + 1,
+                                       c2)
+    assert got.dtype == torch.bfloat16
+    # bf16 output: at most one ulp of the largest value
+    assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 128
+
+
+def _rboxes(rng, shape, spread):
+    rb = np.zeros((*shape, 5), np.float32)
+    rb[..., :2] = rng.uniform(-spread, spread, (*shape, 2))
+    rb[..., 2] = rng.uniform(5, 80, shape)
+    rb[..., 3] = rb[..., 2] * rng.uniform(0.2, 1.0, shape)
+    rb[..., 4] = rng.uniform(-np.pi / 2, np.pi / 2, shape)
+    return rb
+
+
+@pytest.mark.parametrize("B,K,M", [(1, 1001, 1), (3, 77, 13)])
+def test_pairs_iou_kernel(dev, B, K, M):
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(_rboxes(rng, (B * K,), 40.0)).to(dev)
+    b = torch.from_numpy(_rboxes(rng, (B * K,), 40.0)).to(dev)
+    got = _counted(iou.KERNEL, lambda: iou.pairs_rotated_iou(a, b))
+    want = iou.pairs_rotated_iou_plain(a, b)
+    assert got.shape == (B * K,) and (want > 0.1).any()
+    assert (got - want).abs().max() <= 1e-5
+    assert torch.equal(got > 0.45, want > 0.45)
+    boxes = a.view(B, K, 5)
+    idx = torch.from_numpy(rng.integers(0, K, (B, K, M)).astype(np.int32)).to(dev)
+    got = _counted(iou.KERNEL, lambda: iou.sparse_rotated_iou(boxes, idx))
+    want = iou.sparse_rotated_iou_plain(boxes, idx)
+    assert got.shape == (B, K, M)
+    assert (got - want).abs().max() <= 1e-5
+    assert torch.equal(got > 0.45, want > 0.45)
+
+
+@pytest.mark.parametrize("n,clustered", [(100, False), (300, True)])
+def test_iou_order_nms(dev, n, clustered):
+    """nms_rotated(neighbor_order="iou") through the pair-IoU kernel against
+    its plain version, and against the score order."""
+    from yolov5_obb_tpu_torch.ops.rotated_nms import nms_rotated
+
+    rng = np.random.default_rng(11)
+    B = 2
+    rb = _rboxes(rng, (B, n), 200.0)
+    if clustered:
+        rb[..., :2] = 200 + rng.normal(0, 4, (B, n, 2))
+    boxes = torch.from_numpy(rb).to(dev)
+    scores = torch.from_numpy(rng.uniform(0.05, 1.0, (B, n)).astype(
+        np.float32)).to(dev)
+    cls = torch.from_numpy(rng.integers(0, 2, (B, n)).astype(np.int32)).to(dev)
+    keep = _counted(iou.KERNEL, lambda: nms_rotated(
+        boxes, scores, 0.45, cls, neighbor_order="iou"))
+    assert torch.equal(keep, nms_rotated(boxes, scores, 0.45, cls,
+                                         neighbor_order="iou", plain=True))
+    if not clustered:  # no row overflows M: both orders agree
+        assert torch.equal(keep, nms_rotated(boxes, scores, 0.45, cls))
 
 
 @pytest.mark.parametrize("H,W", [(32, 32), (33, 19)])

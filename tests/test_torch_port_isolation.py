@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points refuse to run on the CPU unless the caller asks for it."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+OpenCV at import time: the card's machine has none), and its entry points
+refuse to run on the CPU unless the caller asks for it."""
 
 import ast
 import subprocess
@@ -26,7 +27,7 @@ import chip_smoke
 chip_smoke._named_kernels()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "yolov5_obb_tpu"
-             or m.startswith("yolov5_obb_tpu."))
+             or m.startswith("yolov5_obb_tpu.") or m == "cv2")
 print(len(names), bad)
 """
 
@@ -109,20 +110,39 @@ def test_fused_train_model_needs_the_card_unless_cpu_is_asked():
 
 def test_predict_defaults_to_multi_label_like_jax():
     """The JAX package's make_predict_fn defaults to multi-label; so does
-    the port's, which refuses it (not ported) rather than quietly returning
-    single-label detections."""
+    the port's: the default gives the multi-label detections, and
+    single-label is asked for with ``multi_label=False``."""
+    from yolov5_obb_tpu_torch.ops import rotated_nms
+
     model, meta = create_model("yolov5n.yaml", nc=15, device="cpu",
                                packed_stem=True)
-    with pytest.raises(NotImplementedError, match="multi-label"):
-        make_predict_fn(model, meta, 0.25, 0.45, 100)
-    make_predict_fn(model, meta, 0.25, 0.45, 100, multi_label=False)
+    seen = []
+    real = rotated_nms.exact_select_pairs
+    try:
+        rotated_nms.exact_select_pairs = lambda *a: seen.append(1) or real(*a)
+        x = torch.zeros(1, 64, 64 * 3, dtype=torch.uint8)
+        d, n = make_predict_fn(model, meta, 0.001, 0.45, 100)(x)
+        dm, nm = make_predict_fn(model, meta, 0.001, 0.45, 100,
+                                 multi_label=True)(x)
+        assert len(seen) == 2
+        make_predict_fn(model, meta, 0.001, 0.45, 100, multi_label=False)(x)
+        assert len(seen) == 2
+    finally:
+        rotated_nms.exact_select_pairs = real
+    assert torch.equal(d, dm) and torch.equal(n, nm)
 
 
 def test_packed_stem_layer_refuses_eval_mode():
-    """The stem-only inference kernel is not ported: a packed-stem model
-    folds layer 0 into the stem+L1 kernel at inference, and its PackedStem
-    layer runs only in train mode."""
+    """In eval mode the packed stem is the stem kernel (``fused_stem``;
+    its plain version on the CPU) and refuses anything but the packed
+    ``(B, H, 3W)`` uint8 image; a model whose layer 1 cannot join the stem
+    (yolov5s-ghost) builds packed."""
     model, _ = create_model("yolov5n.yaml", nc=15, device="cpu",
                             packed_stem=True)
-    with pytest.raises(NotImplementedError, match="fused_stem"):
-        model.model[0](torch.zeros(1, 64, 64 * 3, dtype=torch.uint8))
+    y = model.model[0](torch.zeros(1, 64, 64 * 3, dtype=torch.uint8))
+    assert y.shape == (1, 32, 32, model.model[0].conv.out_channels)
+    with pytest.raises(ValueError, match="packed"):
+        model.model[0](torch.zeros(1, 64, 64, 3))
+    ghost, _ = create_model("yolov5s-ghost.yaml", nc=15, device="cpu",
+                            packed_stem=True)
+    assert ghost.packed_stem and not ghost.packed_l1

@@ -21,12 +21,9 @@
 // bf16 products (0.044 ms at the tensor-core peak): bytes bound it.  This
 // first version does both in scalar float32 FMAs.
 //
-// Design.  Forward: one block per 8x32 tile of stem outputs of one image.
-// The block stages the 20x68x3 image patch under the tile (as float, zero
-// outside the image: the conv's padding) in shared memory; each thread then
-// computes 8 output channels of one pixel.  A warp covers 32 pixels of one
-// channel group, so the weight reads are warp-uniform broadcasts from the
-// read-only cache.
+// Design.  Forward: the tile body of stem_conv.cuh (one block per 8x32 tile
+// of stem outputs, the image patch staged as float in shared memory, 8
+// output channels of one pixel per thread), stored as it is.
 // Weight gradient: two stages, no atomics.  Stage 1: a fixed number of CTAs
 // (`parts`, from the wrapper) each walk the 8x32 pixel tiles tile_id ≡
 // blockIdx.x (mod parts), staging the tile's image patch and its dz rows
@@ -34,64 +31,33 @@
 // (tap, c = 0..2) x 8 output channels in registers over every pixel of every
 // tile, then writes its CTA's partial.  Stage 2 (wgrad.cuh) sums the
 // partials in order.
+#include "stem_conv.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
-constexpr int TY = 8, TX = 32;                  // stem outputs per tile
-constexpr int IY = 2 * TY + 4, IX = 2 * TX + 4;  // image pixels per tile
-constexpr int kImg = IY * IX * 3;                // floats of a staged patch
-constexpr int kThreads = 256;
+using stem_conv::IX;
+using stem_conv::kImg;
+using stem_conv::kThreads;
+using stem_conv::stage_patch;
+using stem_conv::TX;
+using stem_conv::TY;
 
-// image patch of the tile at stem outputs (oy0, ox0): rows 2*oy0 - 2 ..,
-// pixels 2*ox0 - 2 .., zero outside the image
-__device__ __forceinline__ void stage_patch(const uint8_t* xb, float* img,
-                                            int H, int W, int oy0, int ox0) {
-  const int gy0 = 2 * oy0 - 2, gc0 = (2 * ox0 - 2) * 3;
-  for (int idx = threadIdx.x; idx < kImg; idx += blockDim.x) {
-    int r = idx / (IX * 3), c = idx - r * (IX * 3);
-    int gy = gy0 + r, gc = gc0 + c;
-    img[idx] = (gy >= 0 && gy < H && gc >= 0 && gc < 3 * W)
-                   ? (float)xb[(size_t)gy * 3 * W + gc]
-                   : 0.f;
+// the forward's epilogue: one rounding to bf16
+struct StoreRaw {
+  __nv_bfloat16* z;
+  __device__ __forceinline__ void operator()(const float* acc, int,
+                                             size_t off) const {
+    store8_bf16(z + off, acc);
   }
-}
+};
 
 __global__ void __launch_bounds__(kThreads)
 stem_fwd_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w,
                 __nv_bfloat16* __restrict__ z, int H, int W, int c2, int Hs,
                 int Ws) {
   __shared__ float img[kImg];
-  const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * TY, ox0 = blockIdx.x * TX;
-  stage_patch(x + (size_t)b * H * W * 3, img, H, W, oy0, ox0);
-  __syncthreads();
-
-  const int groups = c2 / 8;
-  for (int item = threadIdx.x; item < TY * TX * groups; item += kThreads) {
-    int g = item / (TY * TX), p = item - g * (TY * TX);
-    int r = p / TX, q = p - r * TX;
-    int oy = oy0 + r, ox = ox0 + q;
-    if (oy >= Hs || ox >= Ws) continue;
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int dy = 0; dy < 6; ++dy) {
-      const float* irow = img + (2 * r + dy) * IX * 3 + 2 * q * 3;
-      const float* wrow = w + (size_t)(dy * 18) * c2 + g * 8;
-#pragma unroll 6
-      for (int t = 0; t < 18; ++t) {  // t = 3*dx + c
-        float v = irow[t];
-        float4 wa = __ldg(reinterpret_cast<const float4*>(wrow + t * c2));
-        float4 wb = __ldg(reinterpret_cast<const float4*>(wrow + t * c2 + 4));
-        acc[0] = fmaf(v, wa.x, acc[0]); acc[1] = fmaf(v, wa.y, acc[1]);
-        acc[2] = fmaf(v, wa.z, acc[2]); acc[3] = fmaf(v, wa.w, acc[3]);
-        acc[4] = fmaf(v, wb.x, acc[4]); acc[5] = fmaf(v, wb.y, acc[5]);
-        acc[6] = fmaf(v, wb.z, acc[6]); acc[7] = fmaf(v, wb.w, acc[7]);
-      }
-    }
-    store8_bf16(z + (((size_t)b * Hs + oy) * Ws + ox) * c2 + g * 8, acc);
-  }
+  stem_conv::tile_conv(x, w, StoreRaw{z}, img, H, W, c2, Hs, Ws);
 }
 
 // Stage 1 of the weight gradient; blockDim.x >= 36 * c2/8 (one thread per

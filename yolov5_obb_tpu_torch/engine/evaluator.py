@@ -1,15 +1,26 @@
-"""Inference entry point: image batch → rotated detections.
+"""Inference and evaluation: image batch → rotated detections → HBB
+metrics and DOTA-format outputs.
 
-Counterpart of ``yolov5_obb_tpu/engine/evaluator.make_predict_fn``
-(evaluator.py:27) and ``pack_images`` (:166) for single-label inference.
+Counterpart of ``yolov5_obb_tpu/engine/evaluator.py``: ``make_predict_fn``
+(evaluator.py:27), ``pack_images`` (:166), ``evaluate`` (:175) and
+``save_dota_task1`` (:403).  Decode + rotated NMS run on the model's
+device; per image on the host: rbox → poly, rescale to the native
+resolution, HBB-cover TP matching at 10 IoU thresholds, AP aggregation, and
+the DOTA JSON rows for the devkit merge step.
 """
 
 from __future__ import annotations
 
+import json
+import time
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from ..ops.geometry import poly2hbb, rbox2poly, scale_polys, xywh2xyxy
 from ..ops.rotated_nms import non_max_suppression_from_maps
+from ..utils.metrics import ap_per_class, process_batch_hbb
 
 
 def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
@@ -28,11 +39,9 @@ def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
     The returned ``predict(images) -> (dets (B, max_det, 7), num (B,))``
     runs under ``torch.inference_mode``.
 
-    ``multi_label`` defaults to True, as in the JAX package; only
-    single-label selection is ported, so pass ``multi_label=False``."""
-    if multi_label:
-        raise NotImplementedError(
-            "multi-label inference (_batched_exact_pairs) is not ported yet")
+    ``multi_label`` (the default, as in the JAX package) lets every (box,
+    class) pair above ``conf_thres`` compete for the ``max_candidates``
+    slots; ``False`` keeps the best class of each box."""
     classes = tuple(int(c) for c in classes) if classes is not None else None
     packed = bool(model.packed_stem)
 
@@ -43,7 +52,8 @@ def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
         return non_max_suppression_from_maps(
             maps, meta, conf_thres=conf_thres, iou_thres=iou_thres,
             max_candidates=max_candidates, max_det=max_det,
-            agnostic=agnostic, classes=classes, plain=plain)
+            multi_label=multi_label, agnostic=agnostic, classes=classes,
+            plain=plain)
 
     predict.packed_stem = packed
     return predict
@@ -57,3 +67,176 @@ def pack_images(batch_u8):
     else:
         b = np.ascontiguousarray(batch_u8)
     return b.reshape(b.shape[0], b.shape[1], -1)
+
+
+def evaluate(model, meta, dataset, batch_size: int = 8,
+             conf_thres: float = 0.01, iou_thres: float = 0.4,
+             max_det: int = 1500, verbose: bool = False,
+             save_json: str | None = None, max_images: int | None = None,
+             tta: bool = False, mesh=None, plots_dir=None,
+             plain: bool = False):
+    """HBB-metric evaluation of ``model`` over ``dataset`` (anything with
+    ``names``, ``img_files``, ``img_size``, ``__len__`` and
+    ``get_eval_sample``, as :class:`~..data.dota.DotaDataset`).
+
+    Multi-label decode + rotated NMS at ``conf_thres`` / ``iou_thres`` with
+    4096 candidates on the model's device (``plain`` runs the kernels'
+    plain versions).
+    ``tta``, ``mesh`` and ``plots_dir`` are not ported (ROADMAP.md queue 1
+    items 6 and 9).
+
+    Returns the JAX package's result dict: mp, mr, map50, map, per-class
+    p/r/ap50/ap, ``speed_ms_per_img`` (the timed loop over the batches
+    after one warm-up call), ``speed_pre_ms_per_img`` (host loading and
+    letterboxing) and ``detections`` (native-resolution polys per image);
+    ``save_json`` writes the DOTA JSON rows there."""
+    if tta:
+        raise NotImplementedError("test-time augmentation is not ported "
+                                  "(ROADMAP.md queue 1 item 6)")
+    if mesh is not None:
+        raise NotImplementedError("multi-device evaluation is not ported "
+                                  "(ROADMAP.md queue 1 item 9)")
+    if plots_dir is not None:
+        raise NotImplementedError("the confusion matrix and PR-curve plots "
+                                  "are not ported (ROADMAP.md queue 1 item 6)")
+    names = dataset.names
+    iouv = np.linspace(0.5, 0.95, 10)
+    predict = make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
+                              multi_label=True, plain=plain)
+    device = next(model.parameters()).device
+
+    stats = []  # (tp, conf, cls, target_cls) per image
+    json_out = []
+    all_dets = []
+    n_img = len(dataset) if max_images is None else min(max_images, len(dataset))
+    canvas = int(getattr(dataset, "eval_canvas", dataset.img_size))
+    t_pre = [0.0]  # host pre-processing (decode + letterbox) seconds
+
+    # one-deep pipeline: load and dispatch batch N+1 before bringing batch
+    # N's detections to the host (the rotated NMS's host syncs bound how far
+    # the card runs ahead)
+    def dispatch(start):
+        idxs = list(range(start, min(start + batch_size, n_img)))
+        t0 = time.perf_counter()
+        samples = [dataset.get_eval_sample(i) for i in idxs]
+        t_pre[0] += time.perf_counter() - t0
+        pad = batch_size - len(samples)
+        imgs = np.stack([s["image"] for s in samples + [samples[-1]] * pad])
+        if predict.packed_stem:
+            imgs = pack_images(imgs)
+        dets, num = predict(torch.from_numpy(imgs).to(device))
+        return samples, dets, num
+
+    if n_img:  # warm-up (kernel builds, cuDNN plans) outside the timed loop
+        _, d0, n0 = dispatch(0)
+        d0.cpu(), n0.cpu()
+        t_pre[0] = 0.0
+
+    t_start = time.perf_counter()
+    pending = dispatch(0) if n_img else None
+    for start in range(0, n_img, batch_size):
+        samples, dets_dev, num_dev = pending
+        nxt = start + batch_size
+        pending = dispatch(nxt) if nxt < n_img else None
+        dets, num = dets_dev.cpu().numpy(), num_dev.cpu().numpy()
+
+        for bi, s in enumerate(samples):
+            n = int(num[bi])
+            d = dets[bi, :n]  # (n, [cx cy l s theta conf cls])
+            h0, w0 = (int(v) for v in s["orig_hw"])
+            rp = s.get("ratio_pad")
+            rp = ((rp[0], rp[0]), (rp[1], rp[2])) if rp is not None else None
+
+            # predictions → native-resolution polys and their HBB covers
+            polys = rbox2poly(d[:, :5]) if n else np.zeros((0, 8))
+            polys = (scale_polys((canvas, canvas), polys, (h0, w0), rp)
+                     if n else polys)
+            hbb = poly2hbb(polys) if n else np.zeros((0, 4))
+            det_xyxy = xywh2xyxy(hbb)
+            conf, cls = d[:, 5], d[:, 6]
+
+            # ground truth → native-resolution HBBs
+            gt = s["targets"][s["target_mask"]]
+            gt_polys = rbox2poly(gt[:, 1:6]) if len(gt) else np.zeros((0, 8))
+            gt_polys = (scale_polys((canvas, canvas), gt_polys, (h0, w0), rp)
+                        if len(gt) else gt_polys)
+            gt_xyxy = (xywh2xyxy(poly2hbb(gt_polys)) if len(gt)
+                       else np.zeros((0, 4)))
+            gt_cls = gt[:, 0]
+
+            tp = process_batch_hbb(det_xyxy, conf, cls, gt_xyxy, gt_cls, iouv)
+            stats.append((tp, conf, cls, gt_cls))
+            path = dataset.img_files[s["index"]]
+            all_dets.append({"path": path, "polys": polys, "conf": conf,
+                             "cls": cls, "hw": (h0, w0)})
+            if save_json is not None:
+                stem = Path(path).stem
+                for k in range(n):
+                    json_out.append({
+                        "image_id": stem,
+                        "category_id": int(cls[k]),
+                        "bbox": [round(float(v), 1) for v in hbb[k]],
+                        "score": round(float(conf[k]), 5),
+                        "poly": [round(float(v), 1) for v in polys[k]],
+                        "file_name": stem,
+                    })
+
+    t_infer = time.perf_counter() - t_start if n_img else 0.0
+
+    if stats:
+        tp = np.concatenate([s[0] for s in stats])
+        conf = np.concatenate([s[1] for s in stats])
+        cls = np.concatenate([s[2] for s in stats])
+        tcls = np.concatenate([s[3] for s in stats])
+    else:  # empty dataset or max_images 0: zero metrics
+        tp = np.zeros((0, 10), bool)
+        conf = cls = tcls = np.zeros(0)
+
+    if tp.size and tcls.size:
+        p, r, ap, _, cls_idx = ap_per_class(tp, conf, cls, tcls)
+        ap50, ap_mean = ap[:, 0], ap.mean(1)
+        mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_mean.mean()
+    else:
+        p = r = ap50 = ap_mean = np.zeros(0)
+        cls_idx = np.zeros(0, int)
+        mp = mr = map50 = map_ = 0.0
+
+    if save_json is not None:
+        Path(save_json).parent.mkdir(parents=True, exist_ok=True)
+        with open(save_json, "w") as f:
+            json.dump(json_out, f)
+
+    result = {
+        "mp": float(mp), "mr": float(mr), "map50": float(map50),
+        "map": float(map_),
+        "per_class": {
+            names[int(c)]: {"p": float(p[i]), "r": float(r[i]),
+                            "ap50": float(ap50[i]), "ap": float(ap_mean[i])}
+            for i, c in enumerate(cls_idx)
+        },
+        "speed_ms_per_img": 1000.0 * t_infer / max(n_img, 1),
+        "speed_pre_ms_per_img": 1000.0 * t_pre[0] / max(n_img, 1),
+        "detections": all_dets,
+    }
+    if verbose:
+        print(f"images={n_img}  P={mp:.3f} R={mr:.3f} HBBmAP@.5={map50:.4f} "
+              f"HBBmAP@.5:.95={map_:.4f} "
+              f"({result['speed_ms_per_img']:.1f} ms/img)")
+    return result
+
+
+def save_dota_task1(detections, names, out_dir):
+    """Per-class ``Task1_<name>.txt`` files for the devkit merge step: one
+    line ``<image stem> <conf> <8 poly coords>`` per detection."""
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    files = {i: open(out / f"Task1_{n}.txt", "w") for i, n in enumerate(names)}
+    try:
+        for det in detections:
+            stem = Path(det["path"]).stem
+            for poly, conf, cls in zip(det["polys"], det["conf"], det["cls"]):
+                row = " ".join(f"{v:.1f}" for v in poly)
+                files[int(cls)].write(f"{stem} {conf:.5f} {row}\n")
+    finally:
+        for f in files.values():
+            f.close()

@@ -1,7 +1,7 @@
 """Layers of the YOLOv5-OBB graph, NHWC, inference and training.
 
 Counterparts of ``yolov5_obb_tpu/models/layers.py`` for the modules the
-yolov5n/s/m/l/x configs use.  Module and parameter names follow the
+yolov5n/s/m/l/x and yolov5s-ghost configs use.  Module and parameter names follow the
 reference PyTorch model (``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m``), so
 a reference state_dict maps onto them key for key.
 
@@ -31,7 +31,12 @@ from ..ops.kernels.down_kernel import (
     fused_down,
     fused_down_plain,
 )
-from ..ops.kernels.stem_kernel import stem_conv_train
+from ..ops.kernels.stem_kernel import (
+    fold_stem_params,
+    fused_stem,
+    fused_stem_plain,
+    stem_conv_train,
+)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # flax momentum 0.97
@@ -144,13 +149,13 @@ class PackedStem(ConvBnAct):
     """The stem Conv(c2, 6, 2, 2) + BatchNorm + SiLU reading the packed
     ``(B, H, 3W)`` uint8 image (a free view of the NHWC batch); the /255
     normalize folds into the conv weights.  Parameters and names are those
-    of ``ConvBnAct(3, c2, 6, 2, 2)``.
+    of ``ConvBnAct(3, c2, 6, 2, 2)`` (JAX ``PackedStem``, layers.py:213).
 
-    Train mode only: the raw stem conv kernel (with its weight-gradient
-    kernel, ops/kernels/stem_kernel.py) and live BatchNorm (JAX
-    ``PackedStem``'s train branch, layers.py:246-259).  At inference the
-    model folds this layer into the stem+L1 kernel instead; the stem-only
-    inference kernel (``fused_stem``) is not ported."""
+    Eval mode: BatchNorm folds too, and the layer is the stem kernel
+    (``fused_stem``, ops/kernels/stem_kernel.py) — unless the model runs
+    layers 0-1 as the stem+L1 kernel and never calls this layer.  Train
+    mode: the raw stem conv kernel (with its weight-gradient kernel) and
+    live BatchNorm (JAX ``PackedStem``'s train branch, layers.py:246-259)."""
 
     def __init__(self, c1, c2, k=6, s=2, p=2, dtype=torch.bfloat16):
         super().__init__(c1, c2, k, s, p)
@@ -160,10 +165,13 @@ class PackedStem(ConvBnAct):
         self.dtype = dtype
 
     def forward(self, x, plain: bool = False):
+        if x.dtype != torch.uint8 or x.dim() != 3:
+            raise ValueError(f"PackedStem takes the packed (B, H, 3W) uint8 "
+                             f"image, got {x.dtype} {tuple(x.shape)}")
         if not self.training:
-            raise NotImplementedError(
-                "the stem-only inference kernel (fused_stem) is not ported; "
-                "a packed-stem model runs layers 0-1 as the stem+L1 kernel")
+            w0, b0 = fold_stem_params(self.conv.weight, self.bn)
+            return (fused_stem_plain if plain else fused_stem)(x, w0, b0,
+                                                               self.dtype)
         z = stem_conv_train(x, self.conv.weight / 255.0, self.dtype,
                             plain=plain)
         return _bn_act(self, z, self.dtype)
@@ -260,3 +268,69 @@ class Upsample(nn.Module):
         s = self.scale
         return (x[:, :, None, :, None, :].expand(B, H, s, W, s, C)
                 .reshape(B, H * s, W * s, C))
+
+
+# ---------------------------------------------------------------------------
+# the Ghost family (JAX layers.py:265-281, :657-714; reference names)
+# ---------------------------------------------------------------------------
+
+
+def _run(mods, x, plain: bool):
+    """Apply a sequence of this module family (``nn.Identity`` included)."""
+    for m in mods:
+        x = x if isinstance(m, nn.Identity) else m(x, plain)
+    return x
+
+
+class DWConv(ConvBnAct):
+    """Depthwise-separable conv: a ConvBnAct with ``gcd(c1, c2)`` groups
+    (reference models/common.py:52-55); its depthwise conv stays
+    ``F.conv2d`` with ``groups``, as the JAX package leaves it to XLA."""
+
+    def __init__(self, c1, c2, k=1, s=1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution (reference models/common.py:211-221): a conv to
+    half the channels, then a depthwise 5x5 of that half, concatenated."""
+
+    def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBnAct(c1, c_, k, s, None, g, act)
+        self.cv2 = ConvBnAct(c_, c_, 5, 1, None, c_, act)
+
+    def forward(self, x, plain: bool = False):
+        y = self.cv1(x, plain)
+        return torch.cat([y, self.cv2(y, plain)], -1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (reference models/common.py:224-236)."""
+
+    def __init__(self, c1, c2, k=3, s=1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = nn.Sequential(
+            DWConv(c1, c1, k, s, act=False),
+            ConvBnAct(c1, c2, 1, 1, act=False)) if s == 2 else nn.Identity()
+
+    def forward(self, x, plain: bool = False):
+        sc = x if isinstance(self.shortcut, nn.Identity) else _run(
+            self.shortcut, x, plain)
+        return _run(self.conv, x, plain) + sc
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck stages (reference models/common.py:157-162);
+    built unfused, so never the C3 kernel."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))

@@ -1,12 +1,15 @@
 """YOLOv5-OBB model: YAML graph spec → PyTorch module graph, Detect head.
 
 Counterpart of ``yolov5_obb_tpu/models/yolo.py``.  The YAML spec is the
-single source of truth for the n/s/m/l/x variants (``models/configs``).
-``packed_stem`` builds the fast path: ``forward`` then takes the raw
-``(B, H, 3W)`` uint8 view.  In eval mode layers 0-1 run as the fused stem+L1
-kernel and the eligible C3 blocks and stride-2 downsamples as their kernels;
-in train mode layer 0 runs on the stem train kernels and the eligible
-downsamples on the downsample train kernels (models/layers.py gates).
+single source of truth for the n/s/m/l/x and s-ghost variants
+(``models/configs``).  ``packed_stem`` builds the fast path: ``forward``
+then takes the raw ``(B, H, 3W)`` uint8 view.  In eval mode layers 0-1 run
+as the fused stem+L1 kernel where layer 1 can join the stem
+(:func:`packed_l1_eligible`, and ``PACKED_L1`` is not ``0``), else layer 0
+as the stem kernel; the eligible C3 blocks and stride-2 downsamples run as
+their kernels.  In train mode layer 0 runs on the stem train kernels and
+the eligible downsamples on the downsample train kernels (models/layers.py
+gates).
 ``fused_train`` (with ``packed_stem``) runs layers 0-3 in train mode as the
 stat-carrying pass chain of ``ops/kernels/train_fused.py``.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from pathlib import Path
 from typing import Any
 
@@ -82,9 +86,10 @@ def load_config(cfg) -> dict:
 
 
 # modules whose first arg is an output-channel count subject to width scaling
-_CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C3"}
+_CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C3", "DWConv", "GhostConv",
+               "GhostBottleneck", "C3Ghost"}
 # modules that additionally take the repeat count as a constructor arg
-_REPEAT_MODULES = {"C3"}
+_REPEAT_MODULES = {"C3", "C3Ghost"}
 
 
 def parse_model_config(d: dict, ch_in: int = 3):
@@ -162,6 +167,11 @@ class Detect(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+_PLAIN_MODULES = {"Bottleneck": L.Bottleneck, "SPPF": L.SPPF,
+                  "DWConv": L.DWConv, "GhostConv": L.GhostConv,
+                  "GhostBottleneck": L.GhostBottleneck, "C3Ghost": L.C3Ghost}
+
+
 def _build_module(spec: LayerSpec, packed_stem: bool, dtype):
     kind, a = spec.name, spec.args
     if packed_stem and spec.index == 0:
@@ -170,10 +180,8 @@ def _build_module(spec: LayerSpec, packed_stem: bool, dtype):
         return L.ConvBnAct(*a, fused=packed_stem)
     if kind == "C3":
         return L.C3(*a, fused=packed_stem)
-    if kind == "Bottleneck":
-        return L.Bottleneck(*a)
-    if kind == "SPPF":
-        return L.SPPF(*a)
+    if kind in _PLAIN_MODULES:
+        return _PLAIN_MODULES[kind](*a)
     if kind == "Concat":
         return L.Concat()
     if kind == "Upsample":
@@ -224,13 +232,18 @@ class YoloModel(nn.Module):
     ``packed_stem``: ``forward`` takes the packed ``(B, H, 3W)`` uint8 image
     (/255 folded into the stem weights) and the eligible layers run on
     kernels.  In eval mode layers 0-1 run as the stem+L1 kernel (layer 0's
-    activation is never formed) and the eligible C3 blocks and downsamples
-    as theirs.  In train mode layer 0 is a :class:`~.layers.PackedStem` on
+    activation is never formed; ``packed_l1``) or layer 0 as the stem
+    kernel, and the eligible C3 blocks and downsamples as theirs.  In train
+    mode layer 0 is a :class:`~.layers.PackedStem` on
     the stem train kernels, layer 1 a ``ConvBnAct`` (JAX yolo.py:481-485:
     the stem+L1 fold is inference-only) and the eligible downsamples run on
     the downsample train kernels.  Otherwise ``forward`` takes a float NHWC
     image in [0, 1] and runs the stock layers.  ``dtype`` is the compute
     dtype; parameters and BN statistics stay float32.
+
+    ``packed_l1`` (set only with ``packed_stem``): in eval mode layers 0-1
+    run as the stem+L1 kernel; without it layer 0 runs as the stem kernel
+    and layer 1 as its stock self.
 
     ``fused_train`` (set only with ``packed_stem``): in train mode, when
     :func:`_fused_train_specs_ok` holds, layers 0-3 run as the
@@ -238,11 +251,13 @@ class YoloModel(nn.Module):
     and parameter names are those of the stock graph."""
 
     def __init__(self, specs, nc: int, na: int, dtype=torch.float32,
-                 packed_stem: bool = False, fused_train: bool = False):
+                 packed_stem: bool = False, packed_l1: bool = False,
+                 fused_train: bool = False):
         super().__init__()
         self.specs = tuple(specs)
         self.nc, self.na, self.dtype = nc, na, dtype
         self.packed_stem = packed_stem
+        self.packed_l1 = packed_l1 and packed_stem
         self.fused_train = fused_train
         layers = []
         for spec in self.specs:
@@ -343,7 +358,7 @@ class YoloModel(nn.Module):
                 and _fused_train_specs_ok(self.specs)):
             y = [None, None, None, self._fused_train_region(x, plain)]
             skip = 4
-        elif self.packed_stem and not self.training:
+        elif self.packed_l1 and not self.training:
             y = [None, self._stem_l1(x, plain)]
             skip = 2
         elif not self.packed_stem:
@@ -373,16 +388,22 @@ class YoloModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def packed_stem_eligible(specs) -> bool:
+    """The first layer is the Conv(c2, 6, 2) stem the packed path reads."""
+    s0 = specs[0]
+    return s0.name == "Conv" and list(s0.args[2:4]) == [6, 2]
+
+
 def packed_l1_eligible(specs) -> bool:
     """Layers 0-1 can run as the stem+L1 kernel: a Conv(c2, 6, 2) stem, a
     Conv(c3, 3, 2) layer 1 reading it, and no later layer reading layer 0
     (its activation is never formed)."""
     if len(specs) < 2:
         return False
-    s0, s1 = specs[0], specs[1]
+    s1 = specs[1]
     refs0 = any((sp.frm == 0 if isinstance(sp.frm, int) else 0 in sp.frm)
                 for sp in specs[2:])
-    return (s0.name == "Conv" and list(s0.args[2:4]) == [6, 2]
+    return (packed_stem_eligible(specs)
             and s1.name == "Conv" and list(s1.args[2:4]) == [3, 2]
             and s1.frm == -1 and s1.repeats == 1 and not refs0)
 
@@ -390,19 +411,22 @@ def packed_l1_eligible(specs) -> bool:
 def build_model(cfg, nc: int | None = None, dtype=torch.float32,
                 packed_stem: bool = False, fused_train: bool = False):
     """Load config → (YoloModel on the meta device, ModelMeta without
-    strides, raw dict).  ``fused_train`` takes effect only with
-    ``packed_stem`` (JAX yolo.py:542)."""
+    strides, raw dict).  As in the JAX package (yolo.py:518-542):
+    ``packed_stem`` takes effect only for a Conv(c2, 6, 2) stem; layer 1
+    joins the stem in the stem+L1 kernel where it can
+    (:func:`packed_l1_eligible`) unless the environment sets
+    ``PACKED_L1=0``; ``fused_train`` takes effect only with
+    ``packed_stem``."""
     d = load_config(cfg)
     if nc is not None and nc != d.get("nc"):
         d["nc"] = nc
     specs, nc_, na, anchors_px, _ = parse_model_config(d)
-    if packed_stem and not packed_l1_eligible(specs):
-        raise NotImplementedError(
-            "packed_stem needs the stem+L1 pattern; the stem-only kernel "
-            "(fused_stem) is not ported yet")
+    packed_stem = packed_stem and packed_stem_eligible(specs)
+    packed_l1 = (packed_stem and packed_l1_eligible(specs)
+                 and int(os.environ.get("PACKED_L1", "1")) != 0)
     with torch.device("meta"):
         model = YoloModel(specs, nc_, na, dtype=dtype,
-                          packed_stem=packed_stem,
+                          packed_stem=packed_stem, packed_l1=packed_l1,
                           fused_train=fused_train and packed_stem)
     meta = ModelMeta(nc=nc_, nl=anchors_px.shape[0], na=na, strides=(),
                      anchors_px=anchors_px)

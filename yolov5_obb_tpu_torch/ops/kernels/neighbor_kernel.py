@@ -4,8 +4,8 @@ Counterpart of ``yolov5_obb_tpu/ops/pallas/neighbor_kernel.fused_neighbor_iou``
 (neighbor_kernel.py:199).  On CUDA tensors :func:`fused_neighbor_iou` launches
 ``csrc/neighbor.cu`` once for the whole batch; on CPU tensors it runs
 :func:`fused_neighbor_iou_plain`, the same function in plain PyTorch
-(the dense edge matrix, a first-M compaction and
-:func:`~yolov5_obb_tpu_torch.ops.rotated_iou.pairs_iou_math`).
+(the dense edge matrix, a first-M compaction and the pair IoU's plain
+version, :func:`~yolov5_obb_tpu_torch.ops.kernels.iou.sparse_rotated_iou_plain`).
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from __future__ import annotations
 import torch
 
 from ..geometry import hbb_cover
-from ..rotated_iou import pairs_iou_math
 from ._build import F, I, Kernel, P, check_cuda
+from .iou import sparse_rotated_iou_plain
 
 KERNEL = Kernel(
     "neighbor", "neighbor_iou_launch", [P, P, P, P, I, I, I, F, F, P, P],
@@ -67,15 +67,11 @@ def edge_matrix(boxes, class_ids, valid, iou_thr: float):
 def fused_neighbor_iou_plain(boxes, class_ids, valid, iou_thr: float,
                              max_neighbors: int = 64):
     """Plain version of :func:`fused_neighbor_iou` (any device)."""
-    B, n, _ = boxes.shape
-    M = max_neighbors
     boxes = boxes.float()
     edge = edge_matrix(boxes, class_ids, valid, iou_thr)
-    nbr_idx, nbr_valid = first_m_neighbors(edge, M)
-    pair_b = torch.gather(boxes, 1, nbr_idx.reshape(B, n * M, 1).long()
-                          .expand(-1, -1, 5)).reshape(B, n, M, 5)
-    riou = pairs_iou_math(boxes[:, :, None, :].expand_as(pair_b), pair_b)
-    return nbr_idx, nbr_valid & (riou > iou_thr)
+    nbr_idx, nbr_valid = first_m_neighbors(edge, max_neighbors)
+    return nbr_idx, nbr_valid & (sparse_rotated_iou_plain(boxes, nbr_idx)
+                                 > iou_thr)
 
 
 def fused_neighbor_iou(boxes, class_ids, valid, iou_thr: float,

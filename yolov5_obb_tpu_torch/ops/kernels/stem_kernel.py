@@ -7,6 +7,8 @@ weights.  The kernels read the 6x6 stem taps directly; the TPU tap remap
   SiLU folded into both (``fused_stem_l1``; counterpart of
   ``yolov5_obb_tpu/ops/pallas/stem_kernel.fused_stem_l1``, stem_kernel.py:599,
   and ``fold_stem_l1_params``, :481).
+- Inference, the stem alone, when layer 1 cannot join it (``fused_stem``;
+  counterpart of ``fused_stem``, :153, and ``fold_stem_params``, :453).
 - Training: the raw pre-BN stem conv and its weight gradient
   (``stem_conv_train``; counterpart of ``stem_conv_train``, :428).
 """
@@ -21,6 +23,9 @@ from ._build import I, Kernel, P, check_cuda, partial_count
 KERNEL = Kernel(
     "stem_l1", "stem_l1_launch", [P, P, P, P, P, P, I, I, I, I, I],
     replaces="yolov5_obb_tpu/ops/pallas/stem_kernel.py:599")
+STEM_KERNEL = Kernel(
+    "stem", "stem_launch", [P, P, P, P, I, I, I, I],
+    replaces="yolov5_obb_tpu/ops/pallas/stem_kernel.py:153")
 TRAIN_FWD_KERNEL = Kernel(
     "stem_train", "stem_train_fwd_launch", [P, P, P, I, I, I, I],
     replaces="yolov5_obb_tpu/ops/pallas/stem_kernel.py:267")
@@ -35,6 +40,58 @@ def _bn_fold(bn, eps: float):
 
 
 @torch.no_grad()
+def fold_stem_params(k0, bn0, eps: float = 1e-3):
+    """Stem Conv+BN → operands of :func:`fused_stem`.
+
+    ``k0`` ``(c2, 3, 6, 6)`` OIHW conv weights; ``bn0`` a BatchNorm module
+    (inference statistics).  Returns ``w0 (108, c2)`` float32, row
+    ``(6*dy + dx)*3 + c`` (the 6x6 taps as they are: the TPU's ``remap_w6``
+    has no counterpart), with the BN scale and the /255 folded in, and
+    ``b0 (c2,)`` float32."""
+    g0, b0 = _bn_fold(bn0, eps)
+    w0 = (k0 * g0[:, None, None, None] / 255.0).permute(2, 3, 1, 0)
+    return (w0.reshape(108, w0.shape[-1]).float().contiguous(),
+            b0.float().contiguous())
+
+
+def _stem_out_hw(H: int, W: int) -> tuple[int, int]:
+    return (H - 2) // 2 + 1, (W - 2) // 2 + 1
+
+
+def fused_stem_plain(x_packed, w0, b0, dtype=torch.bfloat16):
+    """Plain version: the float32 conv of the uint8 values with bias, SiLU in
+    float32, one rounding to ``dtype``.  Returns ``(B, Hs, Ws, c2)``."""
+    c2 = b0.shape[0]
+    k0 = w0.float().reshape(6, 6, 3, c2).permute(3, 2, 0, 1)
+    s = F.conv2d(_image_nchw(x_packed).float(), k0, b0.float(), stride=2,
+                 padding=2)
+    return (s * torch.sigmoid(s)).to(dtype).permute(0, 2, 3, 1).contiguous()
+
+
+def fused_stem(x_packed, w0, b0, dtype=torch.bfloat16):
+    """Fused ingest + stem Conv + BN + SiLU on the packed ``(B, H, 3W)``
+    uint8 image; operands from :func:`fold_stem_params`.  Returns ``(B, Hs,
+    Ws, c2)``, ``Hs = (H - 2)//2 + 1``.  CPU tensors take the plain version;
+    CUDA tensors take the kernel, which computes bf16 outputs only."""
+    if x_packed.device.type == "cpu":
+        return fused_stem_plain(x_packed, w0, b0, dtype)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the stem kernel computes bf16, not {dtype}")
+    check_cuda("x_packed", x_packed, torch.uint8, 3)
+    check_cuda("w0", w0, torch.float32, 2)
+    check_cuda("b0", b0, torch.float32, 1)
+    B, H, W3 = x_packed.shape
+    W, c2 = W3 // 3, b0.shape[0]
+    if W3 % 3 or H < 2 or W < 2 or w0.shape != (108, c2) or c2 % 8:
+        raise ValueError(f"stem kernel: bad shapes x {tuple(x_packed.shape)}, "
+                         f"w0 {tuple(w0.shape)} (c2 % 8 == 0)")
+    out = torch.empty(B, *_stem_out_hw(H, W), c2, dtype=torch.bfloat16,
+                      device=x_packed.device)
+    STEM_KERNEL.launch(x_packed, w0, b0, out, B, H, W, c2)
+    return out
+
+
+@torch.no_grad()
 def fold_stem_l1_params(k0, bn0, k1, bn1, dtype=torch.bfloat16,
                         eps: float = 1e-3):
     """Stem + layer-1 Conv+BN → operands of :func:`fused_stem_l1`.
@@ -45,13 +102,11 @@ def fold_stem_l1_params(k0, bn0, k1, bn1, dtype=torch.bfloat16,
     scale and the /255 folded in; ``b0 (c2,)``; ``w1 (9*c2, c3)`` in
     ``dtype``, row ``(3*dy + dx)*c2 + ci``, BN scale folded; ``b1 (c3,)``.
     """
-    g0, b0 = _bn_fold(bn0, eps)
+    w0, b0 = fold_stem_params(k0, bn0, eps)
     g1, b1 = _bn_fold(bn1, eps)
-    w0 = (k0 * g0[:, None, None, None] / 255.0).permute(2, 3, 1, 0)
     w1 = (k1 * g1[:, None, None, None]).permute(2, 3, 1, 0)
     c2, c3 = w0.shape[-1], w1.shape[-1]
-    return (w0.reshape(108, c2).float().contiguous(), b0.float().contiguous(),
-            w1.reshape(9 * c2, c3).to(dtype).contiguous(),
+    return (w0, b0, w1.reshape(9 * c2, c3).to(dtype).contiguous(),
             b1.float().contiguous())
 
 
@@ -62,14 +117,11 @@ def _image_nchw(x_packed):
 
 
 def fused_stem_l1_plain(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
-    """Plain version: the stem in float32 from the uint8 values, rounded to
-    ``dtype`` before layer 1 (as the kernel does), layer 1 in float32 on the
+    """Plain version: the stem as :func:`fused_stem_plain` (rounded to
+    ``dtype`` before layer 1, as the kernel does), layer 1 in float32 on the
     ``dtype`` values.  Returns ``(B, H/4, W/4, c3)`` in ``dtype``."""
     c2, c3 = b0.shape[0], b1.shape[0]
-    k0 = w0.float().reshape(6, 6, 3, c2).permute(3, 2, 0, 1)
-    s = F.conv2d(_image_nchw(x_packed).float(), k0, b0.float(), stride=2,
-                 padding=2)
-    s = (s * torch.sigmoid(s)).to(dtype).float()
+    s = fused_stem_plain(x_packed, w0, b0, dtype).permute(0, 3, 1, 2).float()
     k1 = w1.float().reshape(3, 3, c2, c3).permute(3, 2, 0, 1)
     y = F.conv2d(s, k1, b1.float(), stride=2, padding=1)
     return (y * torch.sigmoid(y)).to(dtype).permute(0, 2, 3, 1).contiguous()
@@ -109,10 +161,6 @@ def fused_stem_l1(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
 # ---------------------------------------------------------------------------
 
 _TRAIN_TILE = (8, 32)  # stem outputs per tile of the weight-grad kernel
-
-
-def _stem_out_hw(H: int, W: int) -> tuple[int, int]:
-    return (H - 2) // 2 + 1, (W - 2) // 2 + 1
 
 
 def stem_train_fwd_plain(x_packed, w, dtype=torch.bfloat16):

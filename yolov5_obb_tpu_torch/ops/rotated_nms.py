@@ -1,22 +1,27 @@
 """Rotated NMS and the batched decode + rotated-NMS post-processing path.
 
-Counterpart of ``yolov5_obb_tpu/ops/rotated_nms.py`` for the single-label
-inference path.  The algorithm is the JAX package's sparse exact NMS:
+Counterpart of ``yolov5_obb_tpu/ops/rotated_nms.py``.  The algorithm is
+the JAX package's sparse exact NMS:
 
 1. an axis-aligned-cover upper bound on the rotated IoU prunes pairs that
    provably cannot suppress;
-2. each box keeps its first ``max_neighbors`` admissible higher-scored
-   neighbours (score order);
+2. each box keeps ``max_neighbors`` admissible higher-scored neighbours:
+   the first in score order (``neighbor_order="score"``), or the highest
+   upper bounds (``"iou"``);
 3. exact rotated IoU on those pairs only;
 4. greedy resolution as a fixed-point sweep: any fixed point of
    ``alive[j] = valid[j] ∧ ¬∃ i→j : alive[i]`` in score order is the unique
    greedy-NMS result.
 
-Steps 1-3 are the neighbour kernel (``ops/kernels/neighbor_kernel.py``).
-Selection is an exact stable sort (ties keep the lower anchor index, as the
-JAX ``compact_select`` + ``top_k`` pair does); the greedy sweep is an eager
-loop with a convergence check, and the tier ladder is one host-side branch on
-the batch's largest candidate count.
+In score order steps 1-3 are the neighbour kernel
+(``ops/kernels/neighbor_kernel.py``); in iou order steps 1-2 are plain torch
+on the ``(n, n)`` bound, as the JAX package leaves them to XLA, and step 3
+is the pair-IoU kernel (``ops/kernels/iou.py``).  Candidate selection, of
+the best class per box (single-label) or of every (box, class) pair
+(multi-label), is an exact stable sort: ties keep the lower anchor (then
+class) index, as the JAX ``compact_select`` + ``top_k`` pair does.  The
+greedy sweep is an eager loop with a convergence check, and the tier ladder
+is one host-side branch on the batch's largest candidate count.
 """
 
 from __future__ import annotations
@@ -24,7 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .kernels.neighbor_kernel import fused_neighbor_iou, fused_neighbor_iou_plain
+from .geometry import hbb_cover
+from .kernels.iou import sparse_rotated_iou, sparse_rotated_iou_plain
+from .kernels.neighbor_kernel import (
+    EDGE_SLACK,
+    fused_neighbor_iou,
+    fused_neighbor_iou_plain,
+)
 
 PI = 3.141592653589793
 
@@ -48,9 +59,45 @@ def _resolve_greedy(sup_in, nbr_idx, valid):
     return alive
 
 
+def riou_upper_bound(boxes):
+    """``(B, n, n)`` provable upper bound on the pairwise rotated IoU:
+    ``inter(cover_i, cover_j) / max(area_i, area_j)`` (JAX
+    ``_riou_upper_bound``, rotated_nms.py:57)."""
+    hbb = hbb_cover(boxes)
+    a1 = torch.maximum(hbb[:, :, None, :2], hbb[:, None, :, :2])
+    a2 = torch.minimum(hbb[:, :, None, 2:], hbb[:, None, :, 2:])
+    inter = (a2 - a1).clamp(min=0).prod(-1)
+    area = boxes[..., 2] * boxes[..., 3]
+    return inter / torch.maximum(area[:, :, None], area[:, None, :]).clamp(
+        min=1e-9)
+
+
+def iou_order_neighbors(boxes, class_ids, valid, iou_thr: float, M: int):
+    """The ``M`` admissible higher-scored neighbours of each row with the
+    highest upper bounds → ``(nbr_idx (B, n, M) int32, nbr_valid)``.
+
+    The bound is masked to the admissible edges (strictly higher-scored,
+    both valid, same class, bound > 0.98·thr), cast to bf16 as the JAX
+    package does (rotated_nms.py:202), and ranked by a stable descending
+    sort, so equal values keep the lower column index as ``lax.top_k``
+    does (``torch.topk`` promises no order among ties)."""
+    n = boxes.shape[1]
+    ub = riou_upper_bound(boxes)
+    tri = torch.ones(n, n, dtype=torch.bool, device=boxes.device).tril(-1)
+    edge = ((ub > iou_thr * EDGE_SLACK) & tri & valid[:, :, None]
+            & valid[:, None, :])
+    if class_ids is not None:
+        edge &= class_ids[:, :, None] == class_ids[:, None, :]
+    cand = torch.where(edge, ub, -1.0).to(torch.bfloat16)
+    del ub, edge
+    top, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+    top, idx = top[..., :M], idx[..., :M]
+    return idx.to(torch.int32).contiguous(), top > 0
+
+
 def nms_rotated(rboxes, scores, iou_thr: float, class_ids=None,
                 max_neighbors: int = 64, presorted: bool = False,
-                plain: bool = False):
+                neighbor_order: str = "score", plain: bool = False):
     """Greedy rotated NMS, sparse exact algorithm.
 
     Args:
@@ -63,7 +110,11 @@ def nms_rotated(rboxes, scores, iou_thr: float, class_ids=None,
         max_neighbors: the sparse graph's degree cap M (exact while no box
             has more than M threshold-capable higher-scored neighbours).
         presorted: scores are already descending along the last axis.
-        plain: use the neighbour kernel's plain version on any device.
+        neighbor_order: which ``max_neighbors`` to keep when a box has
+            more admissible ones: ``"score"`` the highest-scored (the
+            neighbour kernel), ``"iou"`` the highest upper bounds (the
+            pair-IoU kernel).  Identical results while no row overflows.
+        plain: use the kernels' plain versions on any device.
 
     Returns:
         keep ``(n,)`` / ``(B, n)`` bool, in input order.
@@ -83,8 +134,17 @@ def nms_rotated(rboxes, scores, iou_thr: float, class_ids=None,
         s = torch.gather(scores, 1, order)
         c = None if class_ids is None else torch.gather(class_ids, 1, order)
     valid = s > 0
-    neighbors = fused_neighbor_iou_plain if plain else fused_neighbor_iou
-    nbr_idx, sup_in = neighbors(b.float().contiguous(), c, valid, iou_thr, M)
+    b = b.float().contiguous()
+    if neighbor_order == "score":
+        neighbors = fused_neighbor_iou_plain if plain else fused_neighbor_iou
+        nbr_idx, sup_in = neighbors(b, c, valid, iou_thr, M)
+    elif neighbor_order == "iou":
+        nbr_idx, nbr_valid = iou_order_neighbors(b, c, valid, iou_thr, M)
+        pair_iou = sparse_rotated_iou_plain if plain else sparse_rotated_iou
+        sup_in = nbr_valid & (pair_iou(b, nbr_idx) > iou_thr)
+    else:
+        raise ValueError(f"neighbor_order must be 'score' or 'iou', got "
+                         f"{neighbor_order!r}")
     alive = _resolve_greedy(sup_in, nbr_idx, valid)
     if order is not None:
         alive = torch.empty_like(alive).scatter_(1, order, alive)
@@ -152,14 +212,32 @@ def exact_select(gate, k: int):
     return scores, torch.where(scores > 0, idx, torch.zeros_like(idx))
 
 
-def decode_planes(maps, meta, classes=None):
+def exact_select_pairs(cls_conf, conf_thres: float, k: int):
+    """Multi-label selection: the exact top-``k`` of the (box, class) pairs
+    of ``cls_conf (B, N, nc)`` with ``conf > conf_thres`` (the obj gate is
+    implied: ``conf = cls·obj ≤ obj``), as one stable descending sort over
+    the flattened ``(B, N·nc)`` plane, so ties fall in (anchor, class) order
+    (the JAX ``_batched_exact_pairs``, rotated_nms.py:399).  Returns
+    ``(scores, box_idx, cls_id)``, each ``(B, min(k, N·nc))``; slots with
+    score 0 carry box 0, class 0."""
+    B, N, nc = cls_conf.shape
+    flat = torch.where(cls_conf > conf_thres, cls_conf,
+                       torch.zeros_like(cls_conf)).reshape(B, N * nc)
+    scores, idx = exact_select(flat, min(k, N * nc))
+    return scores, idx // nc, (idx % nc).to(torch.int32)
+
+
+def decode_planes(maps, meta, classes=None, multi_label: bool = False):
     """Flat Detect maps → per-anchor f32 planes, concatenated over levels:
-    x, y, w, h, obj, best class score, its id, theta-bin argmax.
+    x, y, w, h, obj, theta-bin argmax ``th``, and either the best class
+    score ``best`` and its id ``cid`` (single-label) or every class's
+    ``conf = cls·obj`` as ``(B, N, nc)`` (``multi_label``).
 
     Each level ``(B, n, no)`` holds ``n = ny*nx*na`` anchors with the anchor
     index varying fastest; levels are square (ny == nx)."""
     nc, na = meta.nc, meta.na
-    cols = {k: [] for k in ("x", "y", "w", "h", "obj", "best", "cid", "th")}
+    cols: dict = {}
+    add = lambda key, v: cols.setdefault(key, []).append(v)
     for li, p in enumerate(maps):
         B, n, no = p.shape
         ny = nx = int(round((n // na) ** 0.5))
@@ -178,17 +256,20 @@ def decode_planes(maps, meta, classes=None):
 
         f = lambda k: p[..., k].float()
         obj = torch.sigmoid(f(4))
-        cols["x"].append((torch.sigmoid(f(0)) * 2 - 0.5 + gx) * stride)
-        cols["y"].append((torch.sigmoid(f(1)) * 2 - 0.5 + gy) * stride)
-        cols["w"].append((torch.sigmoid(f(2)) * 2) ** 2 * aw)
-        cols["h"].append((torch.sigmoid(f(3)) * 2) ** 2 * ah)
-        cols["obj"].append(obj)
+        add("x", (torch.sigmoid(f(0)) * 2 - 0.5 + gx) * stride)
+        add("y", (torch.sigmoid(f(1)) * 2 - 0.5 + gy) * stride)
+        add("w", (torch.sigmoid(f(2)) * 2) ** 2 * aw)
+        add("h", (torch.sigmoid(f(3)) * 2) ** 2 * ah)
+        add("obj", obj)
         cls = torch.sigmoid(p[..., 5:5 + nc].float()) * obj[..., None]
         cls = _apply_class_filter(cls, classes, nc)
-        best, cid = cls.max(-1)  # first maximum on ties
-        cols["best"].append(best)
-        cols["cid"].append(cid.to(torch.int32))
-        cols["th"].append(torch.argmax(p[..., 5 + nc:], -1).to(torch.int32))
+        if multi_label:
+            add("conf", cls)
+        else:
+            best, cid = cls.max(-1)  # first maximum on ties
+            add("best", best)
+            add("cid", cid.to(torch.int32))
+        add("th", torch.argmax(p[..., 5 + nc:], -1).to(torch.int32))
     return {k: torch.cat(v, 1) for k, v in cols.items()}
 
 
@@ -198,22 +279,24 @@ def non_max_suppression_from_maps(maps, meta, conf_thres: float = 0.25,
                                   max_det: int = 1500, multi_label: bool = False,
                                   agnostic: bool = False, classes=None,
                                   plain: bool = False):
-    """Decode + rotated NMS over flat Detect maps (single-label).
+    """Decode + rotated NMS over flat Detect maps: the best class of each
+    box (single-label) or every (box, class) pair (``multi_label``) above
+    ``conf_thres`` competes for the ``max_candidates`` slots.
 
     Returns:
         dets ``(B, max_det, 7)`` ``[cx cy l s theta conf cls]`` (theta
         ``(bin - 90)°`` in radians), rows score-sorted, zero padding;
         num ``(B,)`` int32.
     """
+    pl = decode_planes(maps, meta, classes, multi_label)
     if multi_label:
-        raise NotImplementedError(
-            "multi-label selection (_batched_exact_pairs) is not ported yet")
-    pl = decode_planes(maps, meta, classes)
-    gate = torch.where((pl["best"] > conf_thres) & (pl["obj"] > conf_thres),
-                       pl["best"], torch.zeros_like(pl["best"]))
-    k = min(max_candidates, gate.shape[1])
-    scores, box_idx = exact_select(gate, k)
-    cls_id = torch.gather(pl["cid"], 1, box_idx)
+        scores, box_idx, cls_id = exact_select_pairs(
+            pl["conf"], conf_thres, max_candidates)
+    else:
+        gate = torch.where((pl["best"] > conf_thres) & (pl["obj"] > conf_thres),
+                           pl["best"], torch.zeros_like(pl["best"]))
+        scores, box_idx = exact_select(gate, min(max_candidates, gate.shape[1]))
+        cls_id = torch.gather(pl["cid"], 1, box_idx)
     theta = (torch.gather(pl["th"], 1, box_idx).float() - 90.0) / 180.0 * PI
     rb = torch.stack([torch.gather(pl[c], 1, box_idx) for c in "xywh"]
                      + [theta], -1)

@@ -1,8 +1,9 @@
-"""Hyperparameter helpers.
+"""Config, hyperparameter and path helpers.
 
-Counterparts of ``yolov5_obb_tpu/utils/general.py`` ``load_hyp`` (:18) and
-``scale_hyp_gains`` (:76).  The default hyp file is the port's own copy of
-the DOTA finetune set (``data/configs/hyp_finetune_dota.yaml``).
+Counterparts of ``yolov5_obb_tpu/utils/general.py`` ``load_yaml`` (:13),
+``load_hyp`` (:18), ``load_dataset_config`` (:26), ``increment_path`` (:43)
+and ``scale_hyp_gains`` (:76).  The default hyp file is the port's own copy
+of the DOTA finetune set (``data/configs/hyp_finetune_dota.yaml``).
 """
 
 from __future__ import annotations
@@ -14,13 +15,49 @@ import yaml
 DEFAULT_HYP_NAME = "hyp_finetune_dota.yaml"
 
 
+def load_yaml(path) -> dict:
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
 def load_hyp(path=None) -> dict:
     """Load a hyperparameter yaml; the bundled DOTA finetune set (reference
     data/hyps/obb/hyp.finetune_dota.yaml) when ``path`` is None."""
     if path is None:
         path = Path(__file__).parent.parent / "data" / "configs" / DEFAULT_HYP_NAME
-    with open(path) as f:
-        return yaml.safe_load(f)
+    return load_yaml(path)
+
+
+def load_dataset_config(path) -> dict:
+    """Dataset yaml: path/train/val/test/nc/names (reference
+    general.py:371-421).  Relative train/val/test entries resolve against
+    ``path`` (itself relative to the yaml's folder); a names dict becomes a
+    list."""
+    d = load_yaml(path)
+    root = Path(d.get("path", "."))
+    if not root.is_absolute():
+        root = Path(path).parent / root
+    for k in ("train", "val", "test"):
+        if d.get(k):
+            p = Path(d[k])
+            d[k] = str(p if p.is_absolute() else root / p)
+    if isinstance(d.get("names"), dict):
+        d["names"] = [d["names"][i] for i in sorted(d["names"])]
+    return d
+
+
+def increment_path(path, exist_ok=False, mkdir=True) -> Path:
+    """runs/exp → runs/exp2, exp3, ... unless ``exist_ok``."""
+    path = Path(path)
+    if path.exists() and not exist_ok:
+        for n in range(2, 9999):
+            p = Path(f"{path}{n}")
+            if not p.exists():
+                path = p
+                break
+    if mkdir:
+        path.mkdir(parents=True, exist_ok=True)
+    return path
 
 
 def scale_hyp_gains(hyp: dict, nl: int, nc: int, imgsz: int) -> dict:

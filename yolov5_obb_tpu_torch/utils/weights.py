@@ -10,9 +10,15 @@ Key map, per graph layer ``m{i}`` → ``model.{i}.`` (the reference PyTorch
 model's names):
 
     Conv        Conv_0 → conv, BatchNorm_0 → bn
+    DWConv      ConvBnAct_0/{Conv_0, BatchNorm_0} → conv, bn
     C3          ConvBnAct_0/1/2 → cv1/cv2/cv3, Bottleneck_j → m.j
+    C3Ghost     ConvBnAct_0/1/2 → cv1/cv2/cv3, GhostBottleneck_j → m.j
     Bottleneck  ConvBnAct_0/1 → cv1/cv2
     SPPF        ConvBnAct_0/1 → cv1/cv2
+    GhostConv   ConvBnAct_0/1 → cv1/cv2
+    GhostBottleneck  GhostConv_0/1 → conv.0/conv.2; at stride 2 also
+                DWConv_0 → conv.1, DWConv_1 → shortcut.0,
+                ConvBnAct_0 → shortcut.1
     Detect      conv{l}/{kernel,bias} → m.{l}.{weight,bias}
     repeats     m{i}_{r} → model.{i}.{r}.
 
@@ -42,20 +48,41 @@ def _cba(tp: str, jp: tuple) -> list:
     ]
 
 
+def _pair(tp: str, jp: tuple) -> list:
+    """cv1/cv2 ← ConvBnAct_0/1 (Bottleneck, SPPF, GhostConv)."""
+    return (_cba(f"{tp}cv1.", (*jp, "ConvBnAct_0"))
+            + _cba(f"{tp}cv2.", (*jp, "ConvBnAct_1")))
+
+
+def _ghost_bottleneck(tp: str, jp: tuple, s: int) -> list:
+    out = (_pair(f"{tp}conv.0.", (*jp, "GhostConv_0"))
+           + _pair(f"{tp}conv.2.", (*jp, "GhostConv_1")))
+    if s == 2:
+        out += (_cba(f"{tp}conv.1.", (*jp, "DWConv_0", "ConvBnAct_0"))
+                + _cba(f"{tp}shortcut.0.", (*jp, "DWConv_1", "ConvBnAct_0"))
+                + _cba(f"{tp}shortcut.1.", (*jp, "ConvBnAct_0")))
+    return out
+
+
 def _module_entries(kind: str, args: tuple, frm, tp: str, jp: tuple) -> list:
     if kind == "Conv":
         return _cba(tp, jp)
-    if kind in ("Bottleneck", "SPPF"):
-        return (_cba(f"{tp}cv1.", (*jp, "ConvBnAct_0"))
-                + _cba(f"{tp}cv2.", (*jp, "ConvBnAct_1")))
-    if kind == "C3":
+    if kind == "DWConv":
+        return _cba(tp, (*jp, "ConvBnAct_0"))
+    if kind in ("Bottleneck", "SPPF", "GhostConv"):
+        return _pair(tp, jp)
+    if kind == "GhostBottleneck":
+        return _ghost_bottleneck(tp, jp, args[3] if len(args) > 3 else 1)
+    if kind in ("C3", "C3Ghost"):
         out = (_cba(f"{tp}cv1.", (*jp, "ConvBnAct_0"))
                + _cba(f"{tp}cv2.", (*jp, "ConvBnAct_1"))
                + _cba(f"{tp}cv3.", (*jp, "ConvBnAct_2")))
         for j in range(args[2] if len(args) > 2 else 1):
-            out += (_cba(f"{tp}m.{j}.cv1.", (*jp, f"Bottleneck_{j}", "ConvBnAct_0"))
-                    + _cba(f"{tp}m.{j}.cv2.",
-                           (*jp, f"Bottleneck_{j}", "ConvBnAct_1")))
+            if kind == "C3":
+                out += _pair(f"{tp}m.{j}.", (*jp, f"Bottleneck_{j}"))
+            else:
+                out += _ghost_bottleneck(f"{tp}m.{j}.",
+                                         (*jp, f"GhostBottleneck_{j}"), 1)
         return out
     if kind == "Detect":
         out = []
