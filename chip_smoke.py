@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
-      parallel), timed;
+      parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh)
+      their registers and spill bytes from ptxas and their tensor-core and
+      global-load instructions from ``cuobjdump -sass``;
   (b) each inference kernel against its plain PyTorch version on the card at
       the main path's shapes (bf16 convs; the stem+L1 kernel and the
       stem-only kernel at yolov5m b16 1024²; neighbour kernel at n =
@@ -62,6 +64,8 @@ without a CUDA device or outside a checkout.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -91,6 +95,9 @@ TRAIN_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
 FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s2": 2, "pass_1x1_fwd": 4, "pass_1x1_bwd": 4,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
+# the libraries holding the tensor-core conv (csrc/conv3x3_mma.cuh), and
+# the substring of its kernels' names
+MMA_SOURCES, MMA_KERNEL = ("down_train", "train_fused_3x3"), "conv3x3_mma"
 # float32 operations per activated element: silu(z·g + b) forward; the
 # recomputed activation, silu' and the products of the backward
 ACT_OPS, DACT_OPS = 5, 12
@@ -112,6 +119,67 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_entries(text: str) -> dict:
+    """Kernel name → (registers, spill store bytes, spill load bytes) from
+    an ``nvcc -Xptxas -v`` log."""
+    out, name, spill = {}, None, (None, None)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (None, None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def sass_counts(lib: str, match: str):
+    """Kernel name → counts of tensor-core (HMMA/HGMMA), cp.async
+    (LDGSTS), shared-matrix (LDSM) and other global-load (LDG) instructions
+    in the SASS of ``lib``, for the kernels whose name holds ``match``; None
+    where ``cuobjdump`` is absent."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = out.setdefault(name, dict.fromkeys(
+                ("HMMA", "HGMMA", "LDGSTS", "LDSM", "LDG"), 0)) \
+                if match in name else None
+        elif cur is not None:
+            op = re.search(r"\b(HGMMA|HMMA|LDGSTS|LDSM|LDG)\b", line)
+            if op:
+                cur[op.group(1)] += 1
+    return out
+
+
+def mma_report(build) -> dict:
+    """Registers, spills and SASS counts of the tensor-core kernels (ptxas
+    speaks only when this run compiled the library)."""
+    rep = {}
+    for src in MMA_SOURCES:
+        if src not in build.PTXAS_LOG:
+            rep[src] = "built before this run: no ptxas log"
+            continue
+        regs = {k: v for k, v in ptxas_entries(build.PTXAS_LOG[src]).items()
+                if MMA_KERNEL in k}
+        sass = sass_counts(str(build.so_path(src)), MMA_KERNEL)
+        rep[src] = {k: {"registers": r, "spill_stores": ss, "spill_loads": sl,
+                        "sass": "not available" if sass is None
+                        else sass.get(k, "not found")}
+                    for k, (r, ss, sl) in regs.items()}
+    return rep
 
 
 def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1156,7 +1224,8 @@ def step_breakdown(model, loss_fn, opt, state, batch):
 # cuDNN/CUTLASS convolutions, reductions, elementwise passes
 _GROUPS = (("port kernels", ("stem_fwd_kernel", "stem_wgrad_kernel",
                              "down_wgrad_kernel", "down_conv", "sum_partials",
-                             "p1x1_fwd_kernel", "p1x1_bwd_kernel")),
+                             "sum_rows", "conv3x3_mma", "p1x1_fwd_kernel",
+                             "p1x1_bwd_kernel")),
            ("convolutions (cuDNN/CUTLASS)", ("conv", "cudnn", "xmma", "cutlass",
                                              "implicit", "wgrad", "dgrad",
                                              "gemm", "sm90")),
@@ -1787,6 +1856,10 @@ def main() -> int:
     for name, text in _build.PTXAS_LOG.items():
         log(f"--- ptxas {name}\n" + "\n".join(
             l for l in text.splitlines() if "registers" in l or "spill" in l))
+    mma = mma_report(_build)
+    print("tensor-core kernels: " + json.dumps(mma), flush=True)
+    require(all(isinstance(r, str) or len(r) == 1 for r in mma.values()),
+            f"ptxas reported no tensor-core kernel: {mma}")
 
     # (b) inference kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1840,7 +1913,7 @@ def main() -> int:
             "library_ms": res["library_ms"],
         })
     print(json.dumps({"kernels": kernels, "main_path": report,
-                      "card": card}), flush=True)
+                      "tensor_core_kernels": mma, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -246,6 +246,27 @@ def test_down_train_kernels(dev, H, W, ci, co):
     assert torch.equal(gw, gw2)
 
 
+_RAGGED = [(1, 1), (2, 3), (17, 33), (33, 18)]
+
+
+@pytest.mark.parametrize("H,W", _RAGGED)
+@pytest.mark.parametrize("ci,co", [(8, 8), (24, 40), (40, 96), (48, 200),
+                                   (80, 320)])
+def test_down_train_fwd_ragged(dev, H, W, ci, co):
+    """The tensor-core forward at ragged tiles, ci not a multiple of 16 and
+    co not a multiple of its 96-channel chunk; repeats bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(2, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
+    w = _w(gen, co, ci, 3, dev).permute(2, 3, 1, 0).reshape(9 * ci, co)
+    w = w.contiguous().to(torch.bfloat16)
+    z = _counted(down_kernel.TRAIN_FWD_KERNEL,
+                 lambda: down_kernel.down_train_fwd(x, w))
+    zp = down_kernel.down_train_fwd_plain(x, w)
+    assert z.shape == zp.shape == (2, (H + 1) // 2, (W + 1) // 2, co)
+    assert (z.float() - zp.float()).abs().max() <= 0.05  # bf16 output ulps
+    assert torch.equal(z, down_kernel.down_train_fwd(x, w))
+
+
 def test_slice_kernels_match_plain(dev, monkeypatch):
     from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
     from yolov5_obb_tpu_torch.models.yolo import create_model
@@ -410,3 +431,44 @@ def test_fused_region_kernels_match_plain(dev):
                 b.copy_(saved[k])
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
+
+
+@pytest.mark.parametrize("H,W", _RAGGED)
+@pytest.mark.parametrize("ci,co", [(2, 8), (6, 40), (8, 96), (24, 200),
+                                   (40, 320), (48, 96), (80, 200)])
+def test_pass_3x3s2_ragged(dev, H, W, ci, co):
+    """The stride-2 pass on the tensor-core body at ragged tiles, ci not a
+    multiple of 16 (down to the contract's ci % 2), co not a multiple of
+    its chunk; z and the statistics repeat bit for bit."""
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    z = torch.randn(2, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
+    gb = _gbt(gen, ci, dev)
+    w = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
+    zk, sk = _counted(TF.KERNEL_3X3S2, lambda: TF.pass_3x3_fwd(z, gb, w, 2))
+    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, 2)
+    assert zk.shape == zp.shape == (2, (H + 1) // 2, (W + 1) // 2, co)
+    assert _ulp(zk, zp)
+    assert (sk - sp).abs().max() <= 1e-4 * sp.abs().max()
+    zk2, sk2 = TF.pass_3x3_fwd(z, gb, w, 2)
+    assert torch.equal(zk, zk2) and torch.equal(sk, sk2)
+
+
+@pytest.mark.parametrize("H,W,ci,co", [(2, 3, 8, 8), (17, 33, 24, 40),
+                                       (33, 18, 48, 96)])
+def test_pass_3x3s2_pads_after_the_activation(dev, H, W, ci, co):
+    """b = +3 on every channel: silu(b) is far from 0, so a kernel that
+    padded the raw input (and activated the pad) fails the tolerance; the
+    padding is of the activated input, as in the plain version."""
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    z = torch.randn(2, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
+    gb = _gbt(gen, ci, dev)
+    gb[1] = 3.0
+    w = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
+    zk, sk = TF.pass_3x3_fwd(z, gb, w, 2)
+    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, 2)
+    assert _ulp(zk, zp)
+    assert (sk - sp).abs().max() <= 1e-4 * sp.abs().max()

@@ -450,3 +450,91 @@ def test_weights_map_identically():
     assert fused.state_dict().keys() == stock.state_dict().keys()
     assert [k for k, _, _ in key_map(fused.specs)] == list(
         stock.state_dict().keys())
+
+
+# ---------------------------------------------------------------------------
+# the 3x3 pass wrappers against the CUDA sources' tile geometry
+# ---------------------------------------------------------------------------
+
+
+def _constexpr(header, name):
+    import re
+    from pathlib import Path
+
+    path = Path(TF.__file__).resolve().parents[2] / "csrc" / header
+    m = re.search(rf"constexpr int {name} = (\d+);", path.read_text())
+    assert m, f"no constexpr {name} in {header}"
+    return int(m.group(1))
+
+
+def _meta_pass(monkeypatch, ci, co, stride, B=2, H=17, W=33):
+    """Call pass_3x3_fwd on meta tensors (the kernel branch, nothing
+    allocated or run), recording what would be launched."""
+    launched = []
+    monkeypatch.setattr(TF, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(TF, "check_aligned", lambda **k: None)
+    kern = TF.KERNEL_3X3S1 if stride == 1 else TF.KERNEL_3X3S2
+    monkeypatch.setattr(kern, "launch", lambda *a: launched.append(a))
+    z = torch.empty(B, H, W, ci, dtype=torch.bfloat16, device="meta")
+    gb = torch.empty(2, ci, device="meta")
+    w = torch.empty(9 * ci, co, device="meta")
+    return launched, lambda: TF.pass_3x3_fwd(z, gb, w, stride)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("B,H,W", [(1, 1, 1), (2, 17, 33), (3, 33, 18),
+                                   (16, 512, 512)])
+def test_pass_3x3_partial_rows_follow_the_tiles(monkeypatch, stride, B, H, W):
+    """The statistics partial handed to a 3x3 pass kernel has one row per
+    output tile of the body it runs on: stride 1 down_conv.cuh's T x T,
+    stride 2 conv3x3_mma.cuh's kTileY x kTileX (the kernel writes one row
+    per tile; a shorter buffer is written past on the card)."""
+    if stride == 1:
+        ty = tx = _constexpr("down_conv.cuh", "T")
+    else:
+        ty = _constexpr("conv3x3_mma.cuh", "kTileY")
+        tx = _constexpr("conv3x3_mma.cuh", "kTileX")
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    rows = B * -(-Ho // ty) * -(-Wo // tx)
+    assert TF.pass_3x3_partial_rows(B, H, W, stride) == rows
+    launched, call = _meta_pass(monkeypatch, 8, 16, stride, B, H, W)
+    call()
+    assert len(launched) == 1
+    z_in, gb, w, z, partial, stats = launched[0][:6]
+    assert partial.shape == (rows, 32) and stats.shape == (2, 16)
+    assert z.shape == (B, Ho, Wo, 16) and w.dtype == torch.bfloat16
+    assert launched[0][6:] == (B, H, W, 8, 16)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("ci,co", [(3, 16), (8, 12), (5, 4)])
+def test_pass_3x3_contract_raises_before_launch(monkeypatch, stride, ci, co):
+    """ci % 2 and co % 8 are the kernels' contract: a pass that breaks it
+    raises and launches nothing."""
+    launched, call = _meta_pass(monkeypatch, ci, co, stride)
+    with pytest.raises(ValueError, match="ci % 2 == 0, co % 8 == 0"):
+        call()
+    assert not launched
+
+
+@pytest.mark.parametrize("ci,co,ok", [(8, 16, True), (6, 16, False),
+                                      (8, 12, False)])
+def test_down_train_contract_raises_before_launch(monkeypatch, ci, co, ok):
+    """The downsample forward takes channels % 8 == 0 (its patch is staged
+    16 bytes at a time); anything else raises and launches nothing."""
+    from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+
+    launched = []
+    monkeypatch.setattr(D, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(D, "check_aligned", lambda **k: None)
+    monkeypatch.setattr(D.TRAIN_FWD_KERNEL, "launch",
+                        lambda *a: launched.append(a))
+    x = torch.empty(2, 17, 33, ci, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(9 * ci, co, dtype=torch.bfloat16, device="meta")
+    if ok:
+        z = D.down_train_fwd(x, w)
+        assert z.shape == (2, 9, 17, co) and len(launched) == 1
+    else:
+        with pytest.raises(ValueError, match="channels % 8 == 0"):
+            D.down_train_fwd(x, w)
+        assert not launched

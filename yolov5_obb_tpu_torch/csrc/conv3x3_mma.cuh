@@ -1,0 +1,436 @@
+// A SAME Conv(3x3, pad 1) as a tensor-core implicit GEMM for Hopper, shared
+// by the train-mode downsample forward (down_train.cu: the raw conv) and the
+// stride-2 fused train pass (train_fused_3x3.cu: a BatchNorm + SiLU
+// prologue on the input, per-channel sums of the float32 accumulator).
+//
+// x (B, H, W, ci) bf16; taps w (9*ci, co) bf16, row (3*dy + dx)*ci + c.
+// z (B, (H-1)/S + 1, (W-1)/S + 1, co) bf16: the float32 sums rounded once.
+// The prologue maps an in-image input value to bf16(silu(x*g + b)) (float32
+// arithmetic); positions outside the image, and channels past ci, are zero
+// AFTER it (the conv pads its activated input).
+//
+// What bounds it on the H100 at yolov5m b16 1024²: layer 1 (512² x 48 → 256²
+// x 96) moves 604 MB for 87 GFLOP and layer 3 (256² x 96 → 128² x 192) 302
+// MB for 87 GFLOP: 0.18 and 0.09 ms of bytes against 0.088 ms of bf16
+// products each, so bytes bound both.  The design reads each input byte
+// about once from device memory and keeps the products on the tensor cores.
+//
+// Design.  GEMM view: M = the output pixels of a kTileY x kTileX tile of one
+// image (128), N = a chunk of kChunkN output channels (a grid axis, fastest,
+// so a tile's chunks run together and its input is read from L2 the second
+// time), K = 9 taps x ci.  ci is padded to a multiple of 16 with zeros in
+// both operands and walked in chunks of at most kMaxChunkK channels: the
+// input patch of a chunk (17 x 33 pixels at stride 2, bf16, pixel-major) is
+// staged once per CTA, once the previous chunk is read.  (Double-buffering
+// the chunks, to load the next while the current computes, measured slower
+// on the H100: a smaller chunk per barrier and fewer CTAs per SM.)
+// At stride 2 the patch's even and odd columns are stored apart, so the 8
+// pixels one ldmatrix phase gathers (every other input column) sit in
+// consecutive slots; a slot is ck + 8 channels, an odd number of 16-byte
+// units, so both the gather and the tap walk are free of bank conflicts.
+// The taps stream through a ring of three (ck, kChunkN) shared tiles by
+// cp.async, two taps ahead of the products, one barrier per tap: each
+// weight byte is read from global memory once per CTA, never per pixel.
+// Products: mma.sync m16n8k16 (bf16 in, float32 accumulation), A by
+// ldmatrix.x4 from the patch (one row address per lane: the stride-2 gather
+// costs nothing), B by ldmatrix.x4.trans from the tap tile.  4 warps, 2
+// along M x 2 along N, each 64 pixels (4 output rows) x 48 channels: 96
+// float32 accumulators per thread, 7 ldmatrix per 24 mma.  Staging:
+// cp.async with zero fill; the prologue then activates each landed value in
+// place, each thread its own copies (no extra barrier) with its channel
+// group's g and b in registers (the zeros of the padding stay zeros).
+// Epilogue: the bf16 outputs go through shared memory to 16-byte coalesced
+// stores.  Statistics: each warp sums its columns over its valid rows
+// (shuffles over lane bits 2-4), the M warps add in a fixed order through
+// shared memory, and the CTA writes its tile's partial row of 2*co floats;
+// a second pass (wgrad.cuh's sum_rows) adds the rows in order.  No float
+// atomics: repeated runs agree bit for bit.  One tile per CTA (a persistent
+// loop slowed an earlier shared conv body).  `mma.sync` rather than
+// `wgmma`: its fragments map directly onto the stride-2 gather.  In
+// practice neither bound holds: on the H100 the products run at about a
+// fifth of the bf16 tensor-core peak, and the prologue's two
+// special-function operations per staged value (exp, reciprocal) add about
+// as much again (PERF.md: the times and the variants measured).
+#pragma once
+
+#include "common.cuh"
+
+namespace conv3x3_mma {
+
+constexpr int kTileY = 8;    // output rows per CTA tile
+constexpr int kTileX = 16;   // output columns per CTA tile
+constexpr int kChunkN = 96;  // output channels per CTA
+constexpr int kWarpsM = 2, kWarpsN = 2;  // warps along M and N
+constexpr int kMTiles = kTileY / kWarpsM;  // m16 tiles (output rows) per warp
+constexpr int kNTiles = kChunkN / kWarpsN / 8;  // n8 tiles per warp
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kStages = 3;           // tap tiles in flight
+// input channels staged at once: 16 or 32, so a chunk is 2 or 4 groups of 8
+// channels and a thread copies one group throughout (kThreads is a multiple)
+constexpr int kMaxChunkK = 32;
+static_assert(kMaxChunkK % 16 == 0 && kThreads % (kMaxChunkK / 8) == 0,
+              "chunks are k16 steps; a thread copies one channel group");
+constexpr int kWs = kChunkN + 8;  // bf16 per tap-tile row (13 16-byte units)
+constexpr int kOs = kChunkN + 8;  // bf16 per output pixel staged for the stores
+
+static_assert(kTileX == 16, "an m16 tile is one output row");
+static_assert(kNTiles % 2 == 0, "B fragments load two n8 tiles at once");
+
+// the patch: rows, columns, and pixel slots per row (even columns, then odd
+// columns, at stride 2)
+template <int S> struct Patch {
+  static constexpr int rows = S * (kTileY - 1) + 3;
+  static constexpr int cols = S * (kTileX - 1) + 3;
+  static constexpr int half = (cols + 1) / 2;
+  static constexpr int row_slots = S == 2 ? 2 * half : cols;
+  __host__ __device__ static constexpr int slot(int q) {
+    return S == 2 ? (q & 1) * half + (q >> 1) : q;
+  }
+};
+
+// ci padded to 16, split into equal chunks of at most kMaxChunkK channels
+__host__ __device__ inline int chunk_k(int ci) {
+  const int cp = (ci + 15) / 16 * 16;
+  const int n = (cp + kMaxChunkK - 1) / kMaxChunkK;
+  return ((cp + n - 1) / n + 15) / 16 * 16;
+}
+
+// bf16 of the patch's room (which the epilogue reuses for the outputs)
+template <int S>
+__host__ __device__ inline int patch_elems(int ck) {
+  const int patch = Patch<S>::rows * Patch<S>::row_slots * (ck + 8);
+  return patch > kTileY * kTileX * kOs ? patch : kTileY * kTileX * kOs;
+}
+
+template <int S, bool kStats>
+__host__ __device__ inline size_t smem_bytes(int ck) {
+  size_t b = (size_t)patch_elems<S>(ck) * 2;
+  b += (size_t)kStages * ck * kWs * 2;
+  if (kStats) b += kWarpsM * 2 * kChunkN * sizeof(float);
+  return b;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global → shared; zeros (and no read) when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulation
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// silu in float32 with the fast exponential and division (a few float32
+// ulps from expf and IEEE division; the result is rounded to bf16)
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.f + __expf(-v));
+}
+
+// One CTA: output tile (ty, tx) of image b, output channels n0 .. n0+95.
+// gb: (2, ci) float32 [g; b] of the prologue (kAct); partial: one row of
+// 2*co floats per tile (kStats).
+template <int S, bool kAct, bool kStats>
+__global__ void __launch_bounds__(kThreads)
+conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
+            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ z,
+            float* __restrict__ partial, int H, int W, int ci, int co, int Ho,
+            int Wo, int tiles_x, int n_chunks, int ck_max) {
+  using P = Patch<S>;
+  extern __shared__ float4 smem4[];
+  const int ps = ck_max + 8;                      // bf16 per patch slot
+  auto* patch = reinterpret_cast<__nv_bfloat16*>(smem4);
+  auto* wbuf = patch + patch_elems<S>(ck_max);
+  float* red = reinterpret_cast<float*>(wbuf + (size_t)kStages * ck_max * kWs);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int tile = blockIdx.x / n_chunks;
+  const int n0 = (blockIdx.x - tile * n_chunks) * kChunkN;
+  const int b = blockIdx.y;
+  const int oy0 = (tile / tiles_x) * kTileY, ox0 = (tile % tiles_x) * kTileX;
+  const int iy0 = S * oy0 - 1, ix0 = S * ox0 - 1;
+  const __nv_bfloat16* xb = x + (size_t)b * H * W * ci;
+  const int cp = (ci + 15) / 16 * 16;
+  const int kchunks = (cp + ck_max - 1) / ck_max;
+  const int steps = 9 * kchunks;
+  // 16-byte copies of the input (else, for the prologue, 4-byte loads)
+  const bool vec = ci % 8 == 0;
+
+  // the tap tile of step s (chunk s / 9, tap s % 9) into ring slot `buf`
+  auto load_taps = [&](int s, int buf) {
+    const int c0 = (s / 9) * ck_max, tap = s % 9;
+    const int ck = min(ck_max, cp - c0);
+    __nv_bfloat16* dst = wbuf + (size_t)buf * ck_max * kWs;
+    for (int i = tid; i < ck * (kChunkN / 8); i += kThreads) {
+      const int k = i / (kChunkN / 8), g = i - k * (kChunkN / 8);
+      const int c = c0 + k, n = n0 + 8 * g;
+      const bool full = c < ci && n < co;
+      cp_async16(dst + k * kWs + 8 * g,
+                 full ? w + ((size_t)tap * ci + c) * co + n : w, full);
+    }
+  };
+
+  // the patch of chunk k (channels k*ck_max ..), raw: zero outside the
+  // image and past ci.  16-byte rows by cp.async with zero fill; other rows
+  // (the prologue's ci % 8 != 0) through registers.  Thread tid takes items
+  // tid, tid + kThreads, ... (all of one channel group).
+  auto load_patch = [&](int k) {
+    const int c0 = k * ck_max, groups = min(ck_max, cp - c0) / 8;
+    for (int i = tid; i < P::rows * P::cols * groups; i += kThreads) {
+      const int p = i / groups, g = i - p * groups;
+      const int r = p / P::cols, q = p - r * P::cols;
+      const int gy = iy0 + r, gx = ix0 + q, c = c0 + 8 * g;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      __nv_bfloat16* dst =
+          patch + (r * P::row_slots + P::slot(q)) * ps + 8 * g;
+      const __nv_bfloat16* src =
+          in ? xb + ((size_t)gy * W + gx) * ci + c : x;
+      if (!kAct || vec) {
+        cp_async16(dst, src, in && c < ci);
+        continue;
+      }
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      if (in) {
+#pragma unroll
+        for (int e = 0; e < 8; e += 2)
+          if (c + e < ci) {
+            const float2 f = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(src + e));
+            v[e] = f.x;
+            v[e + 1] = f.y;
+          }
+      }
+      store8_bf16(dst, v);
+    }
+  };
+
+  // the prologue on this thread's own copies of chunk k's patch: each
+  // in-image value becomes bf16(silu(v*g + b)) in place (the zeros stay
+  // zeros).  A copy is complete for its issuer after the cp.async wait, so
+  // no barrier comes between; the next one publishes the values.  The
+  // thread's one channel group keeps its g and b in registers.
+  auto activate_own = [&](int k) {
+    const int c0 = k * ck_max, groups = min(ck_max, cp - c0) / 8;
+    const int g = tid % groups, c = c0 + 8 * g;
+    if (c >= ci) return;
+    float gg[8], bb[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gg[e] = c + e < ci ? gb[c + e] : 0.f;
+      bb[e] = c + e < ci ? gb[ci + c + e] : 0.f;
+    }
+    __nv_bfloat16* buf = patch + 8 * g;
+    for (int p = tid / groups; p < P::rows * P::cols;
+         p += kThreads / groups) {
+      const int r = p / P::cols, q = p - r * P::cols;
+      const int gy = iy0 + r, gx = ix0 + q;
+      if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
+      __nv_bfloat16* d = buf + (r * P::row_slots + P::slot(q)) * ps;
+      float v[8];
+      load8_bf16(d, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = c + e < ci ? silu_fast(v[e] * gg[e] + bb[e]) : 0.f;
+      store8_bf16(d, v);
+    }
+  };
+
+  float acc[kMTiles][kNTiles][4];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // per lane: its A row (output pixel px = lane % 16 of output row
+  // kMTiles*wm + i) at tap (0, 0), and its k half; its B row and column
+  int abase[kMTiles];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+    abase[i] = S * (kMTiles * wm + i) * P::row_slots + P::slot(S * (lane & 15));
+  const int akoff = (lane >> 4) * 8;
+  const int brow = lane & 15, bcol = wn * (8 * kNTiles) + (lane >> 4) * 8;
+
+  // the pipeline: step s computes chunk s / 9's tap s % 9 while the taps of
+  // step s + 2 load; a chunk's patch loads (and is activated) once the
+  // previous chunk is read
+  load_patch(0);
+  load_taps(0, 0);
+  cp_async_commit();
+  if (steps > 1) load_taps(1, 1);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    const int tap = s % 9, k = s / 9;
+    const int ck = min(ck_max, cp - k * ck_max);
+    if (tap == 0 && k > 0) {
+      __syncthreads();  // the previous chunk's patch is read
+      load_patch(k);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();  // this step's taps (and chunk 0's patch) landed
+    }
+    if (kAct && tap == 0) activate_own(k);
+    __syncthreads();  // ... for all; step s - 1's tap slot is free
+    if (s + 2 < steps) load_taps(s + 2, (s + 2) % kStages);
+    cp_async_commit();
+
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const int toff = dy * P::row_slots + P::slot(dx);
+    const __nv_bfloat16* wt = wbuf + (size_t)(s % kStages) * ck_max * kWs;
+#pragma unroll
+    for (int kk = 0; kk < kMaxChunkK; kk += 16) {
+      if (kk >= ck) break;
+      uint32_t a[kMTiles][4];
+#pragma unroll
+      for (int i = 0; i < kMTiles; ++i)
+        ldsm_x4(a[i], patch + (abase[i] + toff) * ps + kk + akoff);
+#pragma unroll
+      for (int p = 0; p < kNTiles / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, wt + (kk + brow) * kWs + bcol + 16 * p);
+#pragma unroll
+        for (int i = 0; i < kMTiles; ++i) {
+          mma16816(acc[i][2 * p], a[i], bf[0], bf[1]);
+          mma16816(acc[i][2 * p + 1], a[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: the bf16 outputs through shared memory (the patch's room),
+  // then 16-byte stores; with kStats the per-channel sums
+  __syncthreads();
+  __nv_bfloat16* ot = patch;
+  const int nw = n0 + wn * (8 * kNTiles) + (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < kNTiles; ++j) {
+    const int n = nw + 8 * j;
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int oy = oy0 + kMTiles * wm + i, ox = ox0 + (lane >> 2) + 8 * h;
+        if (oy < Ho && ox < Wo && n < co) {
+          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+          const int p = (kMTiles * wm + i) * kTileX + (lane >> 2) + 8 * h;
+          *reinterpret_cast<__nv_bfloat162*>(ot + p * kOs + n - n0) =
+              __floats2bfloat162_rn(v0, v1);
+          if (kStats) {
+            s0 += v0;
+            s1 += v1;
+            q0 += v0 * v0;
+            q1 += v1 * v1;
+          }
+        }
+      }
+    if (kStats) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        q0 += __shfl_xor_sync(0xffffffffu, q0, o);
+        q1 += __shfl_xor_sync(0xffffffffu, q1, o);
+      }
+      if (lane < 4) {
+        const int c = wn * (8 * kNTiles) + 8 * j + 2 * lane;
+        float* rw = red + wm * 2 * kChunkN;
+        rw[c] = s0;
+        rw[c + 1] = s1;
+        rw[kChunkN + c] = q0;
+        rw[kChunkN + c + 1] = q1;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kTileY * kTileX * (kChunkN / 8); i += kThreads) {
+    const int p = i / (kChunkN / 8), g = i - p * (kChunkN / 8);
+    const int oy = oy0 + p / kTileX, ox = ox0 + p % kTileX, n = n0 + 8 * g;
+    if (oy < Ho && ox < Wo && n < co)
+      *reinterpret_cast<uint4*>(z + (((size_t)b * Ho + oy) * Wo + ox) * co +
+                                n) =
+          *reinterpret_cast<const uint4*>(ot + p * kOs + 8 * g);
+  }
+  if (kStats) {
+    const int per_image = gridDim.x / n_chunks;
+    float* row = partial + ((size_t)b * per_image + tile) * 2 * co;
+    for (int i = tid; i < 2 * kChunkN; i += kThreads) {
+      const int which = i / kChunkN, c = i - which * kChunkN;
+      if (n0 + c >= co) continue;
+      float v = 0.f;
+#pragma unroll
+      for (int m = 0; m < kWarpsM; ++m) v += red[m * 2 * kChunkN + i];
+      row[which * co + n0 + c] = v;
+    }
+  }
+}
+
+// Output tiles (rows of a statistics partial) of an (H, W) input.
+template <int S>
+inline int tiles(int B, int H, int W) {
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  return B * ((Ho + kTileY - 1) / kTileY) * ((Wo + kTileX - 1) / kTileX);
+}
+
+// kAct: gb (2, ci) float32; kStats: partial, tiles<S>(B, H, W) rows of 2*co
+// floats, each tile's sums.  Requires co % 8 == 0, ci % 2 == 0 (ci % 8 == 0
+// without kAct) and 16-byte aligned tensors.
+template <int S, bool kAct, bool kStats>
+cudaError_t launch(const void* x, const float* gb, const void* w, void* z,
+                   float* partial, int B, int H, int W, int ci, int co,
+                   cudaStream_t stream) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  const int tiles_x = (Wo + kTileX - 1) / kTileX;
+  const int tiles_y = (Ho + kTileY - 1) / kTileY;
+  const int n_chunks = (co + kChunkN - 1) / kChunkN;
+  const int ck = chunk_k(ci);
+  const size_t smem = smem_bytes<S, kStats>(ck);
+  auto kern = conv_kernel<S, kAct, kStats>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(tiles_x * tiles_y * n_chunks, B);
+  kern<<<grid, kThreads, smem, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), gb,
+      reinterpret_cast<const __nv_bfloat16*>(w),
+      reinterpret_cast<__nv_bfloat16*>(z), partial, H, W, ci, co, Ho, Wo,
+      tiles_x, n_chunks, ck);
+  return cudaGetLastError();
+}
+
+}  // namespace conv3x3_mma

@@ -1,7 +1,9 @@
-// The Conv(3x3, pad 1) body shared by the inference downsample (down.cu:
-// BatchNorm scale/shift + SiLU epilogue), the train-mode downsample forward
-// (down_train.cu: raw) and the fused train passes (train_fused_3x3.cu: a
-// BatchNorm + SiLU prologue on the input, raw output, per-channel sums).
+// The scalar float32 Conv(3x3, pad 1) body of the inference downsample
+// (down.cu: BatchNorm scale/shift + SiLU epilogue) and the stride-1 fused
+// train pass (train_fused_3x3.cu: a BatchNorm + SiLU prologue on the input,
+// raw output, per-channel sums).  The train-mode downsample forward and the
+// stride-2 pass run on the tensor-core body of conv3x3_mma.cuh; these two
+// move onto it next, and this body goes when it has no user.
 //
 // x (B, H, W, ci) bf16; taps w (9*ci, co) bf16, row (3*dy + dx)*ci + c.
 // Output (B, (H-1)/S + 1, (W-1)/S + 1, co) bf16, float32 accumulation.

@@ -14,10 +14,12 @@
 // Bounds on this card at yolov5m b16 1024²: layer 1 (512² x 48 → 256² x 96)
 // and layer 3 (256² x 96 → 128² x 192) are 87 GFLOP of bf16 products each
 // (0.088 ms at the tensor-core peak) against 604 MB and 302 MB moved (0.18
-// and 0.09 ms): bytes bound both, forward and weight gradient alike.  This
-// first version uses scalar float32 FMAs, so in practice operations limit it.
+// and 0.09 ms): bytes bound both, forward and weight gradient alike.  The
+// weight gradient uses scalar float32 FMAs, so in practice operations limit
+// it.
 //
-// Design.  Forward: the tiled conv of down_conv.cuh with a raw epilogue.
+// Design.  Forward: the tensor-core implicit GEMM of conv3x3_mma.cuh,
+// without prologue or statistics (the patch staged by cp.async).
 // Weight gradient, two stages and no atomics.  dW is a product of the
 // im2col matrix (pixels x 9*ci) transposed with dz (pixels x co) over the
 // 1 M / 262 k output pixels.  Stage 1: grid (channel chunks, parts); a CTA
@@ -29,7 +31,7 @@
 // every pixel, so each pixel costs it three 16-byte shared loads for 32
 // FMAs.  The CTA then writes its partial dW; stage 2 (wgrad.cuh) sums the
 // partials in order.
-#include "down_conv.cuh"
+#include "conv3x3_mma.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -142,9 +144,8 @@ down_wgrad_kernel(const __nv_bfloat16* __restrict__ x,
 extern "C" int down_train_fwd_launch(const void* x, const void* w, void* z,
                                      int B, int H, int W, int ci, int co,
                                      void* stream) {
-  return (int)down_conv::launch<2>(x, w, down_conv::Identity{},
-                                   down_conv::Raw{}, z, nullptr, B, H, W,
-                                   ci, co, (cudaStream_t)stream);
+  return (int)conv3x3_mma::launch<2, false, false>(
+      x, nullptr, w, z, nullptr, B, H, W, ci, co, (cudaStream_t)stream);
 }
 
 // partial: parts * 9*ci*co floats of scratch; dw: 9*ci*co floats.

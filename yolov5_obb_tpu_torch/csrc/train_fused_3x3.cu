@@ -18,14 +18,17 @@
 // moves 604 MB (0.18 ms at 3.35 TB/s) for 87 GFLOP of bf16 products (0.088
 // ms at the tensor-core peak); down2 (256² x 96 → 128² x 192) 302 MB (0.090
 // ms) for 87 GFLOP; a bottleneck 3x3 s1 (256² x 48 → 48) 201 MB (0.060 ms)
-// for 43.5 GFLOP: bytes bound all three.  This first version multiplies
-// with scalar float32 FMAs, so in practice operations limit it.
+// for 43.5 GFLOP: bytes bound all three.
 //
-// Design: the tiled conv of down_conv.cuh (8x8 output tiles, the patch
-// staged in shared memory) with an activating prologue and its statistics
-// epilogue.  The sums are two-stage and use no float atomics: each block
-// writes its 8x8 tile's partial (2, co), and wgrad.cuh's sum_rows adds the
-// partials in a fixed order, so repeated runs agree bit for bit.
+// Design.  Stride 2: the tensor-core implicit GEMM of conv3x3_mma.cuh with
+// its activating prologue (register staging) and statistics (one partial
+// row of 2*co floats per 8x16 output tile).  Stride 1: the scalar float32
+// tiled conv of down_conv.cuh (8x8 output tiles, the patch staged in shared
+// memory) with the same prologue and a statistics epilogue (one partial row
+// per 8x8 tile), so in practice operations limit it.  Neither uses float
+// atomics: wgrad.cuh's sum_rows adds the partials in a fixed order, so
+// repeated runs agree bit for bit.
+#include "conv3x3_mma.cuh"
 #include "down_conv.cuh"
 #include "wgrad.cuh"
 
@@ -71,10 +74,16 @@ extern "C" int pass3x3s1_launch(const void* z_in, const float* gb,
                         (cudaStream_t)stream);
 }
 
+// partial: conv3x3_mma::tiles<2>(B, H, W) rows of 2*co floats (one per 8x16
+// output tile) of scratch; stats: 2*co floats.
 extern "C" int pass3x3s2_launch(const void* z_in, const float* gb,
                                 const void* w, void* z, float* partial,
                                 float* stats, int B, int H, int W, int ci,
                                 int co, void* stream) {
-  return pass_launch<2>(z_in, gb, w, z, partial, stats, B, H, W, ci, co,
-                        (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = conv3x3_mma::launch<2, true, true>(
+      z_in, gb, w, z, partial, B, H, W, ci, co, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sum_rows(partial, stats, 2 * co,
+                              conv3x3_mma::tiles<2>(B, H, W), st);
 }

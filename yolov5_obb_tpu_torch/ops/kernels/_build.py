@@ -154,6 +154,14 @@ def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_aligned(**tensors) -> None:
+    """Validate that each operand starts on a 16-byte boundary (the
+    tensor-core kernels copy 16 bytes at a time)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
 def partial_count(device, tiles: int, chunks: int = 1, per_sm: int = 3) -> int:
     """CTAs along the pixel axis of a two-stage reduction (each writes one
     partial sum: a weight gradient, per-channel statistics): with the

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_cuda, partial_count
+from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
 
 KERNEL = Kernel(
     "down", "down_launch", [P, P, P, P, I, I, I, I, I],
@@ -109,6 +109,7 @@ def down_train_fwd(x, w_taps):
     if w_taps.shape[0] != 9 * ci:
         raise ValueError(f"down train kernel: w_taps {tuple(w_taps.shape)} "
                          f"for {ci} input channels")
+    check_aligned(x=x, w_taps=w_taps)
     z = torch.empty(B, (H + 1) // 2, (W + 1) // 2, co, dtype=torch.bfloat16,
                     device=x.device)
     TRAIN_FWD_KERNEL.launch(x, w_taps, z, B, H, W, ci, co)

@@ -35,12 +35,15 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_cuda, partial_count
+from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
 
 _BF = torch.bfloat16
 MAX_IN, MAX_W, MAX_OUT, MAX_PAIRS = 8, 4, 2, 2
 _TILE_1X1 = 64  # pixels per tile of the 1x1 kernels
-_TILE_3X3 = 8  # output pixels per side of a 3x3 tile (csrc/down_conv.cuh)
+# output (rows, columns) per tile of a 3x3 pass, one statistics partial row
+# per tile: stride 1 on csrc/down_conv.cuh's scalar body (T), stride 2 on
+# csrc/conv3x3_mma.cuh's tensor-core body (kTileY, kTileX)
+_TILE_3X3 = {1: (8, 8), 2: (8, 16)}
 
 _REPL = "yolov5_obb_tpu/ops/pallas/train_fused.py"
 KERNEL_1X1 = Kernel("train_fused_1x1", "pass1x1_fwd_launch", [P, P, P, I],
@@ -386,6 +389,14 @@ def pass_3x3_fwd_plain(z_in, gb, w_taps, stride: int):
     return acc.to(_BF).contiguous(), _sums(acc)
 
 
+def pass_3x3_partial_rows(B: int, H: int, W: int, stride: int) -> int:
+    """Rows of the statistics partial a 3x3 pass kernel writes: one per
+    output tile."""
+    ty, tx = _TILE_3X3[stride]
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    return B * -(-Ho // ty) * -(-Wo // tx)
+
+
 def pass_3x3_fwd(z_in, gb, w_taps, stride: int):
     """Forward of a 3x3 pass → ``(z_out, stats)`` as in
     :func:`pass_3x3_fwd_plain`.  CPU tensors take the plain version; CUDA
@@ -406,9 +417,10 @@ def pass_3x3_fwd(z_in, gb, w_taps, stride: int):
                          f"{tuple(z_in.shape)}, w_taps {tuple(wq.shape)}, gb "
                          f"{tuple(gb.shape)} (ci % 2 == 0, co % 8 == 0)")
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    tiles = B * -(-Ho // _TILE_3X3) * -(-Wo // _TILE_3X3)
     z = torch.empty(B, Ho, Wo, co, dtype=_BF, device=z_in.device)
-    partial = torch.empty(tiles, 2 * co, device=z_in.device)  # one per tile
+    check_aligned(z_in=z_in, w_taps=wq)
+    partial = torch.empty(pass_3x3_partial_rows(B, H, W, stride), 2 * co,
+                          device=z_in.device)
     stats = torch.empty(2, co, device=z_in.device)
     kern = KERNEL_3X3S1 if stride == 1 else KERNEL_3X3S2
     kern.launch(z_in, gb, wq, z, partial, stats, B, H, W, ci, co)
