@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
-      parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh)
-      their registers and spill bytes from ptxas and their tensor-core and
-      global-load instructions from ``cuobjdump -sass``;
+      parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh,
+      the body of every 3x3 conv kernel) their registers and spill bytes
+      from ptxas, which must be 0, and their tensor-core and global-load
+      instructions from ``cuobjdump -sass``, which must hold HMMA;
   (b) each inference kernel against its plain PyTorch version on the card at
       the main path's shapes (bf16 convs; the stem+L1 kernel and the
       stem-only kernel at yolov5m b16 1024²; neighbour kernel at n =
@@ -97,7 +98,8 @@ FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
 # the libraries holding the tensor-core conv (csrc/conv3x3_mma.cuh), and
 # the substring of its kernels' names
-MMA_SOURCES, MMA_KERNEL = ("down_train", "train_fused_3x3"), "conv3x3_mma"
+MMA_SOURCES = ("down", "down_train", "train_fused_3x3")
+MMA_KERNEL = "conv3x3_mma"
 # float32 operations per activated element: silu(z·g + b) forward; the
 # recomputed activation, silu' and the products of the backward
 ACT_OPS, DACT_OPS = 5, 12
@@ -1223,7 +1225,7 @@ def step_breakdown(model, loss_fn, opt, state, batch):
 # kernel-name substrings → group, first match wins: this port's kernels,
 # cuDNN/CUTLASS convolutions, reductions, elementwise passes
 _GROUPS = (("port kernels", ("stem_fwd_kernel", "stem_wgrad_kernel",
-                             "down_wgrad_kernel", "down_conv", "sum_partials",
+                             "down_wgrad_kernel", "sum_partials",
                              "sum_rows", "conv3x3_mma", "p1x1_fwd_kernel",
                              "p1x1_bwd_kernel")),
            ("convolutions (cuDNN/CUTLASS)", ("conv", "cudnn", "xmma", "cutlass",
@@ -1858,8 +1860,16 @@ def main() -> int:
             l for l in text.splitlines() if "registers" in l or "spill" in l))
     mma = mma_report(_build)
     print("tensor-core kernels: " + json.dumps(mma), flush=True)
-    require(all(isinstance(r, str) or len(r) == 1 for r in mma.values()),
-            f"ptxas reported no tensor-core kernel: {mma}")
+    for src, rep in mma.items():
+        if isinstance(rep, str):  # built before this run: nothing to read
+            continue
+        require(rep, f"ptxas reported no tensor-core kernel in {src}.cu")
+        for k, r in rep.items():
+            require(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                    f"{src}.cu {k} spills: {r}")
+            require(r["sass"] == "not available"
+                    or isinstance(r["sass"], dict) and r["sass"]["HMMA"] > 0,
+                    f"{src}.cu {k} has no HMMA in its SASS: {r}")
 
     # (b) inference kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)

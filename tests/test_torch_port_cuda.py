@@ -267,6 +267,26 @@ def test_down_train_fwd_ragged(dev, H, W, ci, co):
     assert torch.equal(z, down_kernel.down_train_fwd(x, w))
 
 
+@pytest.mark.parametrize("H,W", _RAGGED)
+@pytest.mark.parametrize("ci,co", [(2, 8), (6, 16), (24, 40), (16, 48),
+                                   (96, 192), (40, 200)])
+def test_down_kernel_ragged(dev, H, W, ci, co):
+    """The inference downsample on the tensor-core body at ragged tiles, ci
+    not a multiple of 8 (register staging) or 16, co from one 8-channel
+    group to more than two chunks: within one bf16 ulp of the largest
+    output of the plain version, and bit for bit on repeat."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    conv = types.SimpleNamespace(weight=_w(gen, co, ci, 3, dev))
+    wt, ss = down_kernel.fold_down_params(conv, _bn(gen, co, dev))
+    x = torch.randn(2, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
+    got = _counted(down_kernel.KERNEL,
+                   lambda: down_kernel.fused_down(x, wt, ss))
+    want = down_kernel.fused_down_plain(x, wt, ss)
+    assert got.shape == want.shape == (2, (H + 1) // 2, (W + 1) // 2, co)
+    assert _ulp(got, want)
+    assert torch.equal(got, down_kernel.fused_down(x, wt, ss))
+
+
 def test_slice_kernels_match_plain(dev, monkeypatch):
     from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
     from yolov5_obb_tpu_torch.models.yolo import create_model
@@ -433,31 +453,37 @@ def test_fused_region_kernels_match_plain(dev):
     assert abs(losses[0] - losses[1]) <= 1e-2 * abs(losses[1])
 
 
+@pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("H,W", _RAGGED)
 @pytest.mark.parametrize("ci,co", [(2, 8), (6, 40), (8, 96), (24, 200),
-                                   (40, 320), (48, 96), (80, 200)])
-def test_pass_3x3s2_ragged(dev, H, W, ci, co):
-    """The stride-2 pass on the tensor-core body at ragged tiles, ci not a
+                                   (40, 320), (48, 96), (80, 200), (48, 48),
+                                   (16, 144)])
+def test_pass_3x3_ragged(dev, stride, H, W, ci, co):
+    """A 3x3 pass on the tensor-core body at ragged tiles, ci not a
     multiple of 16 (down to the contract's ci % 2), co not a multiple of
-    its chunk; z and the statistics repeat bit for bit."""
+    its 48- or 96-channel chunk; z and the statistics repeat bit for
+    bit."""
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
     gen = torch.Generator(device=dev).manual_seed(13)
     z = torch.randn(2, H, W, ci, generator=gen, device=dev).to(torch.bfloat16)
     gb = _gbt(gen, ci, dev)
     w = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
-    zk, sk = _counted(TF.KERNEL_3X3S2, lambda: TF.pass_3x3_fwd(z, gb, w, 2))
-    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, 2)
-    assert zk.shape == zp.shape == (2, (H + 1) // 2, (W + 1) // 2, co)
+    kern = TF.KERNEL_3X3S1 if stride == 1 else TF.KERNEL_3X3S2
+    zk, sk = _counted(kern, lambda: TF.pass_3x3_fwd(z, gb, w, stride))
+    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, stride)
+    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
+    assert zk.shape == zp.shape == (2, Ho, Wo, co)
     assert _ulp(zk, zp)
     assert (sk - sp).abs().max() <= 1e-4 * sp.abs().max()
-    zk2, sk2 = TF.pass_3x3_fwd(z, gb, w, 2)
+    zk2, sk2 = TF.pass_3x3_fwd(z, gb, w, stride)
     assert torch.equal(zk, zk2) and torch.equal(sk, sk2)
 
 
+@pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("H,W,ci,co", [(2, 3, 8, 8), (17, 33, 24, 40),
-                                       (33, 18, 48, 96)])
-def test_pass_3x3s2_pads_after_the_activation(dev, H, W, ci, co):
+                                       (33, 18, 48, 96), (19, 21, 6, 48)])
+def test_pass_3x3_pads_after_the_activation(dev, stride, H, W, ci, co):
     """b = +3 on every channel: silu(b) is far from 0, so a kernel that
     padded the raw input (and activated the pad) fails the tolerance; the
     padding is of the activated input, as in the plain version."""
@@ -468,7 +494,7 @@ def test_pass_3x3s2_pads_after_the_activation(dev, H, W, ci, co):
     gb = _gbt(gen, ci, dev)
     gb[1] = 3.0
     w = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
-    zk, sk = TF.pass_3x3_fwd(z, gb, w, 2)
-    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, 2)
+    zk, sk = TF.pass_3x3_fwd(z, gb, w, stride)
+    zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, stride)
     assert _ulp(zk, zp)
     assert (sk - sp).abs().max() <= 1e-4 * sp.abs().max()

@@ -11,6 +11,7 @@ another order).
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -457,12 +458,16 @@ def test_weights_map_identically():
 # ---------------------------------------------------------------------------
 
 
-def _constexpr(header, name):
-    import re
+def _csrc(name):
     from pathlib import Path
 
-    path = Path(TF.__file__).resolve().parents[2] / "csrc" / header
-    m = re.search(rf"constexpr int {name} = (\d+);", path.read_text())
+    return Path(TF.__file__).resolve().parents[2] / "csrc" / name
+
+
+def _constexpr(header, name):
+    import re
+
+    m = re.search(rf"constexpr int {name} = (\d+);", _csrc(header).read_text())
     assert m, f"no constexpr {name} in {header}"
     return int(m.group(1))
 
@@ -486,14 +491,11 @@ def _meta_pass(monkeypatch, ci, co, stride, B=2, H=17, W=33):
                                    (16, 512, 512)])
 def test_pass_3x3_partial_rows_follow_the_tiles(monkeypatch, stride, B, H, W):
     """The statistics partial handed to a 3x3 pass kernel has one row per
-    output tile of the body it runs on: stride 1 down_conv.cuh's T x T,
-    stride 2 conv3x3_mma.cuh's kTileY x kTileX (the kernel writes one row
-    per tile; a shorter buffer is written past on the card)."""
-    if stride == 1:
-        ty = tx = _constexpr("down_conv.cuh", "T")
-    else:
-        ty = _constexpr("conv3x3_mma.cuh", "kTileY")
-        tx = _constexpr("conv3x3_mma.cuh", "kTileX")
+    output tile of the body both strides run on, conv3x3_mma.cuh's kTileY x
+    kTileX (the kernel writes one row per tile; a shorter buffer is written
+    past on the card)."""
+    ty = _constexpr("conv3x3_mma.cuh", "kTileY")
+    tx = _constexpr("conv3x3_mma.cuh", "kTileX")
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     rows = B * -(-Ho // ty) * -(-Wo // tx)
     assert TF.pass_3x3_partial_rows(B, H, W, stride) == rows
@@ -506,6 +508,19 @@ def test_pass_3x3_partial_rows_follow_the_tiles(monkeypatch, stride, B, H, W):
     assert launched[0][6:] == (B, H, W, 8, 16)
 
 
+@pytest.mark.parametrize("source", ["down.cu", "down_train.cu",
+                                    "train_fused_3x3.cu"])
+def test_every_3x3_conv_runs_the_tensor_core_body(source):
+    """Rows 3, 8a, 10 and 11 (the inference downsample, the train
+    downsample forward, both 3x3 passes) include the tensor-core body and
+    no other conv body; the scalar one is gone."""
+    assert not _csrc("down_conv.cuh").exists()
+    includes = re.findall(r'^#include "([^"]+)"', _csrc(source).read_text(),
+                          re.M)
+    assert "conv3x3_mma.cuh" in includes
+    assert "down_conv.cuh" not in includes
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("ci,co", [(3, 16), (8, 12), (5, 4)])
 def test_pass_3x3_contract_raises_before_launch(monkeypatch, stride, ci, co):
@@ -515,6 +530,33 @@ def test_pass_3x3_contract_raises_before_launch(monkeypatch, stride, ci, co):
     with pytest.raises(ValueError, match="ci % 2 == 0, co % 8 == 0"):
         call()
     assert not launched
+
+
+@pytest.mark.parametrize("ci,co,ok", [(2, 8, True), (6, 40, True),
+                                      (96, 192, True), (3, 16, False),
+                                      (8, 12, False)])
+def test_down_contract_raises_before_launch(monkeypatch, ci, co, ok):
+    """The inference downsample takes ci % 2 == 0 and co % 8 == 0 (ci % 8
+    != 0 is staged through registers on the card) and checks alignment;
+    anything else raises and launches nothing."""
+    from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+
+    launched, aligned = [], []
+    monkeypatch.setattr(D, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(D, "check_aligned", lambda **k: aligned.append(k))
+    monkeypatch.setattr(D.KERNEL, "launch", lambda *a: launched.append(a))
+    x = torch.empty(2, 17, 33, ci, dtype=torch.bfloat16, device="meta")
+    w = torch.empty(9 * ci, co, dtype=torch.bfloat16, device="meta")
+    ss = torch.empty(2, co, device="meta")
+    if ok:
+        z = D.fused_down(x, w, ss)
+        assert z.shape == (2, 9, 17, co) and len(launched) == 1
+        assert launched[0][4:] == (2, 17, 33, ci, co)
+        assert list(aligned[0]) == ["x", "w_taps"]
+    else:
+        with pytest.raises(ValueError, match="ci % 2 == 0, co % 8 == 0"):
+            D.fused_down(x, w, ss)
+        assert not launched
 
 
 @pytest.mark.parametrize("ci,co,ok", [(8, 16, True), (6, 16, False),

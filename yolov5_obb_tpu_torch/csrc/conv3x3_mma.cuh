@@ -1,56 +1,70 @@
-// A SAME Conv(3x3, pad 1) as a tensor-core implicit GEMM for Hopper, shared
-// by the train-mode downsample forward (down_train.cu: the raw conv) and the
-// stride-2 fused train pass (train_fused_3x3.cu: a BatchNorm + SiLU
-// prologue on the input, per-channel sums of the float32 accumulator).
+// A SAME Conv(3x3, pad 1) as a tensor-core implicit GEMM for Hopper, the
+// body of every 3x3 conv kernel of the port: the inference downsample
+// (down.cu: a BatchNorm scale/shift + SiLU epilogue), the train-mode
+// downsample forward (down_train.cu: the raw conv) and the fused train
+// passes at stride 1 and 2 (train_fused_3x3.cu: a BatchNorm + SiLU prologue
+// on the input, per-channel sums of the float32 accumulator).
 //
 // x (B, H, W, ci) bf16; taps w (9*ci, co) bf16, row (3*dy + dx)*ci + c.
-// z (B, (H-1)/S + 1, (W-1)/S + 1, co) bf16: the float32 sums rounded once.
-// The prologue maps an in-image input value to bf16(silu(x*g + b)) (float32
-// arithmetic); positions outside the image, and channels past ci, are zero
-// AFTER it (the conv pads its activated input).
+// z (B, (H-1)/S + 1, (W-1)/S + 1, co) bf16: the float32 sums, through the
+// epilogue, rounded once.  The prologue maps an in-image input value to
+// bf16(silu(x*g + b)) (float32 arithmetic); positions outside the image,
+// and channels past ci, are zero AFTER it (the conv pads its activated
+// input).
 //
 // What bounds it on the H100 at yolov5m b16 1024²: layer 1 (512² x 48 → 256²
-// x 96) moves 604 MB for 87 GFLOP and layer 3 (256² x 96 → 128² x 192) 302
-// MB for 87 GFLOP: 0.18 and 0.09 ms of bytes against 0.088 ms of bf16
-// products each, so bytes bound both.  The design reads each input byte
-// about once from device memory and keeps the products on the tensor cores.
+// x 96) moves 604 MB for 87 GFLOP, layer 3 (256² x 96 → 128² x 192) 302 MB
+// for 87 GFLOP and a C3 bottleneck 3x3 (256² x 48 → 48, stride 1) 201 MB
+// for 43.5 GFLOP: 0.18, 0.09 and 0.06 ms of bytes against 0.088, 0.088 and
+// 0.044 ms of bf16 products, so bytes bound all three.  The design reads
+// each input byte about once from device memory and keeps the products on
+// the tensor cores.
 //
 // Design.  GEMM view: M = the output pixels of a kTileY x kTileX tile of one
-// image (128), N = a chunk of kChunkN output channels (a grid axis, fastest,
-// so a tile's chunks run together and its input is read from L2 the second
-// time), K = 9 taps x ci.  ci is padded to a multiple of 16 with zeros in
-// both operands and walked in chunks of at most kMaxChunkK channels: the
-// input patch of a chunk (17 x 33 pixels at stride 2, bf16, pixel-major) is
-// staged once per CTA, once the previous chunk is read.  (Double-buffering
-// the chunks, to load the next while the current computes, measured slower
-// on the H100: a smaller chunk per barrier and fewer CTAs per SM.)
+// image (128), N = a chunk of N output channels (a grid axis, fastest, so a
+// tile's chunks run together and its input is read from L2 the second
+// time), K = 9 taps x ci.  N is 96 or 48, whichever pads co less (96 on a
+// tie): 96 for co = 96, 192; 48 for the bottleneck's co = 48, which a
+// 96-wide chunk would half fill with zero columns.  ci is padded to a
+// multiple of 16 with zeros in both operands and walked in chunks of at
+// most kMaxChunkK channels: the input patch of a chunk (17 x 33 pixels at
+// stride 2, 10 x 18 at stride 1, bf16, pixel-major) is staged once per CTA,
+// once the previous chunk is read.  (Double-buffering the chunks, to load
+// the next while the current computes, measured slower on the H100: a
+// smaller chunk per barrier and fewer CTAs per SM.)
 // At stride 2 the patch's even and odd columns are stored apart, so the 8
 // pixels one ldmatrix phase gathers (every other input column) sit in
-// consecutive slots; a slot is ck + 8 channels, an odd number of 16-byte
-// units, so both the gather and the tap walk are free of bank conflicts.
-// The taps stream through a ring of three (ck, kChunkN) shared tiles by
+// consecutive slots, as they do at stride 1 without the split; a slot is
+// ck + 8 channels, an odd number of 16-byte units, so both the gather and
+// the tap walk are free of bank conflicts.
+// The taps stream through a ring of three (ck, N) shared tiles by
 // cp.async, two taps ahead of the products, one barrier per tap: each
 // weight byte is read from global memory once per CTA, never per pixel.
 // Products: mma.sync m16n8k16 (bf16 in, float32 accumulation), A by
 // ldmatrix.x4 from the patch (one row address per lane: the stride-2 gather
-// costs nothing), B by ldmatrix.x4.trans from the tap tile.  4 warps, 2
-// along M x 2 along N, each 64 pixels (4 output rows) x 48 channels: 96
-// float32 accumulators per thread, 7 ldmatrix per 24 mma.  Staging:
-// cp.async with zero fill; the prologue then activates each landed value in
-// place, each thread its own copies (no extra barrier) with its channel
-// group's g and b in registers (the zeros of the padding stay zeros).
-// Epilogue: the bf16 outputs go through shared memory to 16-byte coalesced
-// stores.  Statistics: each warp sums its columns over its valid rows
-// (shuffles over lane bits 2-4), the M warps add in a fixed order through
-// shared memory, and the CTA writes its tile's partial row of 2*co floats;
-// a second pass (wgrad.cuh's sum_rows) adds the rows in order.  No float
-// atomics: repeated runs agree bit for bit.  One tile per CTA (a persistent
-// loop slowed an earlier shared conv body).  `mma.sync` rather than
-// `wgmma`: its fragments map directly onto the stride-2 gather.  In
-// practice neither bound holds: on the H100 the products run at about a
-// fifth of the bf16 tensor-core peak, and the prologue's two
-// special-function operations per staged value (exp, reciprocal) add about
-// as much again (PERF.md: the times and the variants measured).
+// costs nothing), B by ldmatrix.x4.trans from the tap tile.  4 warps, each
+// 6 n8 tiles (48 channels) wide: at N = 96 2 along M x 2 along N, each 64
+// pixels (4 output rows), 96 float32 accumulators per thread, 7 ldmatrix
+// per 24 mma; at N = 48 4 x 1, each 32 pixels, 48 accumulators, 5 ldmatrix
+// per 12 mma.  Staging: cp.async with zero fill where ci % 8 == 0, else
+// through registers (4-byte loads), a template parameter chosen by ci (as
+// a run-time branch in the staging loop it slowed the raw conv by ~10% on
+// the H100); the prologue then activates each landed value in place, each
+// thread its own copies (no extra barrier) with its channel group's g and
+// b in registers (the zeros of the padding stay zeros).  Epilogue: a functor maps each float32 sum (raw, or the
+// inference BatchNorm + SiLU with IEEE expf and division), then the bf16
+// outputs go through shared memory to 16-byte coalesced stores.
+// Statistics: each warp sums its columns over its valid rows (shuffles over
+// lane bits 2-4), the M warps add in a fixed order through shared memory,
+// and the CTA writes its tile's partial row of 2*co floats; a second pass
+// (wgrad.cuh's sum_rows) adds the rows in order.  No float atomics:
+// repeated runs agree bit for bit.  One tile per CTA (a persistent loop
+// slowed an earlier shared conv body).  `mma.sync` rather than `wgmma`:
+// its fragments map directly onto the stride-2 gather.  In practice neither
+// bound holds: on the H100 the products run at about a fifth of the bf16
+// tensor-core peak, and the prologue's two special-function operations per
+// staged value (exp, reciprocal) add about as much again (PERF.md: the
+// times and the variants measured).
 #pragma once
 
 #include "common.cuh"
@@ -59,22 +73,35 @@ namespace conv3x3_mma {
 
 constexpr int kTileY = 8;    // output rows per CTA tile
 constexpr int kTileX = 16;   // output columns per CTA tile
-constexpr int kChunkN = 96;  // output channels per CTA
-constexpr int kWarpsM = 2, kWarpsN = 2;  // warps along M and N
-constexpr int kMTiles = kTileY / kWarpsM;  // m16 tiles (output rows) per warp
-constexpr int kNTiles = kChunkN / kWarpsN / 8;  // n8 tiles per warp
-constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 3;           // tap tiles in flight
 // input channels staged at once: 16 or 32, so a chunk is 2 or 4 groups of 8
 // channels and a thread copies one group throughout (kThreads is a multiple)
 constexpr int kMaxChunkK = 32;
 static_assert(kMaxChunkK % 16 == 0 && kThreads % (kMaxChunkK / 8) == 0,
               "chunks are k16 steps; a thread copies one channel group");
-constexpr int kWs = kChunkN + 8;  // bf16 per tap-tile row (13 16-byte units)
-constexpr int kOs = kChunkN + 8;  // bf16 per output pixel staged for the stores
-
 static_assert(kTileX == 16, "an m16 tile is one output row");
-static_assert(kNTiles % 2 == 0, "B fragments load two n8 tiles at once");
+
+// A chunk of N output channels and its warp split: every warp holds 6 n8
+// tiles (48 channels) and kMTiles output rows.
+template <int N> struct Split {
+  static_assert(N == 48 || N == 96, "chunks of 48 or 96 channels");
+  static constexpr int kWarpsN = N / 48;
+  static constexpr int kWarpsM = kWarps / kWarpsN;
+  static constexpr int kMTiles = kTileY / kWarpsM;  // m16 tiles per warp
+  static constexpr int kNTiles = N / kWarpsN / 8;   // n8 tiles per warp
+  // bf16 per tap-tile row and per output pixel staged for the stores: an
+  // odd number of 16-byte units (13, 7)
+  static constexpr int kWs = N + 8;
+  static constexpr int kOs = N + 8;
+  static_assert(kNTiles % 2 == 0, "B fragments load two n8 tiles at once");
+};
+
+// The chunk for co output channels: the one that pads co less, 96 on a tie.
+inline int chunk_n(int co) {
+  return (co + 47) / 48 * 48 < (co + 95) / 96 * 96 ? 48 : 96;
+}
 
 // the patch: rows, columns, and pixel slots per row (even columns, then odd
 // columns, at stride 2)
@@ -96,17 +123,18 @@ __host__ __device__ inline int chunk_k(int ci) {
 }
 
 // bf16 of the patch's room (which the epilogue reuses for the outputs)
-template <int S>
+template <int S, int N>
 __host__ __device__ inline int patch_elems(int ck) {
   const int patch = Patch<S>::rows * Patch<S>::row_slots * (ck + 8);
-  return patch > kTileY * kTileX * kOs ? patch : kTileY * kTileX * kOs;
+  const int out = kTileY * kTileX * Split<N>::kOs;
+  return patch > out ? patch : out;
 }
 
-template <int S, bool kStats>
+template <int S, int N, bool kStats>
 __host__ __device__ inline size_t smem_bytes(int ck) {
-  size_t b = (size_t)patch_elems<S>(ck) * 2;
-  b += (size_t)kStages * ck * kWs * 2;
-  if (kStats) b += kWarpsM * 2 * kChunkN * sizeof(float);
+  size_t b = (size_t)patch_elems<S, N>(ck) * 2;
+  b += (size_t)kStages * ck * Split<N>::kWs * 2;
+  if (kStats) b += Split<N>::kWarpsM * 2 * N * sizeof(float);
   return b;
 }
 
@@ -157,20 +185,51 @@ __device__ __forceinline__ float silu_fast(float v) {
   return __fdividef(v, 1.f + __expf(-v));
 }
 
-// One CTA: output tile (ty, tx) of image b, output channels n0 .. n0+95.
+// Epilogues: map the float32 sums (v.x, v.y) of output channels n, n + 1
+// of one pixel before the one bf16 rounding.  `at(n)` fetches what a
+// channel pair needs, once for all of a thread's pixels (n < co).
+struct Raw {
+  struct Pair {};
+  __device__ __forceinline__ Pair at(int) const { return {}; }
+  __device__ __forceinline__ float2 operator()(const Pair&, float2 v) const {
+    return v;
+  }
+};
+
+// BatchNorm as a scale/shift after the conv, then SiLU (common.cuh's: IEEE
+// expf and division, as the plain version's float32 sigmoid)
+struct BnSilu {
+  const float* ss;  // (2, co): scale row, then shift row
+  int co;
+  struct Pair {
+    float s0, s1, t0, t1;
+  };
+  __device__ __forceinline__ Pair at(int n) const {
+    return {ss[n], ss[n + 1], ss[co + n], ss[co + n + 1]};
+  }
+  __device__ __forceinline__ float2 operator()(const Pair& p, float2 v) const {
+    return make_float2(silu(v.x * p.s0 + p.t0), silu(v.y * p.s1 + p.t1));
+  }
+};
+
+// One CTA: output tile (ty, tx) of image b, output channels n0 .. n0+N-1.
 // gb: (2, ci) float32 [g; b] of the prologue (kAct); partial: one row of
-// 2*co floats per tile (kStats).
-template <int S, bool kAct, bool kStats>
+// 2*co floats per tile (kStats), sums of the raw accumulators.
+template <int S, int N, bool kAct, bool kStats, bool kVec, typename Epi>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
             const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ z,
-            float* __restrict__ partial, int H, int W, int ci, int co, int Ho,
-            int Wo, int tiles_x, int n_chunks, int ck_max) {
+            float* __restrict__ partial, Epi epi, int H, int W, int ci, int co,
+            int Ho, int Wo, int tiles_x, int n_chunks, int ck_max) {
   using P = Patch<S>;
+  using Sp = Split<N>;
+  constexpr int kChunkN = N, kWs = Sp::kWs, kOs = Sp::kOs;
+  constexpr int kWarpsM = Sp::kWarpsM, kMTiles = Sp::kMTiles;
+  constexpr int kNTiles = Sp::kNTiles;
   extern __shared__ float4 smem4[];
   const int ps = ck_max + 8;                      // bf16 per patch slot
   auto* patch = reinterpret_cast<__nv_bfloat16*>(smem4);
-  auto* wbuf = patch + patch_elems<S>(ck_max);
+  auto* wbuf = patch + patch_elems<S, N>(ck_max);
   float* red = reinterpret_cast<float*>(wbuf + (size_t)kStages * ck_max * kWs);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -184,8 +243,6 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
   const int cp = (ci + 15) / 16 * 16;
   const int kchunks = (cp + ck_max - 1) / ck_max;
   const int steps = 9 * kchunks;
-  // 16-byte copies of the input (else, for the prologue, 4-byte loads)
-  const bool vec = ci % 8 == 0;
 
   // the tap tile of step s (chunk s / 9, tap s % 9) into ring slot `buf`
   auto load_taps = [&](int s, int buf) {
@@ -202,9 +259,9 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
   };
 
   // the patch of chunk k (channels k*ck_max ..), raw: zero outside the
-  // image and past ci.  16-byte rows by cp.async with zero fill; other rows
-  // (the prologue's ci % 8 != 0) through registers.  Thread tid takes items
-  // tid, tid + kThreads, ... (all of one channel group).
+  // image and past ci.  16-byte rows by cp.async with zero fill (kVec: ci %
+  // 8 == 0); else through registers.  Thread tid takes items tid, tid +
+  // kThreads, ... (all of one channel group).
   auto load_patch = [&](int k) {
     const int c0 = k * ck_max, groups = min(ck_max, cp - c0) / 8;
     for (int i = tid; i < P::rows * P::cols * groups; i += kThreads) {
@@ -216,7 +273,7 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
           patch + (r * P::row_slots + P::slot(q)) * ps + 8 * g;
       const __nv_bfloat16* src =
           in ? xb + ((size_t)gy * W + gx) * ci + c : x;
-      if (!kAct || vec) {
+      if (kVec) {
         cp_async16(dst, src, in && c < ci);
         continue;
       }
@@ -332,14 +389,17 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
     }
   }
 
-  // epilogue: the bf16 outputs through shared memory (the patch's room),
-  // then 16-byte stores; with kStats the per-channel sums
+  // epilogue: the mapped bf16 outputs through shared memory (the patch's
+  // room), then 16-byte stores; with kStats the per-channel sums of the
+  // raw accumulators
   __syncthreads();
   __nv_bfloat16* ot = patch;
   const int nw = n0 + wn * (8 * kNTiles) + (lane & 3) * 2;
 #pragma unroll
   for (int j = 0; j < kNTiles; ++j) {
     const int n = nw + 8 * j;
+    const typename Epi::Pair ep =
+        n < co ? epi.at(n) : typename Epi::Pair{};
     float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
 #pragma unroll
     for (int i = 0; i < kMTiles; ++i)
@@ -349,8 +409,9 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
         if (oy < Ho && ox < Wo && n < co) {
           const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
           const int p = (kMTiles * wm + i) * kTileX + (lane >> 2) + 8 * h;
+          const float2 e = epi(ep, make_float2(v0, v1));
           *reinterpret_cast<__nv_bfloat162*>(ot + p * kOs + n - n0) =
-              __floats2bfloat162_rn(v0, v1);
+              __floats2bfloat162_rn(e.x, e.y);
           if (kStats) {
             s0 += v0;
             s1 += v1;
@@ -407,30 +468,52 @@ inline int tiles(int B, int H, int W) {
   return B * ((Ho + kTileY - 1) / kTileY) * ((Wo + kTileX - 1) / kTileX);
 }
 
-// kAct: gb (2, ci) float32; kStats: partial, tiles<S>(B, H, W) rows of 2*co
-// floats, each tile's sums.  Requires co % 8 == 0, ci % 2 == 0 (ci % 8 == 0
-// without kAct) and 16-byte aligned tensors.
-template <int S, bool kAct, bool kStats>
-cudaError_t launch(const void* x, const float* gb, const void* w, void* z,
-                   float* partial, int B, int H, int W, int ci, int co,
-                   cudaStream_t stream) {
-  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+template <int S, int N, bool kAct, bool kStats, bool kVec, typename Epi>
+cudaError_t launch_n(const void* x, const float* gb, const void* w, void* z,
+                     float* partial, const Epi& epi, int B, int H, int W,
+                     int ci, int co, cudaStream_t stream) {
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int tiles_x = (Wo + kTileX - 1) / kTileX;
   const int tiles_y = (Ho + kTileY - 1) / kTileY;
-  const int n_chunks = (co + kChunkN - 1) / kChunkN;
+  const int n_chunks = (co + N - 1) / N;
   const int ck = chunk_k(ci);
-  const size_t smem = smem_bytes<S, kStats>(ck);
-  auto kern = conv_kernel<S, kAct, kStats>;
+  const size_t smem = smem_bytes<S, N, kStats>(ck);
+  auto kern = conv_kernel<S, N, kAct, kStats, kVec, Epi>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(tiles_x * tiles_y * n_chunks, B);
   kern<<<grid, kThreads, smem, stream>>>(
       reinterpret_cast<const __nv_bfloat16*>(x), gb,
       reinterpret_cast<const __nv_bfloat16*>(w),
-      reinterpret_cast<__nv_bfloat16*>(z), partial, H, W, ci, co, Ho, Wo,
-      tiles_x, n_chunks, ck);
+      reinterpret_cast<__nv_bfloat16*>(z), partial, epi, H, W, ci, co, Ho,
+      Wo, tiles_x, n_chunks, ck);
   return cudaGetLastError();
+}
+
+template <int S, bool kAct, bool kStats, bool kVec, typename Epi>
+cudaError_t launch_v(const void* x, const float* gb, const void* w, void* z,
+                     float* partial, const Epi& epi, int B, int H, int W,
+                     int ci, int co, cudaStream_t stream) {
+  return chunk_n(co) == 48
+             ? launch_n<S, 48, kAct, kStats, kVec>(x, gb, w, z, partial, epi,
+                                                   B, H, W, ci, co, stream)
+             : launch_n<S, 96, kAct, kStats, kVec>(x, gb, w, z, partial, epi,
+                                                   B, H, W, ci, co, stream);
+}
+
+// kAct: gb (2, ci) float32; kStats: partial, tiles<S>(B, H, W) rows of 2*co
+// floats, each tile's sums; epi: Raw or BnSilu.  Requires co % 8 == 0,
+// ci % 2 == 0 and 16-byte aligned x and w.
+template <int S, bool kAct, bool kStats, typename Epi = Raw>
+cudaError_t launch(const void* x, const float* gb, const void* w, void* z,
+                   float* partial, int B, int H, int W, int ci, int co,
+                   cudaStream_t stream, const Epi& epi = Epi{}) {
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  return ci % 8 == 0
+             ? launch_v<S, kAct, kStats, true>(x, gb, w, z, partial, epi, B,
+                                               H, W, ci, co, stream)
+             : launch_v<S, kAct, kStats, false>(x, gb, w, z, partial, epi, B,
+                                                H, W, ci, co, stream);
 }
 
 }  // namespace conv3x3_mma

@@ -20,31 +20,15 @@
 // ms) for 87 GFLOP; a bottleneck 3x3 s1 (256² x 48 → 48) 201 MB (0.060 ms)
 // for 43.5 GFLOP: bytes bound all three.
 //
-// Design.  Stride 2: the tensor-core implicit GEMM of conv3x3_mma.cuh with
-// its activating prologue (register staging) and statistics (one partial
-// row of 2*co floats per 8x16 output tile).  Stride 1: the scalar float32
-// tiled conv of down_conv.cuh (8x8 output tiles, the patch staged in shared
-// memory) with the same prologue and a statistics epilogue (one partial row
-// per 8x8 tile), so in practice operations limit it.  Neither uses float
-// atomics: wgrad.cuh's sum_rows adds the partials in a fixed order, so
-// repeated runs agree bit for bit.
+// Design: the tensor-core implicit GEMM of conv3x3_mma.cuh at the pass's
+// stride, with its activating prologue (cp.async staging activated in
+// place, or register staging where ci % 8 != 0) and statistics (one partial
+// row of 2*co floats per 8x16 output tile).  The stride-1 bottleneck (co =
+// 48) runs on 48-channel chunks, the stride-2 passes (co = 96, 192) on
+// 96-channel chunks.  No float atomics: wgrad.cuh's sum_rows adds the
+// partials in a fixed order, so repeated runs agree bit for bit.
 #include "conv3x3_mma.cuh"
-#include "down_conv.cuh"
 #include "wgrad.cuh"
-
-// (at namespace scope: the type is a template argument of a kernel)
-struct BnSiluIn {
-  const float* gb;  // (2, ci): g row, then b row
-  int ci;
-  __device__ __forceinline__ __nv_bfloat162 operator()(__nv_bfloat162 v,
-                                                       int c2) const {
-    const float2 f = __bfloat1622float2(v);
-    const int c = 2 * c2;
-    const float a0 = f.x * __ldg(gb + c) + __ldg(gb + ci + c);
-    const float a1 = f.y * __ldg(gb + c + 1) + __ldg(gb + ci + c + 1);
-    return __floats2bfloat162_rn(silu(a0), silu(a1));
-  }
-};
 
 namespace {
 
@@ -52,20 +36,17 @@ template <int S>
 int pass_launch(const void* z_in, const float* gb, const void* w, void* z,
                 float* partial, float* stats, int B, int H, int W, int ci,
                 int co, cudaStream_t stream) {
-  cudaError_t err = down_conv::launch<S>(z_in, w, BnSiluIn{gb, ci},
-                                         down_conv::Raw{}, z, partial, B, H,
-                                         W, ci, co, stream);
+  cudaError_t err = conv3x3_mma::launch<S, true, true>(
+      z_in, gb, w, z, partial, B, H, W, ci, co, stream);
   if (err != cudaSuccess) return (int)err;
-  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-  const int tiles = B * ((Ho + down_conv::T - 1) / down_conv::T) *
-                    ((Wo + down_conv::T - 1) / down_conv::T);
-  return (int)launch_sum_rows(partial, stats, 2 * co, tiles, stream);
+  return (int)launch_sum_rows(partial, stats, 2 * co,
+                              conv3x3_mma::tiles<S>(B, H, W), stream);
 }
 
 }  // namespace
 
-// partial: one row of 2*co floats per 8x8 output tile (B * ceil(Ho/8) *
-// ceil(Wo/8) rows) of scratch; stats: 2*co floats.
+// partial: conv3x3_mma::tiles<S>(B, H, W) rows of 2*co floats (one per 8x16
+// output tile) of scratch; stats: 2*co floats.
 extern "C" int pass3x3s1_launch(const void* z_in, const float* gb,
                                 const void* w, void* z, float* partial,
                                 float* stats, int B, int H, int W, int ci,
@@ -74,16 +55,10 @@ extern "C" int pass3x3s1_launch(const void* z_in, const float* gb,
                         (cudaStream_t)stream);
 }
 
-// partial: conv3x3_mma::tiles<2>(B, H, W) rows of 2*co floats (one per 8x16
-// output tile) of scratch; stats: 2*co floats.
 extern "C" int pass3x3s2_launch(const void* z_in, const float* gb,
                                 const void* w, void* z, float* partial,
                                 float* stats, int B, int H, int W, int ci,
                                 int co, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = conv3x3_mma::launch<2, true, true>(
-      z_in, gb, w, z, partial, B, H, W, ci, co, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_sum_rows(partial, stats, 2 * co,
-                              conv3x3_mma::tiles<2>(B, H, W), st);
+  return pass_launch<2>(z_in, gb, w, z, partial, stats, B, H, W, ci, co,
+                        (cudaStream_t)stream);
 }

@@ -22,6 +22,7 @@ BCE-blur modulations as options.  Two formulations:
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence
 
 import torch
@@ -294,9 +295,11 @@ def compute_loss(maps, targets, t_mask, anchors_grid, nc: int, strides,
 class ComputeLoss:
     """Callable loss bound to the model meta and a hyp dict (JAX
     ``ComputeLoss``, loss.py:402).  ``dense=True`` selects the dense
-    formulation."""
+    formulation; ``dense=None`` takes it from the environment
+    (``YOLO_DENSE_LOSS=1``), as the JAX package does."""
 
-    def __init__(self, meta, hyp: dict | None = None, dense: bool = False):
+    def __init__(self, meta, hyp: dict | None = None,
+                 dense: bool | None = None):
         h = dict(DEFAULT_HYP)
         if hyp:
             h.update({k: v for k, v in hyp.items() if k in DEFAULT_HYP})
@@ -305,7 +308,9 @@ class ComputeLoss:
         self.strides = tuple(meta.strides)
         self.anchors_grid = torch.as_tensor(meta.anchors_grid,
                                             dtype=torch.float32)
-        self.dense = dense
+        if dense is None:
+            dense = os.environ.get("YOLO_DENSE_LOSS", "0") == "1"
+        self.dense = bool(dense)
 
     def __call__(self, maps: Sequence[torch.Tensor], targets, t_mask):
         """``maps``: flat ``(B, n, no)`` or ``(B, ny, nx, na, no)`` float32

@@ -19,6 +19,7 @@ layer to its kernel's plain PyTorch version on any device.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -45,9 +46,11 @@ BN_MOMENTUM = 0.03  # flax momentum 0.97
 # at 1024².  At inference the layer-2 C3 and the layer-3 downsample (both at
 # 256² input); in training the layer-1 and layer-3 downsamples (512² and 256²
 # input; the C3 kernel is inference-only).  These gates were measured on a
-# TPU; an A/B on the H100 is an open question (PERF.md).
-FUSED_C3_MIN_SPATIAL = 256 * 256
-FUSED_DOWN_MIN_SPATIAL = 256 * 256
+# TPU; an A/B on the H100 is an open question (PERF.md).  The environment
+# overrides them when the module is imported, as in the JAX package.
+FUSED_C3_MIN_SPATIAL = int(os.environ.get("FUSED_C3_MIN_SPATIAL", 256 * 256))
+FUSED_DOWN_MIN_SPATIAL = int(
+    os.environ.get("FUSED_DOWN_MIN_SPATIAL", 256 * 256))
 
 
 def autopad(k, p=None):

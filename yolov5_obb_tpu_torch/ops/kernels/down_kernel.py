@@ -63,6 +63,7 @@ def fused_down(x, w_taps, ss):
             f"down kernel: bad shapes x {tuple(x.shape)}, w_taps "
             f"{tuple(w_taps.shape)}, ss {tuple(ss.shape)} "
             f"(ci % 2 == 0, co % 8 == 0)")
+    check_aligned(x=x, w_taps=w_taps)
     out = torch.empty(B, (H + 1) // 2, (W + 1) // 2, co, dtype=torch.bfloat16,
                       device=x.device)
     KERNEL.launch(x, w_taps, ss, out, B, H, W, ci, co)

@@ -41,9 +41,8 @@ _BF = torch.bfloat16
 MAX_IN, MAX_W, MAX_OUT, MAX_PAIRS = 8, 4, 2, 2
 _TILE_1X1 = 64  # pixels per tile of the 1x1 kernels
 # output (rows, columns) per tile of a 3x3 pass, one statistics partial row
-# per tile: stride 1 on csrc/down_conv.cuh's scalar body (T), stride 2 on
-# csrc/conv3x3_mma.cuh's tensor-core body (kTileY, kTileX)
-_TILE_3X3 = {1: (8, 8), 2: (8, 16)}
+# per tile: csrc/conv3x3_mma.cuh's (kTileY, kTileX) at both strides
+_TILE_3X3 = (8, 16)
 
 _REPL = "yolov5_obb_tpu/ops/pallas/train_fused.py"
 KERNEL_1X1 = Kernel("train_fused_1x1", "pass1x1_fwd_launch", [P, P, P, I],
@@ -392,7 +391,7 @@ def pass_3x3_fwd_plain(z_in, gb, w_taps, stride: int):
 def pass_3x3_partial_rows(B: int, H: int, W: int, stride: int) -> int:
     """Rows of the statistics partial a 3x3 pass kernel writes: one per
     output tile."""
-    ty, tx = _TILE_3X3[stride]
+    ty, tx = _TILE_3X3
     Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
     return B * -(-Ho // ty) * -(-Wo // tx)
 

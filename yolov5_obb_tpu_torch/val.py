@@ -21,6 +21,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .data.dota import DotaDataset
@@ -76,10 +77,14 @@ def parse_opt(argv=None):
     return p.parse_args(argv)
 
 
-def load_state_dict(model, path) -> None:
+def load_state_dict(model, path, meta) -> None:
     """A torch-saved state dict (or module) in the reference model's names
-    → ``model``; keys outside the port model (anchor buffers) are
-    ignored, a missing one raises."""
+    → ``model``; keys outside the port model are ignored, a missing one
+    raises.  The Detect ``anchors`` buffer (the reference keeps it divided
+    by the stride, so autoanchor's evolved anchors travel with the weights)
+    replaces ``meta.anchors_px`` where its shape matches, as the JAX
+    package's checkpoint restore does; without one the config's anchors
+    stay."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(obj, "state_dict"):
         obj = obj.state_dict()
@@ -94,6 +99,13 @@ def load_state_dict(model, path) -> None:
         raise KeyError(f"{len(missing)} keys absent from {path}, e.g. "
                        f"{missing[:5]}: wrong --cfg for these weights?")
     model.load_state_dict({k: sd[k] if k in sd else own[k] for k in own})
+    det = next(i for i, s in enumerate(model.specs) if s.name == "Detect")
+    grid = sd.get(f"model.{det}.anchors")
+    if grid is not None:
+        stride = np.asarray(meta.strides, np.float32)[:, None, None]
+        px = grid.float().numpy() * stride
+        if px.shape == np.shape(meta.anchors_px):
+            meta.anchors_px = px
 
 
 def _refuse_unported(opt) -> None:
@@ -136,7 +148,7 @@ def run(opt):
     model, meta = create_model(opt.cfg, nc=nc, dtype=dtype, device=device,
                                seed=opt.seed, packed_stem=packed)
     if opt.weights:
-        load_state_dict(model, opt.weights)
+        load_state_dict(model, opt.weights, meta)
     if not opt.no_fuse:
         fuse_conv_bn(model)
 
