@@ -7,9 +7,10 @@ Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
       parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh,
-      the body of every 3x3 conv kernel) their registers and spill bytes
-      from ptxas, which must be 0, and their tensor-core and global-load
-      instructions from ``cuobjdump -sass``, which must hold HMMA;
+      the body of every 3x3 conv kernel; the downsample weight gradient;
+      the 1x1 pass forward) their registers and spill bytes from ptxas,
+      which must be 0, and their tensor-core and global-load instructions
+      from ``cuobjdump -sass``, which must hold HMMA;
   (b) each inference kernel against its plain PyTorch version on the card at
       the main path's shapes (bf16 convs; the stem+L1 kernel and the
       stem-only kernel at yolov5m b16 1024²; neighbour kernel at n =
@@ -96,10 +97,15 @@ TRAIN_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
 FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s2": 2, "pass_1x1_fwd": 4, "pass_1x1_bwd": 4,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
-# the libraries holding the tensor-core conv (csrc/conv3x3_mma.cuh), and
-# the substring of its kernels' names
-MMA_SOURCES = ("down", "down_train", "train_fused_3x3")
-MMA_KERNEL = "conv3x3_mma"
+# the libraries holding tensor-core kernels → the substrings of those
+# kernels' names: the 3x3 conv body (csrc/conv3x3_mma.cuh), the downsample
+# weight gradient, the 1x1 pass forward (csrc/mma.cuh's helpers)
+MMA_SOURCES = {"down": ("conv3x3_mma",),
+               "down_train": ("conv3x3_mma", "down_wgrad_kernel"),
+               "train_fused_3x3": ("conv3x3_mma",),
+               "train_fused_1x1": ("p1x1_fwd_kernel",)}
+MMA_KERNELS = tuple(dict.fromkeys(n for names in MMA_SOURCES.values()
+                                  for n in names))
 # float32 operations per activated element: silu(z·g + b) forward; the
 # recomputed activation, silu' and the products of the backward
 ACT_OPS, DACT_OPS = 5, 12
@@ -141,11 +147,11 @@ def ptxas_entries(text: str) -> dict:
     return out
 
 
-def sass_counts(lib: str, match: str):
+def sass_counts(lib: str, match):
     """Kernel name → counts of tensor-core (HMMA/HGMMA), cp.async
     (LDGSTS), shared-matrix (LDSM) and other global-load (LDG) instructions
-    in the SASS of ``lib``, for the kernels whose name holds ``match``; None
-    where ``cuobjdump`` is absent."""
+    in the SASS of ``lib``, for the kernels whose name holds one of the
+    substrings ``match``; None where ``cuobjdump`` is absent."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         sass = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -158,7 +164,7 @@ def sass_counts(lib: str, match: str):
             name = line.split("Function :")[1].strip()
             cur = out.setdefault(name, dict.fromkeys(
                 ("HMMA", "HGMMA", "LDGSTS", "LDSM", "LDG"), 0)) \
-                if match in name else None
+                if any(m in name for m in match) else None
         elif cur is not None:
             op = re.search(r"\b(HGMMA|HMMA|LDGSTS|LDSM|LDG)\b", line)
             if op:
@@ -170,13 +176,13 @@ def mma_report(build) -> dict:
     """Registers, spills and SASS counts of the tensor-core kernels (ptxas
     speaks only when this run compiled the library)."""
     rep = {}
-    for src in MMA_SOURCES:
+    for src, names in MMA_SOURCES.items():
         if src not in build.PTXAS_LOG:
             rep[src] = "built before this run: no ptxas log"
             continue
         regs = {k: v for k, v in ptxas_entries(build.PTXAS_LOG[src]).items()
-                if MMA_KERNEL in k}
-        sass = sass_counts(str(build.so_path(src)), MMA_KERNEL)
+                if any(n in k for n in names)}
+        sass = sass_counts(str(build.so_path(src)), names)
         rep[src] = {k: {"registers": r, "spill_stores": ss, "spill_loads": sl,
                         "sass": "not available" if sass is None
                         else sass.get(k, "not found")}
@@ -1235,6 +1241,12 @@ _GROUPS = (("port kernels", ("stem_fwd_kernel", "stem_wgrad_kernel",
            ("elementwise", ("elementwise", "vectorized", "unrolled")))
 
 
+def _group(name: str) -> str:
+    low = name.lower()
+    return next((g for g, keys in _GROUPS if any(k in low for k in keys)),
+                "other")
+
+
 def profile_step(step, state, batch, step_ms):
     """Device time of one train step by kernel name (torch.profiler), in
     the groups of ``_GROUPS``; the idle share compares the device time with
@@ -1256,15 +1268,16 @@ def profile_step(step, state, batch, step_ms):
     groups = {g: 0.0 for g, _ in _GROUPS}
     groups["other"] = 0.0
     for name, ms, _ in rows:
-        low = name.lower()
-        g = next((g for g, keys in _GROUPS if any(k in low for k in keys)),
-                 "other")
-        groups[g] += ms
+        groups[_group(name)] += ms
     rows.sort(key=lambda r: -r[1])
     return {"device_ms": device_ms,
             "idle_share": 1.0 - device_ms / step_ms if step_ms else None,
             "by_group_ms": groups,
-            "top_kernels": [(n[:90], ms, c) for n, ms, c in rows[:12]]}
+            "top_kernels": [(n[:90], ms, c) for n, ms, c in rows[:12]],
+            # the tensor-core kernels as the profile filed them
+            "tensor_core_kernels": [
+                (n[:90], _group(n), ms, c) for n, ms, c in rows
+                if any(k in n for k in MMA_KERNELS)]}
 
 
 def compare_stock_step(model, loss_fn, batch):
@@ -1418,6 +1431,12 @@ def train_path(dev, report, fused=False):
     prof = profile_step(step, state, batches[1], dt * 1e3 / TRAIN_ITERS)
     log(f"{pre}step profile: " + json.dumps(prof))
     require(prof["device_ms"] > 0, "the profiler saw no device time")
+    # the step's tensor-core kernels count as the port's, not as cuDNN's
+    tc = prof["tensor_core_kernels"]
+    want = "p1x1_fwd_kernel" if fused else "down_wgrad_kernel"
+    require(any(want in n for n, *_ in tc) and
+            all(g == "port kernels" for _, g, *_ in tc),
+            f"profile groups of the tensor-core kernels: {tc}")
     report.update({
         f"{pre}imgs_per_s": TRAIN_ITERS * BATCH / dt,
         f"{pre}step_ms": dt * 1e3 / TRAIN_ITERS,
@@ -1863,7 +1882,9 @@ def main() -> int:
     for src, rep in mma.items():
         if isinstance(rep, str):  # built before this run: nothing to read
             continue
-        require(rep, f"ptxas reported no tensor-core kernel in {src}.cu")
+        for name in MMA_SOURCES[src]:
+            require(any(name in k for k in rep),
+                    f"ptxas reported no {name} kernel in {src}.cu")
         for k, r in rep.items():
             require(r["spill_stores"] == 0 and r["spill_loads"] == 0,
                     f"{src}.cu {k} spills: {r}")

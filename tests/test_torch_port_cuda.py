@@ -219,8 +219,12 @@ def test_stem_train_kernels(dev, H, W, c2):
     assert torch.equal(g, g2)
 
 
-@pytest.mark.parametrize("H,W,ci,co", [(32, 32, 16, 32), (33, 19, 48, 96),
-                                       (18, 40, 40, 24)])
+@pytest.mark.parametrize("H,W,ci,co", [
+    (32, 32, 16, 32), (33, 19, 48, 96), (18, 40, 40, 24),
+    # ragged tiles, ci not a multiple of 16, co not a multiple of the
+    # weight gradient's output chunk, the yolov5n/s channel pairs
+    (1, 1, 24, 40), (17, 33, 40, 200), (33, 18, 24, 40), (17, 33, 32, 64),
+    (33, 18, 64, 128), (1, 1, 96, 192), (33, 18, 96, 192)])
 def test_down_train_kernels(dev, H, W, ci, co):
     gen = torch.Generator(device=dev).manual_seed(5)
     B = 2
@@ -332,6 +336,10 @@ _PASS_STRUCTS = {
     "b1_cv1": ((True, True), ((0, 1),), (((0, 0),),)),
     "cv3": ((True, True, True, True), ((0, 1, 2), (3,)),
             (((0, 0), (1, 1)),)),
+    # yolov5l's and yolov5x's cv3 (3 and 4 bottlenecks): more inputs than
+    # the forward's shared memory may stage at their widths
+    "cv3_l": ((True,) * 5, ((0, 1, 2, 3), (4,)), (((0, 0), (1, 1)),)),
+    "cv3_x": ((True,) * 6, ((0, 1, 2, 3, 4), (5,)), (((0, 0), (1, 1)),)),
     "plain_input": ((True, False), ((0,), (1,)), (((0, 0), (1, 1)),)),
 }
 
@@ -351,7 +359,15 @@ def _rel(got, want, rel):
 
 
 @pytest.mark.parametrize("struct", sorted(_PASS_STRUCTS))
-@pytest.mark.parametrize("H,W,ci,co", [(16, 16, 16, 32), (13, 21, 24, 40)])
+@pytest.mark.parametrize("H,W,ci,co", [
+    (16, 16, 16, 32), (13, 21, 24, 40),
+    # pixel counts not a multiple of the forward's 128-pixel tile, ci not a
+    # multiple of 16, co not a multiple of its 48/96 chunk, the yolov5n/s
+    # C3 widths
+    (1, 1, 24, 40), (17, 33, 40, 200), (33, 18, 48, 96), (17, 33, 32, 16),
+    (33, 18, 64, 32),
+    # the yolov5l/x C3 widths: cv3 (64 → 128, 80 → 160), cv1+cv2's ci 160
+    (33, 18, 64, 128), (17, 33, 80, 160), (17, 33, 160, 80)])
 def test_pass_1x1_kernels(dev, struct, H, W, ci, co):
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
@@ -413,14 +429,16 @@ def test_pass_3x3_kernels(dev, stride, H, W, ci, co):
     assert torch.equal(sk, TF.pass_3x3_fwd(z, gb, w, stride)[1])
 
 
-def test_fused_region_kernels_match_plain(dev):
-    """The yolov5n fused train step through the kernels against the same
-    step through the plain versions: launches per step and the loss."""
+@pytest.mark.parametrize("cfg,n", [("yolov5n.yaml", 1), ("yolov5x.yaml", 4)])
+def test_fused_region_kernels_match_plain(dev, cfg, n):
+    """The fused train step through the kernels against the same step
+    through the plain versions: launches per step and the loss.  yolov5x's
+    C3 has 4 bottlenecks (a 6-input cv3 pass) at 80 channels."""
     from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
     from yolov5_obb_tpu_torch.models.yolo import create_model
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    model, meta = create_model("yolov5n.yaml", nc=3, dtype=torch.bfloat16,
+    model, meta = create_model(cfg, nc=3, dtype=torch.bfloat16,
                                device="cuda", packed_stem=True,
                                fused_train=True)
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -444,7 +462,8 @@ def test_fused_region_kernels_match_plain(dev):
         total.backward()
         torch.cuda.synchronize()
         moved = [k.launches - b for k, b in zip(kinds, before)]
-        assert moved == ([0] * 7 if plain else [1, 1, 2, 3, 3, 1, 0]), moved
+        want = [1, 1, 2, 2 + n, 2 + n, n, 0]
+        assert moved == ([0] * 7 if plain else want), moved
         losses.append(float(total.detach()))
         with torch.no_grad():
             for k, b in model.named_buffers():

@@ -580,3 +580,197 @@ def test_down_train_contract_raises_before_launch(monkeypatch, ci, co, ok):
         with pytest.raises(ValueError, match="channels % 8 == 0"):
             D.down_train_fwd(x, w)
         assert not launched
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core 1x1 forward and downsample weight gradient: their wrappers
+# against the CUDA sources' tiles, chunks and alignment contract
+# ---------------------------------------------------------------------------
+
+
+def _includes(source):
+    """The headers ``source`` includes, directly or through another."""
+    seen, todo = set(), [source]
+    while todo:
+        for inc in re.findall(r'^#include "([^"]+)"',
+                              _csrc(todo.pop()).read_text(), re.M):
+            if inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return seen
+
+
+@pytest.mark.parametrize("source", ["down_train.cu", "train_fused_1x1.cu",
+                                    "conv3x3_mma.cuh"])
+def test_tensor_core_bodies_share_mma_header(source):
+    """Rows 8b and 9a run on the tensor cores through mma.cuh, whose PTX
+    helpers the 3x3 body no longer defines itself; the 1x1 forward has no
+    scalar product loop (fma_pixel) and the weight gradient no fmaf."""
+    text = _csrc(source).read_text()
+    assert "mma.cuh" in _includes(source)
+    assert "asm volatile" not in text  # the PTX lives in mma.cuh
+    assert "mma16816(" in text
+    if source == "train_fused_1x1.cu":
+        fwd = text[text.index("p1x1_fwd_kernel("):
+                   text.index("p1x1_bwd_kernel(")]
+        assert "fma_pixel" not in fwd and "mma16816(" in fwd
+    if source == "down_train.cu":
+        assert "fmaf(" not in text and "mma16816(" in text
+
+
+def test_pass_1x1_forward_bounds_its_staging():
+    """The 1x1 forward stages by cp.async only as many inputs as the card's
+    shared memory per block holds (yolov5x's 6-input cv3 does not fit
+    whole) and reads the others from device memory where it activates them;
+    the backward recomputes the group values with the forward's silu_fast,
+    so both sides multiply the same bf16 values."""
+    text = _csrc("train_fused_1x1.cu").read_text()
+    launch = text[text.index("cudaError_t fwd_launch("):
+                  text.index('extern "C" int pass1x1_fwd_launch(')]
+    assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in launch
+    assert "--nstage" in launch
+    fwd = text[text.index("p1x1_fwd_kernel("):
+               text.index("p1x1_bwd_kernel(")]
+    assert "i < m.nstage" in fwd and "d.z[i] + p0 * ci" in fwd
+    pair = text[text.index("float2 group_pair("):text.index("// forward")]
+    assert pair.count("silu_fast(") == 2 and "silu(" not in pair.replace(
+        "silu_fast(", "")
+
+
+def _fake_sms(monkeypatch, sms=132):
+    import types
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=sms))
+
+
+def _meta_1x1(monkeypatch, B, H, W, ci=16, co=24, aligned=None):
+    """The cv1+cv2 structure's forward and backward on meta tensors (the
+    kernel branch, nothing run), recording launches and alignment checks."""
+    launched = {"fwd": [], "bwd": []}
+    monkeypatch.setattr(TF, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(TF, "check_aligned",
+                        aligned or (lambda **k: launched.setdefault(
+                            "aligned", []).append(list(k))))
+    monkeypatch.setattr(TF.KERNEL_1X1, "launch",
+                        lambda *a: launched["fwd"].append(a))
+    monkeypatch.setattr(TF.KERNEL_1X1_BWD, "launch",
+                        lambda *a: launched["bwd"].append(a))
+    _fake_sms(monkeypatch)
+    meta = dict(device="meta")
+    ns, groups, outs = (True,), ((0,),), (((0, 0),), ((0, 1),))
+    z = (torch.empty(B, H, W, ci, dtype=torch.bfloat16, **meta),)
+    gbs = (torch.empty(2, ci, **meta),)
+    ws = (torch.empty(ci, co, **meta), torch.empty(ci, co, **meta))
+    zo = tuple(torch.empty(B, H, W, co, dtype=torch.bfloat16, **meta)
+               for _ in outs)
+    ds = tuple(torch.empty(2, co, **meta) for _ in outs)
+    args = (ns, groups, outs, z, gbs, ws)
+    return (launched, lambda: TF.pass_1x1_fwd(*args),
+            lambda: TF.pass_1x1_bwd(*args, zo, zo, ds))
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 1, 1), (2, 17, 33), (3, 33, 18),
+                                   (16, 256, 256)])
+def test_pass_1x1_partials_follow_the_tiles(monkeypatch, B, H, W):
+    """The 1x1 forward's statistics partial has room for one row per
+    kFwdTile pixels (train_fused_1x1.cu: at most one CTA per tile, each
+    writing one row), the backward's one row of dW and (dg, db) per block,
+    min(kBwdTile tiles, 2 per SM)."""
+    fwd_tile = _constexpr("train_fused_1x1.cu", "kFwdTile")
+    bwd_tile = _constexpr("train_fused_1x1.cu", "kBwdTile")
+    assert (TF._TILE_1X1_FWD, TF._TILE_1X1_BWD) == (fwd_tile, bwd_tile)
+    N, ci, co = B * H * W, 16, 24
+    assert TF.pass_1x1_partial_rows(N) == -(-N // fwd_tile)
+    launched, fwd, bwd = _meta_1x1(monkeypatch, B, H, W, ci, co)
+    fwd()
+    (_, partial, stats, n), = launched["fwd"]
+    assert partial.shape == (-(-N // fwd_tile), 4 * co)
+    assert stats.shape == (4 * co,) and n == N
+    bwd()
+    (_, partial, sums, n, parts), = launched["bwd"]
+    assert parts == min(-(-N // bwd_tile), 132 * 2)
+    R = 2 * ci * co + 2 * ci
+    assert partial.shape == (parts, R) and sums.shape == (R,) and n == N
+
+
+@pytest.mark.parametrize("ci,co,H,W", [
+    (48, 96, 512, 512), (96, 192, 256, 256),   # yolov5m layers 1, 3
+    (16, 32, 64, 64), (32, 64, 33, 18), (64, 128, 17, 33),  # yolov5n/s
+    (24, 40, 1, 1), (40, 200, 17, 33), (8, 8, 2, 3)])
+def test_down_wgrad_partial_follows_the_chunks(monkeypatch, ci, co, H, W):
+    """The downsample weight gradient's partial is (parts, 9*ci, co), with
+    parts planned by down_train.cu itself (down_train_wgrad_parts: the
+    occupancy query, no residency assumed) and handed back to its launch;
+    the wrapper mirrors none of the kernel's chunks or tiles."""
+    from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+
+    text = _csrc("down_train.cu").read_text()
+    plan = text[text.index("cudaError_t wgrad_parts("):
+                text.index("cudaError_t wgrad_launch(")]
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in plan
+    assert "kWgradPerSm" not in text
+    assert 'extern "C" int down_train_wgrad_parts(' in text
+    launched, asked = [], []
+    monkeypatch.setattr(D, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(D, "check_aligned", lambda **k: None)
+    monkeypatch.setattr(D.TRAIN_WGRAD_KERNEL, "launch",
+                        lambda *a: launched.append(a))
+    parts = 5 + ci % 7
+    monkeypatch.setattr(D, "query",
+                        lambda *a: asked.append(a) or parts)
+    B = 2
+    Ho, Wo = (H + 1) // 2, (W + 1) // 2
+    x = torch.empty(B, H, W, ci, dtype=torch.bfloat16, device="meta")
+    dz = torch.empty(B, Ho, Wo, co, dtype=torch.bfloat16, device="meta")
+    dw = D.down_train_wgrad(x, dz)
+    assert asked == [("down_train", "down_train_wgrad_parts", B, H, W, ci,
+                      co)]
+    (_, _, partial, out, *dims, p), = launched
+    assert partial.shape == (parts, 9 * ci, co) and p == parts
+    assert out.shape == dw.shape == (9 * ci, co)
+    assert dims == [B, H, W, ci, co]
+
+
+@pytest.mark.parametrize("kernel", ["down_wgrad", "pass_1x1_fwd",
+                                    "pass_1x1_bwd"])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_alignment_checked_before_launch(monkeypatch, kernel, misaligned):
+    """The kernels that copy 16 bytes at a time check every such operand's
+    alignment (inputs, bf16 weights; in the 1x1 backward the outputs and
+    their cotangents too) and launch nothing when a check fails."""
+    from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+
+    checked = []
+
+    def aligned(**k):
+        checked.append(list(k))
+        if misaligned:
+            raise ValueError(f"{next(iter(k))}: data pointer not 16-byte "
+                             f"aligned")
+
+    if kernel == "down_wgrad":
+        launched = {"wgrad": []}
+        monkeypatch.setattr(D, "check_cuda", lambda *a: None)
+        monkeypatch.setattr(D, "check_aligned", aligned)
+        monkeypatch.setattr(D.TRAIN_WGRAD_KERNEL, "launch",
+                            lambda *a: launched["wgrad"].append(a))
+        monkeypatch.setattr(D, "query", lambda *a: 3)
+        x = torch.empty(2, 17, 33, 16, dtype=torch.bfloat16, device="meta")
+        dz = torch.empty(2, 9, 17, 32, dtype=torch.bfloat16, device="meta")
+        call, want = (lambda: D.down_train_wgrad(x, dz)), [["x", "dz"]]
+    else:
+        launched, fwd, bwd = _meta_1x1(monkeypatch, 2, 17, 33,
+                                       aligned=aligned)
+        call = fwd if kernel == "pass_1x1_fwd" else bwd
+        want = [["z_in0", "w0", "w1"]] if call is fwd else [
+            ["z_in0", "w0", "w1", "z_out0", "z_out1", "dz_out0", "dz_out1"]]
+    if misaligned:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+        assert not any(launched.values())
+    else:
+        call()
+        assert sum(map(len, launched.values())) == 1
+    assert checked == want

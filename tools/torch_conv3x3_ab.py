@@ -1,24 +1,33 @@
 #!/usr/bin/env python3
-"""A/B variants of the port's tensor-core 3x3 conv on one NVIDIA card.
+"""A/B variants of the port's tensor-core kernels on one NVIDIA card.
 
     python3 tools/torch_conv3x3_ab.py [variants.json]
 
-``variants.json`` maps a name to a list of ``[regex, replacement]`` pairs
-applied to ``yolov5_obb_tpu_torch/csrc/conv3x3_mma.cuh``.  Each variant's
-``down.cu``, ``down_train.cu`` and ``train_fused_3x3.cu`` are compiled with
-the port's flags into the (gitignored) build directory.  At the yolov5m b16
-1024² shapes of the kernels on that body — the inference downsample (row
-3, layer 3: 256² x 96 → 128² x 192), the raw train downsample (row 8a, L1:
-512² x 48 → 96, L3), the stride-1 bottleneck pass (row 10, 256² x 48 → 48)
-and the stride-2 passes (row 11, L1, L3) — every build's kernel is held to
-its plain version and timed with CUDA events, in the order main, variants,
-variants reversed, main; the library conv (cuDNN, bf16) beside it; then a
-profiler split of the main build's passes into their kernels.  Prints the
-card line and one JSON line per case.
+``variants.json`` maps a name to a list of substitutions, each
+``[regex, replacement]`` (applied to ``csrc/conv3x3_mma.cuh``) or
+``[file, regex, replacement]`` (applied to ``csrc/<file>``), in the
+directory ``yolov5_obb_tpu_torch``.  Each variant's tensor-core libraries
+(``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
+``train_fused_1x1.cu``) are compiled with the port's flags into the
+(gitignored) build directory.  At the yolov5m b16 1024² shapes of every
+tensor-core kernel — the inference downsample (row 3, layer 3: 256² x 96 →
+128² x 192), the raw train downsample (row 8a, L1: 512² x 48 → 96, L3) and
+its weight gradient (row 8b, L1, L3), the grouped 1x1 pass forward (row 9a,
+the four structures of the C3 region at 256²), the stride-1 bottleneck pass
+(row 10, 256² x 48 → 48) and the stride-2 passes (row 11, L1, L3) — every
+build runs through the port's own wrapper (the variant's entry point bound
+in place of the main build's, and its launch plans, such as the weight
+gradient's partial count, asked of it), is held to the plain version and
+timed with
+CUDA events, in the order main, variants, variants reversed, main; the
+library call (cuDNN, bf16) beside it; then a profiler split of the main
+build's call into its kernels.  Prints the card line and one JSON line per
+case.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -29,14 +38,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-# case → (entry point, ci, co, input side, stride)
+SOURCES = ("down", "down_train", "train_fused_3x3", "train_fused_1x1")
+# case → (kind, ci, co or 1x1 structure, input side, stride)
 CASES = (("row3_L3", "down", 96, 192, 256, 2),
          ("row8a_L1", "down_train", 48, 96, 512, 2),
          ("row8a_L3", "down_train", 96, 192, 256, 2),
+         ("row8b_L1", "wgrad", 48, 96, 512, 2),
+         ("row8b_L3", "wgrad", 96, 192, 256, 2),
+         ("row9a_cv1_cv2", "p1x1", 96, "cv1_cv2", 256, 1),
+         ("row9a_b0_cv1", "p1x1", 48, "b0_cv1", 256, 1),
+         ("row9a_b1_cv1", "p1x1", 48, "b1_cv1", 256, 1),
+         ("row9a_cv3", "p1x1", 48, "cv3", 256, 1),
+         # yolov5x's cv3 (4 bottlenecks, 80 channels): more inputs than the
+         # forward's shared memory stages
+         ("row9a_cv3_x", "p1x1", 80, "cv3_x", 256, 1),
          ("row10_bottleneck", "pass", 48, 48, 256, 1),
          ("row11_L1", "pass", 48, 96, 512, 2),
          ("row11_L3", "pass", 96, 192, 256, 2))
 BATCH = 16
+# 1x1 structures beside chip_smoke's (ns, groups, outs, ci, output widths)
+X_1X1 = {"cv3_x": ((True,) * 6, ((0, 1, 2, 3, 4), (5,)),
+                   (((0, 0), (1, 1)),), 80, (160, 160))}
 
 
 def cuda_time(fn, iters=10, warmup=2):
@@ -56,103 +78,161 @@ def cuda_time(fn, iters=10, warmup=2):
 
 
 def _kernels():
+    """The tensor-core kernels' Kernel objects (their wrappers launch)."""
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    return {"down": D.KERNEL, "down_train": D.TRAIN_FWD_KERNEL,
-            "pass1": TF.KERNEL_3X3S1, "pass2": TF.KERNEL_3X3S2}
+    return [D.KERNEL, D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL,
+            TF.KERNEL_1X1, TF.KERNEL_3X3S1, TF.KERNEL_3X3S2]
 
 
 def build_variant(name, subs):
-    """The variant's entry points as Kernels (keyed as in ``_kernels``)."""
+    """The variant's ``(entry points, libraries)``: ``(source, symbol) →
+    ctypes function`` and ``source → CDLL``; or None when a substitution
+    changes nothing or a build fails."""
     from yolov5_obb_tpu_torch.ops.kernels import _build
 
     d = _build.BUILD_DIR / "variants" / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_build.CSRC_DIR, d)
-    h = (d / "conv3x3_mma.cuh").read_text()
-    for pat, rep in subs:
-        new = re.sub(pat, rep, h, flags=re.S)
-        if new == h:
-            print(f"{name}: {pat!r} changes nothing; variant skipped",
-                  flush=True)
+    for sub in subs:
+        file, pat, rep = sub if len(sub) == 3 else ("conv3x3_mma.cuh", *sub)
+        text = (d / file).read_text()
+        new = re.sub(pat, rep, text, flags=re.S)
+        if new == text:
+            print(f"{name}: {pat!r} changes nothing in {file}; variant "
+                  f"skipped", flush=True)
             return None
-        h = new
-    (d / "conv3x3_mma.cuh").write_text(h)
+        (d / file).write_text(new)
+    procs = {src: subprocess.Popen(
+        [_build._nvcc(), *_build._flags(src), "-I", str(d), "-o",
+         str(d / f"{src}.so"), str(d / f"{src}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for src in SOURCES}
     libs = {}
-    for src in ("down", "down_train", "train_fused_3x3"):
-        so = d / f"{src}.so"
-        r = subprocess.run([_build._nvcc(), *_build._flags(src), "-I", str(d),
-                            "-o", str(so), str(d / f"{src}.cu")],
-                           capture_output=True, text=True, check=False)
-        regs = re.findall(r"Used (\d+) registers", r.stdout + r.stderr)
-        print(f"{name} {src}: nvcc {r.returncode}, registers {regs}",
-              flush=True)
-        if r.returncode:
-            print(r.stdout + r.stderr, flush=True)
+    for src, proc in procs.items():
+        log = proc.communicate()[0]
+        regs = re.findall(r"Used (\d+) registers", log)
+        spills = sorted({int(b) for b in re.findall(
+            r"(\d+) bytes spill stores", log)})
+        print(f"{name} {src}: nvcc {proc.returncode}, registers {regs}, "
+              f"spill stores {spills}", flush=True)
+        if proc.returncode:
+            print(log, flush=True)
             return None
-        libs[src] = ctypes.CDLL(str(so))
-    kerns = {}
-    for key, k in _kernels().items():
+        libs[src] = ctypes.CDLL(str(d / f"{src}.so"))
+    fns = {}
+    for k in _kernels():
         fn = getattr(libs[k.source], k.symbol)
         fn.argtypes = k.argtypes + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        kerns[key] = _build.Kernel(k.source, k.symbol, k.argtypes, k.replaces)
-        kerns[key]._fn = fn
-    return kerns
+        fns[(k.source, k.symbol)] = fn
+    return fns, libs
 
 
-def _case_fns(kind, stride, x, wq, wf, gb, ss, kerns):
-    """The case's call on the main build (``kerns`` None) or a variant's
-    kernels: a function returning the output tensor(s)."""
+@contextlib.contextmanager
+def bound_to(build):
+    """The port's wrappers launch a variant's entry points and ask its
+    libraries for their launch plans, in place of the main build's;
+    ``None`` keeps the main build."""
+    from yolov5_obb_tpu_torch.ops.kernels import _build
+
+    kerns = _kernels()
+    saved = [k._fn for k in kerns]
+    saved_libs = dict(_build._LIBS)
+    try:
+        if build is not None:
+            fns, libs = build
+            for k in kerns:
+                k._fn = fns[(k.source, k.symbol)]
+            _build._LIBS.update(libs)
+        yield
+    finally:
+        for k, fn in zip(kerns, saved):
+            k._fn = fn
+        _build._LIBS.clear()
+        _build._LIBS.update(saved_libs)
+
+
+def _case(kind, ci, co, H, stride, gen, dev):
+    """``(call, plain, library)``: the wrapper's call, its plain version and
+    the library yardstick on the case's seeded inputs."""
     import torch
+    import torch.nn.functional as F
 
+    from chip_smoke import _PASS_1X1
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    if kerns is None:
-        return {"down": lambda: D.fused_down(x, wq, ss),
-                "down_train": lambda: D.down_train_fwd(x, wq),
-                "pass": lambda: TF.pass_3x3_fwd(x, gb, wf, stride)}[kind]
-    B, H, W, ci = x.shape
-    co = wq.shape[1]
-    Ho, Wo = (H - 1) // stride + 1, (W - 1) // stride + 1
-    z = torch.empty(B, Ho, Wo, co, dtype=torch.bfloat16, device=x.device)
+    bf = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    gbf = lambda c: torch.stack([1 + 0.3 * rnd(c), 0.2 * rnd(c)])
+    if kind == "p1x1":
+        ns, groups, outs, _, cos = {**_PASS_1X1, **X_1X1}[co]
+        zs = [rnd(BATCH, H, H, ci).to(bf) for _ in ns]
+        gbs = [gbf(ci) for _ in ns]
+        ws = [rnd(ci, c) / ci ** 0.5 for c in cos]
+        args = (ns, groups, outs, zs, gbs, ws)
+        gv = torch.cat(TF._group_values(ns, groups, zs, gbs), -1).to(
+            bf).permute(0, 3, 1, 2)
+        wl = (torch.cat([torch.cat([ws[w] for _, w in o], 0) for o in outs],
+                        1).T.contiguous().to(bf)[:, :, None, None])
+        return (lambda: TF.pass_1x1_fwd(*args),
+                lambda: TF.pass_1x1_fwd_plain(*args),
+                lambda: F.conv2d(gv, wl))
+    x = rnd(BATCH, H, H, ci).to(bf)
+    wf = rnd(9 * ci, co) / (9 * ci) ** .5
+    wq = wf.to(bf)
+    k = wq.reshape(3, 3, ci, co).permute(3, 2, 0, 1)
+    xn = x.permute(0, 3, 1, 2)
+    conv = lambda: F.conv2d(xn, k, None, stride, 1)
     if kind == "down":
-        return lambda: (kerns["down"].launch(x, wq, ss, z, B, H, W, ci, co),
-                        z)[1]
+        ss = torch.stack([0.5 + torch.rand(co, generator=gen, device=dev),
+                          0.2 * rnd(co)])
+        return (lambda: D.fused_down(x, wq, ss),
+                lambda: D.fused_down_plain(x, wq, ss), conv)
     if kind == "down_train":
-        return lambda: (kerns["down_train"].launch(x, wq, z, B, H, W, ci, co),
-                        z)[1]
-    st = torch.empty(2, co, device=x.device)
-    part = torch.empty(TF.pass_3x3_partial_rows(B, H, W, stride), 2 * co,
-                       device=x.device)
-    k = kerns[f"pass{stride}"]
-    return lambda: (k.launch(x, gb, wq, z, part, st, B, H, W, ci, co),
-                    (z, st))[1]
+        return (lambda: D.down_train_fwd(x, wq),
+                lambda: D.down_train_fwd_plain(x, wq), conv)
+    if kind == "wgrad":
+        Ho = (H + 1) // 2
+        dz = rnd(BATCH, Ho, Ho, co).to(bf)
+        dzn = dz.permute(0, 3, 1, 2)
+        return (lambda: D.down_train_wgrad(x, dz),
+                lambda: D.down_train_wgrad_plain(x, dz),
+                lambda: torch.nn.grad.conv2d_weight(xn, k.shape, dzn, 2, 1))
+    gb = gbf(ci)
+    return (lambda: TF.pass_3x3_fwd(x, gb, wf, stride),
+            lambda: TF.pass_3x3_fwd_plain(x, gb, wf, stride), conv)
 
 
 def _errors(got, want):
-    if isinstance(want, tuple):
-        (z, s), (zp, sp) = got, want
-        return {"err": float((z.float() - zp.float()).abs().max()),
-                "tol": float(zp.float().abs().max()) / 128,
-                "stats_rel": float((s - sp).abs().max() / sp.abs().max())}
-    return {"err": float((got.float() - want.float()).abs().max()),
-            "tol": float(want.float().abs().max()) / 128}
+    """bf16 outputs: max |Δ| against one ulp of the largest; float32 ones
+    (statistics, weight gradients): max |Δ| over the largest."""
+    import torch
+
+    def flat(t):
+        return [t] if isinstance(t, torch.Tensor) else [
+            u for v in t for u in flat(v)]
+
+    res = {"err": 0.0, "tol": 0.0, "rel": 0.0}
+    for g, w in zip(flat(got), flat(want)):
+        if w.dtype == torch.bfloat16:
+            res["err"] = max(res["err"], float(
+                (g.float() - w.float()).abs().max()))
+            res["tol"] = max(res["tol"], float(w.float().abs().max()) / 128)
+        else:
+            res["rel"] = max(res["rel"], float(
+                (g - w).abs().max() / w.abs().max()))
+    return res
 
 
 def main() -> int:
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
-
-    from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
-    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -162,46 +242,35 @@ def main() -> int:
                 if len(sys.argv) > 1 else {})
     builds = {"main": None}
     for name, subs in variants.items():
-        builds[name] = build_variant(name, subs)
+        build = build_variant(name, subs)
+        if build is not None:
+            builds[name] = build
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for case, kind, ci, co, H, stride in CASES:
-        x = torch.randn(BATCH, H, H, ci, generator=gen, device=dev).to(
-            torch.bfloat16)
-        wf = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** .5
-        wq = wf.to(torch.bfloat16)
-        gb = torch.stack([1 + 0.3 * torch.randn(ci, generator=gen, device=dev),
-                          0.2 * torch.randn(ci, generator=gen, device=dev)])
-        ss = torch.stack([0.5 + torch.rand(co, generator=gen, device=dev),
-                          0.2 * torch.randn(co, generator=gen, device=dev)])
-        want = {"down": lambda: D.fused_down_plain(x, wq, ss),
-                "down_train": lambda: D.down_train_fwd_plain(x, wq),
-                "pass": lambda: TF.pass_3x3_fwd_plain(x, gb, wf, stride)}[
-                    kind]()
+        call, plain, library = _case(kind, ci, co, H, stride, gen, dev)
+        want = plain()
         res = {}
-        order = [n for n in builds if n == "main" or builds[n]]
+        order = list(builds)
         for name in order + order[::-1]:
-            fn = _case_fns(kind, stride, x, wq, wf, gb, ss, builds[name])
-            got = fn()
-            torch.cuda.synchronize()
-            r = res.setdefault(name, {**_errors(got, want), "ms": []})
-            r["ms"].append(cuda_time(fn))
-        k = wq.reshape(3, 3, ci, co).permute(3, 2, 0, 1)
-        xn = x.permute(0, 3, 1, 2)
-        res["library_ms"] = cuda_time(lambda: F.conv2d(xn, k, None, stride, 1))
-        if kind == "pass":
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    TF.pass_3x3_fwd(x, gb, wf, stride)
+            with bound_to(builds[name]):
+                got = call()
                 torch.cuda.synchronize()
-            res["main_pass_kernels_ms"] = {
-                e.key[:60]: e.self_device_time_total / 1e3 / 5
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0}
+                r = res.setdefault(name, {**_errors(got, want), "ms": []})
+                r["ms"].append(cuda_time(call))
+        res["library_ms"] = cuda_time(library)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        res["main_kernels_ms"] = {
+            e.key[:60]: e.self_device_time_total / 1e3 / 5
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
         print(case, json.dumps(res), flush=True)
-        del x, want
+        del call, plain, library, want, got
         torch.cuda.empty_cache()
     return 0
 

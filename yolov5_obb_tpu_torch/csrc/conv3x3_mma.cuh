@@ -57,7 +57,8 @@
 // Statistics: each warp sums its columns over its valid rows (shuffles over
 // lane bits 2-4), the M warps add in a fixed order through shared memory,
 // and the CTA writes its tile's partial row of 2*co floats; a second pass
-// (wgrad.cuh's sum_rows) adds the rows in order.  No float atomics:
+// (wgrad.cuh's sum_rows) adds the rows in order (the PTX helpers and this
+// epilogue are mma.cuh's, shared with the 1x1 pass).  No float atomics:
 // repeated runs agree bit for bit.  One tile per CTA (a persistent loop
 // slowed an earlier shared conv body).  `mma.sync` rather than `wgmma`:
 // its fragments map directly onto the stride-2 gather.  In practice neither
@@ -67,7 +68,7 @@
 // times and the variants measured).
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace conv3x3_mma {
 
@@ -136,47 +137,6 @@ __host__ __device__ inline size_t smem_bytes(int ck) {
   b += (size_t)kStages * ck * Split<N>::kWs * 2;
   if (kStats) b += Split<N>::kWarpsM * 2 * N * sizeof(float);
   return b;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global → shared; zeros (and no read) when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulation
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // silu in float32 with the fast exponential and division (a few float32
@@ -394,70 +354,23 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
   // raw accumulators
   __syncthreads();
   __nv_bfloat16* ot = patch;
-  const int nw = n0 + wn * (8 * kNTiles) + (lane & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-    const int n = nw + 8 * j;
-    const typename Epi::Pair ep =
-        n < co ? epi.at(n) : typename Epi::Pair{};
-    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int oy = oy0 + kMTiles * wm + i, ox = ox0 + (lane >> 2) + 8 * h;
-        if (oy < Ho && ox < Wo && n < co) {
-          const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-          const int p = (kMTiles * wm + i) * kTileX + (lane >> 2) + 8 * h;
-          const float2 e = epi(ep, make_float2(v0, v1));
-          *reinterpret_cast<__nv_bfloat162*>(ot + p * kOs + n - n0) =
-              __floats2bfloat162_rn(e.x, e.y);
-          if (kStats) {
-            s0 += v0;
-            s1 += v1;
-            q0 += v0 * v0;
-            q1 += v1 * v1;
-          }
-        }
-      }
-    if (kStats) {
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-        q0 += __shfl_xor_sync(0xffffffffu, q0, o);
-        q1 += __shfl_xor_sync(0xffffffffu, q1, o);
-      }
-      if (lane < 4) {
-        const int c = wn * (8 * kNTiles) + 8 * j + 2 * lane;
-        float* rw = red + wm * 2 * kChunkN;
-        rw[c] = s0;
-        rw[c + 1] = s1;
-        rw[kChunkN + c] = q0;
-        rw[kChunkN + c + 1] = q1;
-      }
-    }
-  }
+  auto valid = [&](int p) {
+    return oy0 + p / kTileX < Ho && ox0 + p % kTileX < Wo;
+  };
+  stage_outputs<kMTiles, kNTiles, kChunkN, kOs, kStats>(
+      acc, epi, valid, ot, red, wm, wn, lane, n0, co);
   __syncthreads();
-  for (int i = tid; i < kTileY * kTileX * (kChunkN / 8); i += kThreads) {
-    const int p = i / (kChunkN / 8), g = i - p * (kChunkN / 8);
-    const int oy = oy0 + p / kTileX, ox = ox0 + p % kTileX, n = n0 + 8 * g;
-    if (oy < Ho && ox < Wo && n < co)
-      *reinterpret_cast<uint4*>(z + (((size_t)b * Ho + oy) * Wo + ox) * co +
-                                n) =
-          *reinterpret_cast<const uint4*>(ot + p * kOs + 8 * g);
-  }
+  auto dst = [&](int p) -> __nv_bfloat16* {
+    const int oy = oy0 + p / kTileX, ox = ox0 + p % kTileX;
+    return oy < Ho && ox < Wo ? z + (((size_t)b * Ho + oy) * Wo + ox) * co
+                              : nullptr;
+  };
+  store_outputs<kTileY * kTileX, kChunkN, kOs, kThreads>(ot, dst, tid, n0,
+                                                         co);
   if (kStats) {
     const int per_image = gridDim.x / n_chunks;
-    float* row = partial + ((size_t)b * per_image + tile) * 2 * co;
-    for (int i = tid; i < 2 * kChunkN; i += kThreads) {
-      const int which = i / kChunkN, c = i - which * kChunkN;
-      if (n0 + c >= co) continue;
-      float v = 0.f;
-#pragma unroll
-      for (int m = 0; m < kWarpsM; ++m) v += red[m * 2 * kChunkN + i];
-      row[which * co + n0 + c] = v;
-    }
+    write_stats_row<kChunkN, kWarpsM, kThreads>(
+        red, partial + ((size_t)b * per_image + tile) * 2 * co, tid, n0, co);
   }
 }
 

@@ -140,6 +140,19 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 L = ctypes.c_longlong
 
 
+def query(source: str, symbol: str, *args: int) -> int:
+    """Call a host entry point of ``source`` that launches nothing (a
+    launch plan) with int arguments; returns its non-negative result, and
+    raises on the minus-CUDA-error it returns on failure."""
+    fn = getattr(library(source), symbol)
+    fn.argtypes = [I] * len(args)
+    fn.restype = ctypes.c_int
+    out = fn(*args)
+    if out < 0:
+        raise RuntimeError(f"{symbol}: CUDA error {-out}")
+    return out
+
+
 def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
     """Validate a kernel operand: on the card, of ``dtype``, ``ndim``-D and
     contiguous."""

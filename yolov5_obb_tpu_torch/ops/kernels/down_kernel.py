@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
+from ._build import I, Kernel, P, check_aligned, check_cuda, query
 
 KERNEL = Kernel(
     "down", "down_launch", [P, P, P, P, I, I, I, I, I],
@@ -74,8 +74,10 @@ def fused_down(x, w_taps, ss):
 # training: the raw conv and its weight gradient
 # ---------------------------------------------------------------------------
 
-_TRAIN_TILE = (8, 16)  # output pixels per tile of the weight-grad kernel
-_TRAIN_CHUNK = (16, 32)  # input x output channels per weight-grad CTA
+def wgrad_parts(B: int, H: int, W: int, ci: int, co: int) -> int:
+    """Rows of the weight-gradient kernel's partial dW (its CTAs along the
+    pixel axis), as ``csrc/down_train.cu`` plans them for this card."""
+    return query("down_train", "down_train_wgrad_parts", B, H, W, ci, co)
 
 
 def _taps_oihw(w_taps, ci):
@@ -141,9 +143,8 @@ def down_train_wgrad(x, dz):
     if dz.shape != (B, Ho, Wo, co):
         raise ValueError(f"down wgrad kernel: dz {tuple(dz.shape)} for x "
                          f"{tuple(x.shape)}")
-    (ty, tx), (cc, kc) = _TRAIN_TILE, _TRAIN_CHUNK
-    tiles = B * -(-Ho // ty) * -(-Wo // tx)
-    parts = partial_count(x.device, tiles, -(-ci // cc) * -(-co // kc))
+    check_aligned(x=x, dz=dz)
+    parts = wgrad_parts(B, H, W, ci, co)
     partial = torch.empty(parts, 9 * ci, co, device=x.device)
     dw = torch.empty(9 * ci, co, device=x.device)
     TRAIN_WGRAD_KERNEL.launch(x, dz, partial, dw, B, H, W, ci, co, parts)

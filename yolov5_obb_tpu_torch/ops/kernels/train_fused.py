@@ -39,7 +39,10 @@ from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
 
 _BF = torch.bfloat16
 MAX_IN, MAX_W, MAX_OUT, MAX_PAIRS = 8, 4, 2, 2
-_TILE_1X1 = 64  # pixels per tile of the 1x1 kernels
+# pixels per tile of the 1x1 forward (one statistics partial row each) and
+# of the backward: csrc/train_fused_1x1.cu's kFwdTile and kBwdTile
+_TILE_1X1_FWD = 128
+_TILE_1X1_BWD = 64
 # output (rows, columns) per tile of a 3x3 pass, one statistics partial row
 # per tile: csrc/conv3x3_mma.cuh's (kTileY, kTileX) at both strides
 _TILE_3X3 = (8, 16)
@@ -247,6 +250,16 @@ def _desc(ns_flags, groups, outs, z_ins, gbs, ws, cos):
     return d
 
 
+def _named(name, tensors):
+    return {f"{name}{i}": t for i, t in enumerate(tensors)}
+
+
+def pass_1x1_partial_rows(n_pixels: int) -> int:
+    """Rows of scratch for the 1x1 forward kernel's statistics partial: one
+    per tile of pixels, the most CTAs it launches (each writes one row)."""
+    return -(-n_pixels // _TILE_1X1_FWD)
+
+
 def pass_1x1_fwd(ns_flags, groups, outs, z_ins, gbs, ws):
     """Forward of the grouped 1x1 pass → ``(z_outs, stats)`` as in
     :func:`pass_1x1_fwd_plain`.  CPU tensors take the plain version; CUDA
@@ -256,6 +269,7 @@ def pass_1x1_fwd(ns_flags, groups, outs, z_ins, gbs, ws):
         return pass_1x1_fwd_plain(ns_flags, groups, outs, z_ins, gbs, ws)
     wq = [w.to(_BF).contiguous() for w in ws]
     B, H, W, ci, cos = _check_1x1(ns_flags, groups, outs, z_ins, gbs, wq)
+    check_aligned(**_named("z_in", z_ins), **_named("w", wq))
     dev = z_ins[0].device
     z_outs = [torch.empty(B, H, W, co, dtype=_BF, device=dev) for co in cos]
     d = _desc(ns_flags, groups, outs, z_ins, gbs, wq, cos)
@@ -263,7 +277,7 @@ def pass_1x1_fwd(ns_flags, groups, outs, z_ins, gbs, ws):
         d.out[o] = z.data_ptr()
     N = B * H * W
     S = 2 * sum(cos)
-    partial = torch.empty(-(-N // _TILE_1X1), S, device=dev)  # one per tile
+    partial = torch.empty(pass_1x1_partial_rows(N), S, device=dev)
     stats = torch.empty(S, device=dev)
     KERNEL_1X1.launch(ctypes.addressof(d), partial, stats, N)
     offs = [2 * sum(cos[:o]) for o in range(len(cos))]
@@ -296,13 +310,15 @@ def pass_1x1_bwd(ns_flags, groups, outs, z_ins, gbs, ws, z_outs, dz_outs,
                              f"{tuple(ds.shape)}")
         d.out[o], d.dz_out[o], d.dstat[o] = (zo.data_ptr(), dz.data_ptr(),
                                              ds.data_ptr())
+    check_aligned(**_named("z_in", z_ins), **_named("w", wq),
+                  **_named("z_out", z_outs), **_named("dz_out", dz_outs))
     dz_ins = [torch.empty(B, H, W, ci, dtype=_BF, device=dev) for _ in z_ins]
     for i, t in enumerate(wt):
         d.wt[i] = t.data_ptr()
     for i, t in enumerate(dz_ins):
         d.dz_in[i] = t.data_ptr()
     N = B * H * W
-    parts = partial_count(dev, -(-N // _TILE_1X1), per_sm=2)
+    parts = partial_count(dev, -(-N // _TILE_1X1_BWD), per_sm=2)
     nwe = sum(w.numel() for w in wq)
     R = nwe + len(z_ins) * 2 * ci
     partial = torch.empty(parts, R, device=dev)
