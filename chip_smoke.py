@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
       parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh,
-      the body of every 3x3 conv kernel; the downsample weight gradient;
-      the 1x1 pass forward) their registers and spill bytes from ptxas,
+      the body of every 3x3 conv kernel; the stem+L1 kernel; the
+      downsample weight gradient; the 1x1 pass forward and backward) their
+      registers and spill bytes from ptxas,
       which must be 0, and their tensor-core and global-load instructions
       from ``cuobjdump -sass``, which must hold HMMA;
   (b) each inference kernel against its plain PyTorch version on the card at
@@ -17,7 +18,8 @@ Phases, each fatal on failure:
       512/1024/2048 and on a clustered input that overflows M=64; the
       pair-IoU kernel on the clustered input at n = 4096), with kernel /
       plain / library times and the bound from the bytes and operations of
-      the shape;
+      the shape; the stem+L1 kernel also bit for bit on repeat, and beside
+      its bf16 library call the same function with the stem in float32;
   (b') each train kernel (stem forward and weight gradient, downsample
       forward and weight gradient) against its plain version at the train
       path's shapes (the stem; the layer-1 and layer-3 downsamples), dW from
@@ -98,12 +100,14 @@ FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s2": 2, "pass_1x1_fwd": 4, "pass_1x1_bwd": 4,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
 # the libraries holding tensor-core kernels → the substrings of those
-# kernels' names: the 3x3 conv body (csrc/conv3x3_mma.cuh), the downsample
-# weight gradient, the 1x1 pass forward (csrc/mma.cuh's helpers)
+# kernels' names: the 3x3 conv body (csrc/conv3x3_mma.cuh), the stem+L1
+# kernel, the downsample weight gradient, the 1x1 pass forward and backward
+# (csrc/mma.cuh's helpers)
 MMA_SOURCES = {"down": ("conv3x3_mma",),
+               "stem_l1": ("stem_l1_kernel",),
                "down_train": ("conv3x3_mma", "down_wgrad_kernel"),
                "train_fused_3x3": ("conv3x3_mma",),
-               "train_fused_1x1": ("p1x1_fwd_kernel",)}
+               "train_fused_1x1": ("p1x1_fwd_kernel", "p1x1_bwd_kernel")}
 MMA_KERNELS = tuple(dict.fromkeys(n for names in MMA_SOURCES.values()
                                   for n in names))
 # float32 operations per activated element: silu(z·g + b) forward; the
@@ -253,9 +257,11 @@ def check_stem(gen, dev):
                                 bn_stats(gen, c3, dev))
     got = S.fused_stem_l1(x, *ops)
     want = S.fused_stem_l1_plain(x, *ops)
+    repeat = torch.equal(got, S.fused_stem_l1(x, *ops))
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
-    k0 = ops[0].reshape(6, 6, 3, c2).permute(3, 2, 0, 1).to(torch.bfloat16)
+    k0f = ops[0].reshape(6, 6, 3, c2).permute(3, 2, 0, 1).contiguous()
+    k0 = k0f.to(torch.bfloat16)
     k1 = ops[2].reshape(3, 3, c2, c3).permute(3, 2, 0, 1)
     xb = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2)
 
@@ -263,8 +269,13 @@ def check_stem(gen, dev):
         s = F.silu(F.conv2d(xb.to(torch.bfloat16), k0, ops[1].bfloat16(), 2, 2))
         return F.silu(F.conv2d(s, k1, ops[3].bfloat16(), 2, 1))
 
-    # the stem multiplies uint8 values by float32 weights (float32 work);
-    # layer 1 multiplies bf16 activations by bf16 weights
+    def library_f32():  # the same function: the stem in float32 (no TF32)
+        s = F.silu(F.conv2d(xb.float(), k0f, ops[1], 2, 2)).to(torch.bfloat16)
+        return F.silu(F.conv2d(s, k1, ops[3].bfloat16(), 2, 1))
+
+    # the stem multiplies uint8 values by float32 weights, here as three
+    # bf16 products on the tensor cores; layer 1 multiplies bf16
+    # activations by bf16 weights
     hs = IMGSZ // 2
     f_stem = 2 * BATCH * hs * hs * 108 * c2
     f_l1 = 2 * BATCH * (hs // 2) ** 2 * 9 * c2 * c3
@@ -273,12 +284,15 @@ def check_stem(gen, dev):
     return "stem_l1", S.KERNEL, {
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.float().abs().clamp(min=1e-2)).max()),
-        "tolerance": "bf16: 1 ulp of the output, abs <= 0.05",
-        "ok": float(err.max()) <= 0.05,
+        "repeat_bitwise": repeat,
+        "tolerance": "bf16: 1 ulp of the output, abs <= 0.05; repeats bit "
+                     "for bit",
+        "ok": float(err.max()) <= 0.05 and repeat,
         "ms": cuda_time(lambda: S.fused_stem_l1(x, *ops), 5),
         "plain_ms": cuda_time(lambda: S.fused_stem_l1_plain(x, *ops), 3),
         "library_ms": cuda_time(library, 5),
-        "bound": bound(nbytes, (f_stem, PEAK_FP32), (f_l1, PEAK_BF16)),
+        "library_f32_ms": cuda_time(library_f32, 5),
+        "bound": bound(nbytes, (3 * f_stem, PEAK_BF16), (f_l1, PEAK_BF16)),
         "flops": flops, "bytes": nbytes,
     }
 
@@ -1230,7 +1244,8 @@ def step_breakdown(model, loss_fn, opt, state, batch):
 
 # kernel-name substrings → group, first match wins: this port's kernels,
 # cuDNN/CUTLASS convolutions, reductions, elementwise passes
-_GROUPS = (("port kernels", ("stem_fwd_kernel", "stem_wgrad_kernel",
+_GROUPS = (("port kernels", ("stem_l1_kernel", "stem_fwd_kernel",
+                             "stem_wgrad_kernel",
                              "down_wgrad_kernel", "sum_partials",
                              "sum_rows", "conv3x3_mma", "p1x1_fwd_kernel",
                              "p1x1_bwd_kernel")),
@@ -1433,8 +1448,9 @@ def train_path(dev, report, fused=False):
     require(prof["device_ms"] > 0, "the profiler saw no device time")
     # the step's tensor-core kernels count as the port's, not as cuDNN's
     tc = prof["tensor_core_kernels"]
-    want = "p1x1_fwd_kernel" if fused else "down_wgrad_kernel"
-    require(any(want in n for n, *_ in tc) and
+    want = (("p1x1_fwd_kernel", "p1x1_bwd_kernel") if fused
+            else ("down_wgrad_kernel",))
+    require(all(any(w in n for n, *_ in tc) for w in want) and
             all(g == "port kernels" for _, g, *_ in tc),
             f"profile groups of the tensor-core kernels: {tc}")
     report.update({
@@ -1942,6 +1958,8 @@ def main() -> int:
             "kernel_ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": res["library_ms"],
+            **({"library_f32_ms": res["library_f32_ms"]}
+               if "library_f32_ms" in res else {}),
         })
     print(json.dumps({"kernels": kernels, "main_path": report,
                       "tensor_core_kernels": mma, "card": card}), flush=True)

@@ -55,17 +55,24 @@ def _counted(kernel, fn):
     return out
 
 
-@pytest.mark.parametrize("H,W", [(64, 64), (70, 42)])
-def test_stem_l1_kernel(dev, H, W):
+# the yolov5n/s/m/l/x widths of the stem and layer 1
+@pytest.mark.parametrize("c2,c3", [(16, 32), (32, 64), (48, 96), (64, 128),
+                                   (80, 160)])
+# ragged against the 8x16 output tile (and the 17x33 stem tile), odd sizes,
+# a width whose packed rows are not 4-byte multiples
+@pytest.mark.parametrize("H,W", [(64, 64), (70, 42), (2, 2), (37, 131)])
+def test_stem_l1_kernel(dev, H, W, c2, c3):
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randint(0, 256, (2, H, 3 * W), generator=gen, device=dev,
                       dtype=torch.uint8)
-    ops = stem_kernel.fold_stem_l1_params(_w(gen, 16, 3, 6, dev), _bn(gen, 16, dev),
-                                          _w(gen, 32, 16, 3, dev), _bn(gen, 32, dev))
+    ops = stem_kernel.fold_stem_l1_params(_w(gen, c2, 3, 6, dev), _bn(gen, c2, dev),
+                                          _w(gen, c3, c2, 3, dev), _bn(gen, c3, dev))
     got = _counted(stem_kernel.KERNEL, lambda: stem_kernel.fused_stem_l1(x, *ops))
     want = stem_kernel.fused_stem_l1_plain(x, *ops)
     assert got.shape == want.shape
     assert (got.float() - want.float()).abs().max() <= 0.05  # bf16 output ulps
+    # no atomics, a fixed order of sums: repeated runs agree bit for bit
+    assert torch.equal(got, stem_kernel.fused_stem_l1(x, *ops))
 
 
 @pytest.mark.parametrize("H,W,c2", [(64, 64, 48), (70, 42, 32), (37, 51, 8)])
@@ -406,6 +413,42 @@ def test_pass_1x1_kernels(dev, struct, H, W, ci, co):
     assert all(torch.equal(a, b) for a, b in zip(sk, sk2))
     assert all(torch.equal(a, b) for a, b in zip(gk[2], gk2[2]))
     assert all(torch.equal(a, b) for a, b in zip(gk[1], gk2[1]))
+
+
+@pytest.mark.parametrize("struct,ci,co", [
+    # yolov5x's cv3: 6 inputs at ci 80, more than the backward stages
+    ("cv3_x", 80, 160),
+    # 110 dW units of 16 x 16: more than one round of the backward's
+    ("b0_cv1", 160, 176)])
+def test_pass_1x1_backward_many_tiles(dev, struct, ci, co):
+    """The 1x1 backward over many pixel tiles per CTA (2 x 64 x 64 pixels),
+    with unstaged inputs and with dW in rounds: dz_in within one bf16 ulp,
+    dW and (dg, db) within 2e-2 of the largest and bit for bit on repeat."""
+    from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
+
+    ns, groups, outs = _PASS_STRUCTS[struct]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    zs = [torch.randn(2, 64, 64, ci, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in ns]
+    gbs = [_gbt(gen, ci, dev) for _ in ns]
+    nw = 1 + max(w for o in outs for _, w in o)
+    ws = [torch.randn(ci, co, generator=gen, device=dev) / ci ** 0.5
+          for _ in range(nw)]
+    args = (ns, groups, outs, zs, gbs, ws)
+    zp, _ = TF.pass_1x1_fwd_plain(*args)
+    dz = [torch.randn(z.shape, generator=gen, device=dev).to(torch.bfloat16)
+          for z in zp]
+    dst = [1e-3 * torch.randn(2, co, generator=gen, device=dev) for _ in zp]
+    bargs = (*args, zp, dz, dst)
+    gk = _counted(TF.KERNEL_1X1_BWD, lambda: TF.pass_1x1_bwd(*bargs))
+    gp = TF.pass_1x1_bwd_plain(*bargs)
+    for a, b in zip(gk[0], gp[0]):
+        assert _ulp(a, b)
+    for a, b in zip([*gk[1], *gk[2]], [*gp[1], *gp[2]]):
+        assert _rel(a, b, 2e-2)
+    gk2 = TF.pass_1x1_bwd(*bargs)
+    assert all(torch.equal(a, b) for a, b in zip([*gk[0], *gk[1], *gk[2]],
+                                                 [*gk2[0], *gk2[1], *gk2[2]]))
 
 
 @pytest.mark.parametrize("stride", [1, 2])

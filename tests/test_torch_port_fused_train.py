@@ -582,6 +582,36 @@ def test_down_train_contract_raises_before_launch(monkeypatch, ci, co, ok):
         assert not launched
 
 
+@pytest.mark.parametrize("c2,ok", [(16, True), (48, True), (80, True),
+                                   (88, False), (96, False), (12, False)])
+def test_stem_l1_contract_raises_before_launch(monkeypatch, c2, ok):
+    """The stem+L1 kernel takes c2 % 8 == 0 up to 80 (yolov5x's width: its
+    shared memory holds the stem tile, the split weights and the layer-1
+    patch) and checks w1's alignment; anything else raises and launches
+    nothing."""
+    from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+    launched, aligned = [], []
+    monkeypatch.setattr(S, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(S, "check_aligned", lambda **k: aligned.append(k))
+    monkeypatch.setattr(S.KERNEL, "launch", lambda *a: launched.append(a))
+    c3 = 2 * c2
+    meta = dict(device="meta")
+    x = torch.empty(2, 37, 3 * 131, dtype=torch.uint8, **meta)
+    ops = (torch.empty(108, c2, **meta), torch.empty(c2, **meta),
+           torch.empty(9 * c2, c3, dtype=torch.bfloat16, **meta),
+           torch.empty(c3, **meta))
+    if ok:
+        y = S.fused_stem_l1(x, *ops)
+        assert y.shape == (2, 9, 33, c3) and len(launched) == 1
+        assert launched[0][6:] == (2, 37, 131, c2, c3)
+        assert list(aligned[0]) == ["w1"]
+    else:
+        with pytest.raises(ValueError, match="c2 <= 80"):
+            S.fused_stem_l1(x, *ops)
+        assert not launched
+
+
 # ---------------------------------------------------------------------------
 # the tensor-core 1x1 forward and downsample weight gradient: their wrappers
 # against the CUDA sources' tiles, chunks and alignment contract
@@ -629,12 +659,83 @@ def test_pass_1x1_forward_bounds_its_staging():
                   text.index('extern "C" int pass1x1_fwd_launch(')]
     assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in launch
     assert "--nstage" in launch
+    gv = text[text.index("void group_values("):
+              text.index("void member_masks(")]
+    assert "i < nstage" in gv and "d.z[i] + (p0 + p) * ci" in gv
+    assert gv.count("silu_fast(") == 1 and "silu(" not in gv.replace(
+        "silu_fast(", "")
     fwd = text[text.index("p1x1_fwd_kernel("):
                text.index("p1x1_bwd_kernel(")]
-    assert "i < m.nstage" in fwd and "d.z[i] + p0 * ci" in fwd
-    pair = text[text.index("float2 group_pair("):text.index("// forward")]
-    assert pair.count("silu_fast(") == 2 and "silu(" not in pair.replace(
-        "silu_fast(", "")
+    bwd = text[text.index("p1x1_bwd_kernel("):
+               text.index("cudaError_t bwd_plan(")]
+    assert "group_values<" in fwd and "group_values<" in bwd
+
+
+def _section(text, start, end):
+    return text[text.index(start):text.index(end)]
+
+
+def test_stem_l1_runs_the_tensor_core_bodies():
+    """Row 1 (the stem+L1 kernel) runs its stem as mma.sync products of the
+    uint8 image and three bf16 terms of each float32 weight, and its layer
+    1 on the 3x3 body's own main loop (conv_mainloop, no copy of it): no
+    scalar product loop is left."""
+    text = _csrc("stem_l1.cu").read_text()
+    assert "conv3x3_mma.cuh" in _includes("stem_l1.cu")
+    assert "mma.cuh" in _includes("stem_l1.cu")
+    kern = _section(text, "stem_l1_kernel(", "cudaError_t launch_cp(")
+    assert "mma16816(" in kern and "conv3x3_mma::conv_mainloop<2," in kern
+    assert "fmaf(" not in text and "fma_pixel" not in text
+    # the split: hi, mid, lo, each rounded to bf16, into one accumulator
+    assert kern.count("__float2bfloat16(") == 3
+    assert "for (int s = 0; s < 3; ++s)" in kern
+    body = _csrc("conv3x3_mma.cuh").read_text()
+    assert body.count("mma16816(") == 2  # one main loop, in conv_mainloop
+    assert "conv_mainloop<S, N, kMaxChunkK>(" in body
+
+
+def test_pass_1x1_backward_runs_on_tensor_cores():
+    """Row 9b: dW = gvalᵀ·e_o and t = e_o·Wᵀ are mma.sync products (no
+    scalar fmaf loop, no transposed weight copy), and the input gradients
+    leave through the staged tiles in 16-byte stores."""
+    text = _csrc("train_fused_1x1.cu").read_text()
+    bwd = _section(text, "p1x1_bwd_kernel(", "cudaError_t bwd_plan(")
+    assert bwd.count("mma16816(") == 3
+    assert "ldsm_x4_trans(a, G +" in bwd and "ldsm_x2(bf, B +" in bwd
+    assert "fmaf(" not in bwd and "ldg8_bf16" not in bwd
+    assert "wt[" not in text
+    assert "*reinterpret_cast<uint4*>(d.dz_in[ii]" in bwd
+    assert all(f != "wt" for f, _ in TF._Desc._fields_)
+
+
+def test_pass_1x1_backward_bounds_its_staging():
+    """The backward stages by cp.async only as many inputs as the card's
+    shared memory per block holds (yolov5x's 6-input cv3 does not fit
+    whole) and reads the others, and writes their gradients, in device
+    memory."""
+    text = _csrc("train_fused_1x1.cu").read_text()
+    plan = _section(text, "cudaError_t bwd_plan(", "cudaError_t bwd_launch(")
+    assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in plan
+    assert "--nstage" in plan
+    bwd = _section(text, "p1x1_bwd_kernel(", "cudaError_t bwd_plan(")
+    assert "ii < m.nstage" in bwd and "d.dz_in[ii] + (p0 + p) * ci" in bwd
+    assert "d.z[ii] + (p0 + p) * ci" in bwd
+
+
+def test_pass_1x1_backward_plans_its_partials_in_c():
+    """The backward's CTA count is planned in C from the occupancy query
+    (pass1x1_bwd_parts launches nothing), over its rounds of dW units; the
+    wrapper asks it and mirrors none of the kernel's tiles or residency."""
+    text = _csrc("train_fused_1x1.cu").read_text()
+    plan = _section(text, "cudaError_t bwd_plan(", "cudaError_t bwd_launch(")
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in plan
+    assert "m->rounds" in plan
+    assert 'extern "C" int pass1x1_bwd_parts(' in text
+    import inspect
+
+    src = inspect.getsource(TF.pass_1x1_bwd)
+    assert "pass_1x1_bwd_parts(d, N)" in src and "partial_count" not in src
+    assert not hasattr(TF, "_TILE_1X1_BWD")
 
 
 def _fake_sms(monkeypatch, sms=132):
@@ -647,8 +748,13 @@ def _fake_sms(monkeypatch, sms=132):
 
 def _meta_1x1(monkeypatch, B, H, W, ci=16, co=24, aligned=None):
     """The cv1+cv2 structure's forward and backward on meta tensors (the
-    kernel branch, nothing run), recording launches and alignment checks."""
+    kernel branch, nothing run), recording launches and alignment checks;
+    the backward's partial count (a C query, recorded in ``_meta_1x1.asked``)
+    answers 7 + N % 5."""
     launched = {"fwd": [], "bwd": []}
+    _meta_1x1.asked = []
+    monkeypatch.setattr(TF, "query", lambda *a, **k: _meta_1x1.asked.append(
+        (a, k)) or 7 + a[3] % 5)
     monkeypatch.setattr(TF, "check_cuda", lambda *a: None)
     monkeypatch.setattr(TF, "check_aligned",
                         aligned or (lambda **k: launched.setdefault(
@@ -676,11 +782,11 @@ def _meta_1x1(monkeypatch, B, H, W, ci=16, co=24, aligned=None):
 def test_pass_1x1_partials_follow_the_tiles(monkeypatch, B, H, W):
     """The 1x1 forward's statistics partial has room for one row per
     kFwdTile pixels (train_fused_1x1.cu: at most one CTA per tile, each
-    writing one row), the backward's one row of dW and (dg, db) per block,
-    min(kBwdTile tiles, 2 per SM)."""
+    writing one row), the backward's one row of dW and (dg, db) per CTA,
+    as many as train_fused_1x1.cu's own plan (pass1x1_bwd_parts, asked
+    with the pass's descriptor) launches."""
     fwd_tile = _constexpr("train_fused_1x1.cu", "kFwdTile")
-    bwd_tile = _constexpr("train_fused_1x1.cu", "kBwdTile")
-    assert (TF._TILE_1X1_FWD, TF._TILE_1X1_BWD) == (fwd_tile, bwd_tile)
+    assert TF._TILE_1X1_FWD == fwd_tile
     N, ci, co = B * H * W, 16, 24
     assert TF.pass_1x1_partial_rows(N) == -(-N // fwd_tile)
     launched, fwd, bwd = _meta_1x1(monkeypatch, B, H, W, ci, co)
@@ -689,8 +795,12 @@ def test_pass_1x1_partials_follow_the_tiles(monkeypatch, B, H, W):
     assert partial.shape == (-(-N // fwd_tile), 4 * co)
     assert stats.shape == (4 * co,) and n == N
     bwd()
-    (_, partial, sums, n, parts), = launched["bwd"]
-    assert parts == min(-(-N // bwd_tile), 132 * 2)
+    (desc, partial, sums, n, parts), = launched["bwd"]
+    ((source, symbol, addr, n_px), kw), = _meta_1x1.asked
+    assert (source, symbol, addr, n_px) == ("train_fused_1x1",
+                                            "pass1x1_bwd_parts", desc, N)
+    assert kw == {"argtypes": [TF.P, TF.I]}
+    assert parts == 7 + N % 5
     R = 2 * ci * co + 2 * ci
     assert partial.shape == (parts, R) and sums.shape == (R,) and n == N
 

@@ -1,28 +1,31 @@
 #!/usr/bin/env python3
 """A/B variants of the port's tensor-core kernels on one NVIDIA card.
 
-    python3 tools/torch_conv3x3_ab.py [variants.json]
+    python3 tools/torch_conv3x3_ab.py [variants.json [case ...]]
 
 ``variants.json`` maps a name to a list of substitutions, each
 ``[regex, replacement]`` (applied to ``csrc/conv3x3_mma.cuh``) or
 ``[file, regex, replacement]`` (applied to ``csrc/<file>``), in the
 directory ``yolov5_obb_tpu_torch``.  Each variant's tensor-core libraries
-(``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
-``train_fused_1x1.cu``) are compiled with the port's flags into the
-(gitignored) build directory.  At the yolov5m b16 1024² shapes of every
-tensor-core kernel — the inference downsample (row 3, layer 3: 256² x 96 →
-128² x 192), the raw train downsample (row 8a, L1: 512² x 48 → 96, L3) and
-its weight gradient (row 8b, L1, L3), the grouped 1x1 pass forward (row 9a,
-the four structures of the C3 region at 256²), the stride-1 bottleneck pass
-(row 10, 256² x 48 → 48) and the stride-2 passes (row 11, L1, L3) — every
-build runs through the port's own wrapper (the variant's entry point bound
-in place of the main build's, and its launch plans, such as the weight
-gradient's partial count, asked of it), is held to the plain version and
-timed with
-CUDA events, in the order main, variants, variants reversed, main; the
-library call (cuDNN, bf16) beside it; then a profiler split of the main
-build's call into its kernels.  Prints the card line and one JSON line per
-case.
+(``stem_l1.cu``, ``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
+``train_fused_1x1.cu``) that its substitutions touch are compiled with the
+port's flags into the (gitignored) build directory.  At the yolov5m b16
+1024² shapes of every tensor-core kernel — the stem+L1 kernel (row 1: the
+packed 1024² image → 256² x 96), the inference downsample (row 3, layer 3:
+256² x 96 → 128² x 192), the raw train downsample (row 8a, L1: 512² x 48 →
+96, L3) and its weight gradient (row 8b, L1, L3), the grouped 1x1 pass
+forward (row 9a) and backward (row 9b), each at the four structures of the
+C3 region at 256², the stride-1 bottleneck pass (row 10, 256² x 48 → 48)
+and the stride-2 passes (row 11, L1, L3) — every build runs through the
+port's own wrapper (the variant's entry point bound in place of the main
+build's, and its launch plans, such as the partial counts, asked of it), is
+held to the plain version and timed with CUDA events, in the order main,
+variants, variants reversed, main; the library call (cuDNN, bf16; for row
+1 the same function, its stem in float32) beside it; then a profiler split
+of the main build's call into its kernels.  Prints the card line and one
+JSON line per case.  Case names after the variants file (``{}`` for none)
+keep only the cases named so or starting with one of them and "_", e.g.
+``row1 row9b``.
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-SOURCES = ("down", "down_train", "train_fused_3x3", "train_fused_1x1")
+SOURCES = ("stem_l1", "down", "down_train", "train_fused_3x3",
+           "train_fused_1x1")
 # case → (kind, ci, co or 1x1 structure, input side, stride)
-CASES = (("row3_L3", "down", 96, 192, 256, 2),
+CASES = (("row1", "stem_l1", 48, 96, 1024, 2),
+         ("row3_L3", "down", 96, 192, 256, 2),
          ("row8a_L1", "down_train", 48, 96, 512, 2),
          ("row8a_L3", "down_train", 96, 192, 256, 2),
          ("row8b_L1", "wgrad", 48, 96, 512, 2),
@@ -52,6 +57,11 @@ CASES = (("row3_L3", "down", 96, 192, 256, 2),
          # yolov5x's cv3 (4 bottlenecks, 80 channels): more inputs than the
          # forward's shared memory stages
          ("row9a_cv3_x", "p1x1", 80, "cv3_x", 256, 1),
+         ("row9b_cv1_cv2", "p1x1_bwd", 96, "cv1_cv2", 256, 1),
+         ("row9b_b0_cv1", "p1x1_bwd", 48, "b0_cv1", 256, 1),
+         ("row9b_b1_cv1", "p1x1_bwd", 48, "b1_cv1", 256, 1),
+         ("row9b_cv3", "p1x1_bwd", 48, "cv3", 256, 1),
+         ("row9b_cv3_x", "p1x1_bwd", 80, "cv3_x", 256, 1),
          ("row10_bottleneck", "pass", 48, 48, 256, 1),
          ("row11_L1", "pass", 48, 96, 512, 2),
          ("row11_L3", "pass", 96, 192, 256, 2))
@@ -80,10 +90,12 @@ def cuda_time(fn, iters=10, warmup=2):
 def _kernels():
     """The tensor-core kernels' Kernel objects (their wrappers launch)."""
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+    from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    return [D.KERNEL, D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL,
-            TF.KERNEL_1X1, TF.KERNEL_3X3S1, TF.KERNEL_3X3S2]
+    return [S.KERNEL, D.KERNEL, D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL,
+            TF.KERNEL_1X1, TF.KERNEL_1X1_BWD, TF.KERNEL_3X3S1,
+            TF.KERNEL_3X3S2]
 
 
 def build_variant(name, subs):
@@ -104,11 +116,17 @@ def build_variant(name, subs):
                   f"skipped", flush=True)
             return None
         (d / file).write_text(new)
+    # rebuild the libraries the substitutions touch (a changed header
+    # touches them all); the others are the main build's
+    changed = {f.name for f in d.iterdir() if f.suffix in (".cu", ".cuh")
+               and f.read_bytes() != (_build.CSRC_DIR / f.name).read_bytes()}
+    header = any(f.endswith(".cuh") for f in changed)
     procs = {src: subprocess.Popen(
         [_build._nvcc(), *_build._flags(src), "-I", str(d), "-o",
          str(d / f"{src}.so"), str(d / f"{src}.cu")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for src in SOURCES}
-    libs = {}
+        stderr=subprocess.STDOUT, text=True) for src in SOURCES
+        if header or f"{src}.cu" in changed}
+    libs = {src: _build.library(src) for src in SOURCES if src not in procs}
     for src, proc in procs.items():
         log = proc.communicate()[0]
         regs = re.findall(r"Used (\d+) registers", log)
@@ -166,7 +184,34 @@ def _case(kind, ci, co, H, stride, gen, dev):
     bf = torch.bfloat16
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     gbf = lambda c: torch.stack([1 + 0.3 * rnd(c), 0.2 * rnd(c)])
-    if kind == "p1x1":
+    if kind == "stem_l1":
+        import types
+
+        from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+        def bn(c):
+            u = lambda lo, hi: lo + (hi - lo) * torch.rand(
+                c, generator=gen, device=dev)
+            return types.SimpleNamespace(
+                weight=u(0.5, 1.5), bias=u(-0.2, 0.2),
+                running_mean=u(-0.3, 0.3), running_var=u(0.5, 2.0))
+
+        x = torch.randint(0, 256, (BATCH, H, 3 * H), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        ops = S.fold_stem_l1_params(rnd(ci, 3, 6, 6) / 108 ** 0.5, bn(ci),
+                                    rnd(co, ci, 3, 3) / (9 * ci) ** 0.5,
+                                    bn(co))
+        k0 = ops[0].reshape(6, 6, 3, ci).permute(3, 2, 0, 1).contiguous()
+        k1 = ops[2].reshape(3, 3, ci, co).permute(3, 2, 0, 1)
+        xn = x.view(BATCH, H, H, 3).permute(0, 3, 1, 2)
+
+        def library():  # the stem in float32 (no TF32), layer 1 in bf16
+            s = F.silu(F.conv2d(xn.float(), k0, ops[1], 2, 2)).to(bf)
+            return F.silu(F.conv2d(s, k1, ops[3].to(bf), 2, 1))
+
+        return (lambda: S.fused_stem_l1(x, *ops),
+                lambda: S.fused_stem_l1_plain(x, *ops), library)
+    if kind in ("p1x1", "p1x1_bwd"):
         ns, groups, outs, _, cos = {**_PASS_1X1, **X_1X1}[co]
         zs = [rnd(BATCH, H, H, ci).to(bf) for _ in ns]
         gbs = [gbf(ci) for _ in ns]
@@ -176,9 +221,19 @@ def _case(kind, ci, co, H, stride, gen, dev):
             bf).permute(0, 3, 1, 2)
         wl = (torch.cat([torch.cat([ws[w] for _, w in o], 0) for o in outs],
                         1).T.contiguous().to(bf)[:, :, None, None])
-        return (lambda: TF.pass_1x1_fwd(*args),
-                lambda: TF.pass_1x1_fwd_plain(*args),
-                lambda: F.conv2d(gv, wl))
+        if kind == "p1x1":
+            return (lambda: TF.pass_1x1_fwd(*args),
+                    lambda: TF.pass_1x1_fwd_plain(*args),
+                    lambda: F.conv2d(gv, wl))
+        zp = TF.pass_1x1_fwd_plain(*args)[0]
+        dz = [rnd(*z.shape).to(bf) for z in zp]
+        dst = [1e-3 * rnd(2, z.shape[-1]) for z in zp]
+        bargs = (*args, zp, dz, dst)
+        el = torch.cat(dz, -1).permute(0, 3, 1, 2)
+        return (lambda: TF.pass_1x1_bwd(*bargs),
+                lambda: TF.pass_1x1_bwd_plain(*bargs),
+                lambda: (torch.nn.grad.conv2d_weight(gv, wl.shape, el),
+                         torch.nn.grad.conv2d_input(gv.shape, wl, el)))
     x = rnd(BATCH, H, H, ci).to(bf)
     wf = rnd(9 * ci, co) / (9 * ci) ** .5
     wq = wf.to(bf)
@@ -240,6 +295,7 @@ def main() -> int:
                          text=True).stdout.strip(), flush=True)
     variants = (json.loads(Path(sys.argv[1]).read_text())
                 if len(sys.argv) > 1 else {})
+    only = tuple(sys.argv[2:])
     builds = {"main": None}
     for name, subs in variants.items():
         build = build_variant(name, subs)
@@ -248,6 +304,9 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     for case, kind, ci, co, H, stride in CASES:
+        if only and not any(case == o or case.startswith(o + "_")
+                            for o in only):
+            continue
         call, plain, library = _case(kind, ci, co, H, stride, gen, dev)
         want = plain()
         res = {}

@@ -9,14 +9,6 @@ __device__ __forceinline__ float silu(float v) {
   return v / (1.0f + expf(-v));
 }
 
-// Σ of v over the 32 lanes of a warp, in every lane (a fixed butterfly:
-// the same inputs give the same bits).  All 32 lanes must call it.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }

@@ -1,9 +1,10 @@
 // A SAME Conv(3x3, pad 1) as a tensor-core implicit GEMM for Hopper, the
 // body of every 3x3 conv kernel of the port: the inference downsample
 // (down.cu: a BatchNorm scale/shift + SiLU epilogue), the train-mode
-// downsample forward (down_train.cu: the raw conv) and the fused train
-// passes at stride 1 and 2 (train_fused_3x3.cu: a BatchNorm + SiLU prologue
-// on the input, per-channel sums of the float32 accumulator).
+// downsample forward (down_train.cu: the raw conv), the fused train passes
+// at stride 1 and 2 (train_fused_3x3.cu: a BatchNorm + SiLU prologue on the
+// input, per-channel sums of the float32 accumulator) and layer 1 of the
+// stem+L1 kernel (stem_l1.cu: its patch computed in the CTA, not copied).
 //
 // x (B, H, W, ci) bf16; taps w (9*ci, co) bf16, row (3*dy + dx)*ci + c.
 // z (B, (H-1)/S + 1, (W-1)/S + 1, co) bf16: the float32 sums, through the
@@ -172,34 +173,31 @@ struct BnSilu {
   }
 };
 
-// One CTA: output tile (ty, tx) of image b, output channels n0 .. n0+N-1.
-// gb: (2, ci) float32 [g; b] of the prologue (kAct); partial: one row of
-// 2*co floats per tile (kStats), sums of the raw accumulators.
-template <int S, int N, bool kAct, bool kStats, bool kVec, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
-            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ z,
-            float* __restrict__ partial, Epi epi, int H, int W, int ci, int co,
-            int Ho, int Wo, int tiles_x, int n_chunks, int ck_max) {
+// The body's main loop: acc (zeroed here) = the conv of the patch with the
+// taps w at output channels n0 .. n0 + N - 1, walked in chunks of ck_max
+// (<= kMaxK) input channels (ci padded to 16).  load_patch(k) stages chunk
+// k's patch into `patch` (pitch ck_max + 8 bf16 per slot): chunk 0's
+// before the first taps are copied, a later chunk's once the previous one
+// is read; whatever cp.async copies it issues land before the chunk's first
+// products.  activate(k) runs at the chunk's first tap, after those copies
+// landed and before the barrier that publishes them.  The taps stream
+// through the kStages ring at wbuf.  Every 3x3 conv of the port runs this
+// loop: conv_kernel on a patch it copies from device memory, the stem+L1
+// kernel (stem_l1.cu) on one it computes itself.
+template <int S, int N, int kMaxK, typename LoadPatch, typename Activate>
+__device__ __forceinline__ void conv_mainloop(
+    float (&acc)[Split<N>::kMTiles][Split<N>::kNTiles][4],
+    const __nv_bfloat16* patch, __nv_bfloat16* wbuf,
+    const __nv_bfloat16* __restrict__ w, int ci, int co, int n0, int ck_max,
+    const LoadPatch& load_patch, const Activate& activate) {
   using P = Patch<S>;
   using Sp = Split<N>;
-  constexpr int kChunkN = N, kWs = Sp::kWs, kOs = Sp::kOs;
+  constexpr int kChunkN = N, kWs = Sp::kWs;
   constexpr int kWarpsM = Sp::kWarpsM, kMTiles = Sp::kMTiles;
   constexpr int kNTiles = Sp::kNTiles;
-  extern __shared__ float4 smem4[];
-  const int ps = ck_max + 8;                      // bf16 per patch slot
-  auto* patch = reinterpret_cast<__nv_bfloat16*>(smem4);
-  auto* wbuf = patch + patch_elems<S, N>(ck_max);
-  float* red = reinterpret_cast<float*>(wbuf + (size_t)kStages * ck_max * kWs);
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % kWarpsM, wn = warp / kWarpsM;
-  const int tile = blockIdx.x / n_chunks;
-  const int n0 = (blockIdx.x - tile * n_chunks) * kChunkN;
-  const int b = blockIdx.y;
-  const int oy0 = (tile / tiles_x) * kTileY, ox0 = (tile % tiles_x) * kTileX;
-  const int iy0 = S * oy0 - 1, ix0 = S * ox0 - 1;
-  const __nv_bfloat16* xb = x + (size_t)b * H * W * ci;
+  const int ps = ck_max + 8;  // bf16 per patch slot
   const int cp = (ci + 15) / 16 * 16;
   const int kchunks = (cp + ck_max - 1) / ck_max;
   const int steps = 9 * kchunks;
@@ -217,6 +215,101 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
                  full ? w + ((size_t)tap * ci + c) * co + n : w, full);
     }
   };
+
+  // per lane: its A row (output pixel px = lane % 16 of output row
+  // kMTiles*wm + i) at tap (0, 0), and its k half; its B row and column
+  int abase[kMTiles];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+    abase[i] = S * (kMTiles * wm + i) * P::row_slots + P::slot(S * (lane & 15));
+  const int akoff = (lane >> 4) * 8;
+  const int brow = lane & 15, bcol = wn * (8 * kNTiles) + (lane >> 4) * 8;
+
+  // the pipeline: step s computes chunk s / 9's tap s % 9 while the taps of
+  // step s + 2 load; a chunk's patch loads (and is activated) once the
+  // previous chunk is read
+  load_patch(0);
+  load_taps(0, 0);
+  cp_async_commit();
+  if (steps > 1) load_taps(1, 1);
+  cp_async_commit();
+  // zeroed after load_patch: a patch computed in the CTA needs the
+  // registers first
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    const int tap = s % 9, k = s / 9;
+    const int ck = min(ck_max, cp - k * ck_max);
+    if (tap == 0 && k > 0) {
+      __syncthreads();  // the previous chunk's patch is read
+      load_patch(k);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();  // this step's taps (and chunk 0's patch) landed
+    }
+    if (tap == 0) activate(k);
+    __syncthreads();  // ... for all; step s - 1's tap slot is free
+    if (s + 2 < steps) load_taps(s + 2, (s + 2) % kStages);
+    cp_async_commit();
+
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const int toff = dy * P::row_slots + P::slot(dx);
+    const __nv_bfloat16* wt = wbuf + (size_t)(s % kStages) * ck_max * kWs;
+#pragma unroll
+    for (int kk = 0; kk < kMaxK; kk += 16) {
+      if (kk >= ck) break;
+      uint32_t a[kMTiles][4];
+#pragma unroll
+      for (int i = 0; i < kMTiles; ++i)
+        ldsm_x4(a[i], patch + (abase[i] + toff) * ps + kk + akoff);
+#pragma unroll
+      for (int p = 0; p < kNTiles / 2; ++p) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, wt + (kk + brow) * kWs + bcol + 16 * p);
+#pragma unroll
+        for (int i = 0; i < kMTiles; ++i) {
+          mma16816(acc[i][2 * p], a[i], bf[0], bf[1]);
+          mma16816(acc[i][2 * p + 1], a[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// One CTA: output tile (ty, tx) of image b, output channels n0 .. n0+N-1.
+// gb: (2, ci) float32 [g; b] of the prologue (kAct); partial: one row of
+// 2*co floats per tile (kStats), sums of the raw accumulators.
+template <int S, int N, bool kAct, bool kStats, bool kVec, typename Epi>
+__global__ void __launch_bounds__(kThreads)
+conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
+            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ z,
+            float* __restrict__ partial, Epi epi, int H, int W, int ci, int co,
+            int Ho, int Wo, int tiles_x, int n_chunks, int ck_max) {
+  using P = Patch<S>;
+  using Sp = Split<N>;
+  constexpr int kChunkN = N, kOs = Sp::kOs;
+  constexpr int kWarpsM = Sp::kWarpsM, kMTiles = Sp::kMTiles;
+  constexpr int kNTiles = Sp::kNTiles;
+  extern __shared__ float4 smem4[];
+  const int ps = ck_max + 8;                      // bf16 per patch slot
+  auto* patch = reinterpret_cast<__nv_bfloat16*>(smem4);
+  auto* wbuf = patch + patch_elems<S, N>(ck_max);
+  float* red = reinterpret_cast<float*>(wbuf + (size_t)kStages * ck_max * Sp::kWs);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int tile = blockIdx.x / n_chunks;
+  const int n0 = (blockIdx.x - tile * n_chunks) * kChunkN;
+  const int b = blockIdx.y;
+  const int oy0 = (tile / tiles_x) * kTileY, ox0 = (tile % tiles_x) * kTileX;
+  const int iy0 = S * oy0 - 1, ix0 = S * ox0 - 1;
+  const __nv_bfloat16* xb = x + (size_t)b * H * W * ci;
+  const int cp = (ci + 15) / 16 * 16;
 
   // the patch of chunk k (channels k*ck_max ..), raw: zero outside the
   // image and past ci.  16-byte rows by cp.async with zero fill (kVec: ci %
@@ -260,6 +353,7 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
   // no barrier comes between; the next one publishes the values.  The
   // thread's one channel group keeps its g and b in registers.
   auto activate_own = [&](int k) {
+    if (!kAct) return;
     const int c0 = k * ck_max, groups = min(ck_max, cp - c0) / 8;
     const int g = tid % groups, c = c0 + 8 * g;
     if (c >= ci) return;
@@ -286,68 +380,8 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
   };
 
   float acc[kMTiles][kNTiles][4];
-#pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // per lane: its A row (output pixel px = lane % 16 of output row
-  // kMTiles*wm + i) at tap (0, 0), and its k half; its B row and column
-  int abase[kMTiles];
-#pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-    abase[i] = S * (kMTiles * wm + i) * P::row_slots + P::slot(S * (lane & 15));
-  const int akoff = (lane >> 4) * 8;
-  const int brow = lane & 15, bcol = wn * (8 * kNTiles) + (lane >> 4) * 8;
-
-  // the pipeline: step s computes chunk s / 9's tap s % 9 while the taps of
-  // step s + 2 load; a chunk's patch loads (and is activated) once the
-  // previous chunk is read
-  load_patch(0);
-  load_taps(0, 0);
-  cp_async_commit();
-  if (steps > 1) load_taps(1, 1);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    const int tap = s % 9, k = s / 9;
-    const int ck = min(ck_max, cp - k * ck_max);
-    if (tap == 0 && k > 0) {
-      __syncthreads();  // the previous chunk's patch is read
-      load_patch(k);
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {
-      cp_async_wait<1>();  // this step's taps (and chunk 0's patch) landed
-    }
-    if (kAct && tap == 0) activate_own(k);
-    __syncthreads();  // ... for all; step s - 1's tap slot is free
-    if (s + 2 < steps) load_taps(s + 2, (s + 2) % kStages);
-    cp_async_commit();
-
-    const int dy = tap / 3, dx = tap - 3 * dy;
-    const int toff = dy * P::row_slots + P::slot(dx);
-    const __nv_bfloat16* wt = wbuf + (size_t)(s % kStages) * ck_max * kWs;
-#pragma unroll
-    for (int kk = 0; kk < kMaxChunkK; kk += 16) {
-      if (kk >= ck) break;
-      uint32_t a[kMTiles][4];
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i)
-        ldsm_x4(a[i], patch + (abase[i] + toff) * ps + kk + akoff);
-#pragma unroll
-      for (int p = 0; p < kNTiles / 2; ++p) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, wt + (kk + brow) * kWs + bcol + 16 * p);
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i) {
-          mma16816(acc[i][2 * p], a[i], bf[0], bf[1]);
-          mma16816(acc[i][2 * p + 1], a[i], bf[2], bf[3]);
-        }
-      }
-    }
-  }
+  conv_mainloop<S, N, kMaxChunkK>(acc, patch, wbuf, w, ci, co, n0, ck_max,
+                                  load_patch, activate_own);
 
   // epilogue: the mapped bf16 outputs through shared memory (the patch's
   // room), then 16-byte stores; with kStats the per-channel sums of the

@@ -4,8 +4,9 @@
 // float32 accumulators to bf16 outputs with 16-byte coalesced stores and to
 // per-channel statistics summed in a fixed order.
 //
-// Users: conv3x3_mma.cuh (every 3x3 conv kernel), down_train.cu's weight
-// gradient, train_fused_1x1.cu's forward.
+// Users: conv3x3_mma.cuh (every 3x3 conv kernel, the stem+L1 kernel's
+// layer 1), stem_l1.cu's stem, down_train.cu's weight gradient,
+// train_fused_1x1.cu's forward and backward.
 #pragma once
 
 #include "common.cuh"
@@ -41,6 +42,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       : "r"(smem_addr(p)));
 }
 // two 8x8 matrices, from the row addresses of lanes 0-15
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"

@@ -9,110 +9,330 @@
 // row (6*dy + dx)*3 + c; the stem shift b0 (c2); layer-1 taps w1 (9*c2, c3)
 // bf16, row (3*dy + dx)*c2 + ci, BN scale folded; the shift b1 (c3).
 // Output (B, Ho, Wo, c3) bf16.  Numerics follow the TPU kernel: the stem is
-// computed in float32 from the exact uint8 values, rounded to bf16 before
-// layer 1, and layer 1 accumulates in float32.
+// the float32 products of the exact uint8 values and the float32 weights,
+// rounded to bf16 before layer 1, and layer 1 accumulates in float32.
 //
-// Bound on this card at yolov5m b16 1024² (c2=48, c3=96): operations.
-// The stem's 43.5 GFLOP are float32 (uint8 values times float32 weights):
-// 0.65 ms at 67 TFLOP/s; layer 1's 87 GFLOP are bf16: 0.09 ms at the
-// 989 TFLOP/s tensor-core peak; together 0.74 ms, against 0.08 ms for the
-// ~251 MB moved (50 MB image in, 201 MB out).  This first version does all
-// of it in scalar float32 FMAs; tensor cores for layer 1 are the next step.
+// Bound on this card at yolov5m b16 1024² (c2=48, c3=96): operations.  The
+// stem's 43.5 GFLOP run here as three bf16 products (130.5 GFLOP, 0.13 ms at
+// the 989 TFLOP/s tensor-core peak), layer 1's 87 GFLOP take 0.09 ms:
+// together 0.22 ms, against 0.075 ms for the ~251 MB moved (50 MB image in,
+// 201 MB out).
 //
-// Design: one block per 8x16 tile of layer-1 outputs of one image.  The
-// block stages the 38x70 image patch it needs (as float) in shared memory,
-// computes the 17x33 stem pixels under the tile into a padded bf16 shared
-// tile (stem pixels outside the stem image are layer 1's zero padding), then
-// computes the layer-1 tile from it.  Each thread owns 8 output channels of
-// one pixel; a warp covers 32 pixels of the same channel group, so weight
-// reads are warp-uniform broadcasts from the read-only cache.
-#include "common.cuh"
+// Design: one CTA per 8x16 tile of layer-1 outputs of one image, the 4 warps
+// of conv3x3_mma.cuh's body.
+// 1. The stem on the tensor cores with float32 products.  A uint8 value is
+//    exact in bf16; each float32 weight is split once per CTA into three bf16
+//    terms w = hi + mid + lo (3 x 8 significant bits: float32's 24) in
+//    shared memory, and the three products add into the same float32
+//    accumulators (mma.sync m16n8k16).  GEMM view: M = the 17x33 stem
+//    pixels under the tile (layer 1's stride-2 patch, 9.6% more than the
+//    tile's 4 x 128), N = c2 (padded to 16), K = 6 image rows x 18
+//    contiguous packed bytes (108, padded to 112 with zero weights), so K is
+//    the weights' own row order.  The image rows the tile needs (38 x 210
+//    bytes) are staged as uint8; each A register is one 2-byte load of two
+//    neighbouring packed bytes turned into a bf16 pair (the pair never
+//    crosses a tap row: 18 is even).  B (the split weights, [k][c2 + 8]) by
+//    ldmatrix.x4.trans, conflict-free.  Each warp takes 3 m16 tiles at a time
+//    (2 at c2 > 48): 12 steps of 48 pixels share the 4 warps evenly.
+// 2. The stem epilogue: + b0, SiLU (IEEE expf), one rounding to bf16,
+//    written straight into the layer-1 patch in the layout the body's
+//    stride-2 gather reads (Patch<2>: even and odd columns apart, a slot of
+//    c2 + 8 channels: an odd number of 16-byte units).  A stem pixel outside
+//    the stem image, and a channel past c2, is written as zero: layer 1's
+//    padding.
+// 3. Layer 1 on conv3x3_mma.cuh's main loop (conv_mainloop), its patch
+//    filled by step 2 instead of copied from device memory (one chunk of all
+//    c2 channels; the loop's patch hook does nothing), the taps streaming
+//    through the body's cp.async ring,
+//    which takes the room of the split weights and the image once the stem
+//    is done.  Epilogue: + b1, SiLU (IEEE expf), one rounding, 16-byte
+//    stores through shared memory (mma.cuh's).  A c3 wider than one N chunk
+//    (chunk_n: 48 or 96) runs its chunks one after the other on the same
+//    patch, so the stem is computed once per tile.
+// Shared memory at yolov5m: 64.7 KB of patch + 45.7 KB for the stem's
+// operands (the ring needs 30.0): 110.4 KB, two CTAs per SM.  c2 may be at
+// most 80 (yolov5x): the patch, the split weights and the image must fit a
+// block's shared memory.
+#include "conv3x3_mma.cuh"
 
 namespace {
 
-constexpr int TY = 8, TX = 16;               // layer-1 outputs per block
-constexpr int SY = 2 * TY + 1, SX = 2 * TX + 1;  // stem pixels per block
-constexpr int IY = 2 * SY + 4, IX = 2 * SX + 4;  // image pixels per block
-constexpr int kThreads = 256;
+using conv3x3_mma::kStages;
+using conv3x3_mma::kThreads;
+using conv3x3_mma::kTileX;
+using conv3x3_mma::kTileY;
+using conv3x3_mma::Split;
+using P2 = conv3x3_mma::Patch<2>;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kWarps = kThreads / 32;
+constexpr int kStemPx = P2::rows * P2::cols;       // stem pixels per CTA
+constexpr int kImgRows = 2 * P2::rows + 4;         // image rows per CTA
+constexpr int kImgBytes = 3 * (2 * P2::cols + 4);  // packed bytes per row
+constexpr int kImgWords = (kImgBytes + 3) / 4;
+constexpr int kImgPitch = 4 * kImgWords;           // bytes per staged row
+constexpr int kTaps = 108;                         // 6 rows x 18 bytes
+constexpr int kK = 112;                            // K padded to k16 steps
+
+// The stem GEMM for c2 padded to CP: n8 tiles, m16 tiles per warp step,
+// steps, and the bf16 per row and in all of the three split weights.
+template <int CP> struct Stem {
+  static_assert(CP % 16 == 0 && CP <= 80, "c2 padded to 16, at most 80");
+  static constexpr int kNT = CP / 8;
+  static constexpr int kM = CP <= 48 ? 3 : 2;
+  static constexpr int kUnits = (kStemPx + 16 * kM - 1) / (16 * kM);
+  static constexpr int kWp = CP + 8;
+  static constexpr int kSplit = 3 * kK * kWp;
+};
+
+// Shared memory, in bf16 elements from its start: the patch (whose room
+// the last chunk's outputs reuse), then either the stem's split weights and
+// image (bytes) or layer 1's tap ring and, with more than one N chunk, the
+// other chunks' output staging.
+template <int CP, int N> struct Smem {
+  static constexpr int kPatchIn = P2::rows * P2::row_slots * (CP + 8);
+  static constexpr int kOt = kTileY * kTileX * Split<N>::kOs;
+  static constexpr int kPatch = kPatchIn > kOt ? kPatchIn : kOt;
+  static constexpr int kRing = kStages * CP * Split<N>::kWs;
+  static constexpr int kStemBytes =
+      Stem<CP>::kSplit * 2 + kImgRows * kImgPitch;
+  static size_t bytes(int n_chunks) {
+    const size_t l1 = (size_t)(kRing + (n_chunks > 1 ? kOt : 0)) * 2;
+    return (size_t)kPatch * 2 + (l1 > kStemBytes ? l1 : kStemBytes);
+  }
+};
+
+// two neighbouring packed bytes → the bf16 pair of an A register (exact)
+__device__ __forceinline__ uint32_t u8x2_bf16x2(const uint8_t* p) {
+  const uint32_t v = *reinterpret_cast<const uint16_t*>(p);
+  __nv_bfloat162 h =
+      __floats2bfloat162_rn((float)(v & 0xffu), (float)(v >> 8));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// layer 1's epilogue: + b1, SiLU (common.cuh's: IEEE expf and division)
+struct BiasSilu {
+  const float* b;
+  struct Pair {
+    float b0, b1;
+  };
+  __device__ __forceinline__ Pair at(int n) const { return {b[n], b[n + 1]}; }
+  __device__ __forceinline__ float2 operator()(const Pair& p, float2 v) const {
+    return make_float2(silu(v.x + p.b0), silu(v.y + p.b1));
+  }
+};
+
+// (two CTAs per SM: what the shared memory allows at yolov5m; ptxas may then
+// use up to 255 registers and needs no spill)
+template <int CP, int N>
+__global__ void __launch_bounds__(kThreads, 2)
 stem_l1_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w0,
-               const float* __restrict__ b0, const __nv_bfloat16* __restrict__ w1,
+               const float* __restrict__ b0,
+               const __nv_bfloat16* __restrict__ w1,
                const float* __restrict__ b1, __nv_bfloat16* __restrict__ out,
-               int H, int W, int c2, int c3, int Hs, int Ws, int Ho, int Wo) {
+               int H, int W, int c2, int c3, int Hs, int Ws, int Ho, int Wo,
+               int tiles_x, int vec) {
+  using St = Stem<CP>;
+  using Sm = Smem<CP, N>;
+  using Sp = Split<N>;
+  constexpr int ps = CP + 8;  // bf16 per patch slot
   extern __shared__ float4 smem4[];
-  float* img = reinterpret_cast<float*>(smem4);                  // IY x IX*3
-  __nv_bfloat16* stem = reinterpret_cast<__nv_bfloat16*>(img + IY * IX * 3);
-  const int sst = smem_stride(c2);
+  auto* patch = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* wsplit = patch + Sm::kPatch;   // the stem's operands ...
+  auto* img = reinterpret_cast<uint8_t*>(wsplit + St::kSplit);
+  __nv_bfloat16* wbuf = patch + Sm::kPatch;     // ... then layer 1's ring
+  __nv_bfloat16* ot_mid = wbuf + Sm::kRing;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y;
+  const int oy0 = (blockIdx.x / tiles_x) * kTileY;
+  const int ox0 = (blockIdx.x % tiles_x) * kTileX;
 
-  const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * TY, ox0 = blockIdx.x * TX;
-  const uint8_t* xb = x + (size_t)b * H * W * 3;
-
-  // image patch: rows 4*oy0-4 .., pixels 4*ox0-4 .. (zero outside: stem pad)
-  const int gy0 = 4 * oy0 - 4, gx0 = 4 * ox0 - 4;
-  for (int idx = threadIdx.x; idx < IY * IX * 3; idx += kThreads) {
-    int r = idx / (IX * 3), c = idx - r * (IX * 3);
-    int gy = gy0 + r, gc = gx0 * 3 + c;
-    img[idx] = (gy >= 0 && gy < H && gc >= 0 && gc < 3 * W)
-                   ? (float)xb[(size_t)gy * 3 * W + gc]
-                   : 0.f;
-  }
-  __syncthreads();
-
-  // stem pixels: rows 2*oy0-1 .., cols 2*ox0-1 ..
-  const int g2 = c2 / 8;
-  for (int item = threadIdx.x; item < SY * SX * g2; item += kThreads) {
-    int g = item / (SY * SX), p = item - g * (SY * SX);
-    int r = p / SX, q = p - r * SX;
-    int sy = 2 * oy0 - 1 + r, sx = 2 * ox0 - 1 + q;
-    float acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    if (sy >= 0 && sy < Hs && sx >= 0 && sx < Ws) {
-      for (int dy = 0; dy < 6; ++dy) {
-        const float* irow = img + (2 * r + dy) * IX * 3 + 2 * q * 3;
-        const float* wrow = w0 + (size_t)(dy * 18) * c2 + g * 8;
-#pragma unroll 6
-        for (int t = 0; t < 18; ++t) {  // t = 3*dx + c
-          float v = irow[t];
-          float4 wa = __ldg(reinterpret_cast<const float4*>(wrow + t * c2));
-          float4 wb = __ldg(reinterpret_cast<const float4*>(wrow + t * c2 + 4));
-          acc[0] = fmaf(v, wa.x, acc[0]); acc[1] = fmaf(v, wa.y, acc[1]);
-          acc[2] = fmaf(v, wa.z, acc[2]); acc[3] = fmaf(v, wa.w, acc[3]);
-          acc[4] = fmaf(v, wb.x, acc[4]); acc[5] = fmaf(v, wb.y, acc[5]);
-          acc[6] = fmaf(v, wb.z, acc[6]); acc[7] = fmaf(v, wb.w, acc[7]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = silu(acc[j] + b0[g * 8 + j]);
+  // the stem of the tile's 17x33 stem pixels (rows 2*oy0 - 1 .., columns
+  // 2*ox0 - 1 ..) into the patch
+  auto stem = [&]() {
+    // w0 split into three bf16 terms, [term][k][n], zero past 108 and c2
+    for (int i = tid; i < kK * CP; i += kThreads) {
+      const int k = i / CP, n = i - k * CP;
+      const float w = k < kTaps && n < c2 ? __ldg(w0 + k * c2 + n) : 0.f;
+      const __nv_bfloat16 hi = __float2bfloat16(w);
+      const float r1 = w - __bfloat162float(hi);
+      const __nv_bfloat16 mid = __float2bfloat16(r1);
+      const __nv_bfloat16 lo = __float2bfloat16(r1 - __bfloat162float(mid));
+      wsplit[k * St::kWp + n] = hi;
+      wsplit[(kK + k) * St::kWp + n] = mid;
+      wsplit[(2 * kK + k) * St::kWp + n] = lo;
     }
-    store8_bf16_a4(stem + p * sst + g * 8, acc);
-  }
-  __syncthreads();
+    // image rows 4*oy0 - 4 .., packed bytes 3*(4*ox0 - 4) .. (zero outside
+    // the image: the stem's padding); 4 bytes a load where the rows allow
+    const uint8_t* xb = x + (size_t)b * H * W * 3;
+    const int gy0 = 4 * oy0 - 4, gc0 = 3 * (4 * ox0 - 4), W3 = 3 * W;
+    if (vec) {
+      for (int i = tid; i < kImgRows * kImgWords; i += kThreads) {
+        const int r = i / kImgWords, u = i - r * kImgWords;
+        const int gy = gy0 + r, gc = gc0 + 4 * u;
+        uint32_t v = 0u;
+        if (gy >= 0 && gy < H && gc >= 0 && gc < W3)
+          v = __ldg(reinterpret_cast<const unsigned int*>(
+              xb + (size_t)gy * W3 + gc));
+        *reinterpret_cast<uint32_t*>(img + r * kImgPitch + 4 * u) = v;
+      }
+    } else {
+      for (int i = tid; i < kImgRows * kImgBytes; i += kThreads) {
+        const int r = i / kImgBytes, c = i - r * kImgBytes;
+        const int gy = gy0 + r, gc = gc0 + c;
+        img[r * kImgPitch + c] =
+            gy >= 0 && gy < H && gc >= 0 && gc < W3
+                ? __ldg(xb + (size_t)gy * W3 + gc)
+                : (uint8_t)0;
+      }
+    }
+    __syncthreads();
 
-  // layer 1: output (oy0+py, ox0+px) reads stem tile rows 2*py+dy, cols 2*px+dx
-  const int g3 = c3 / 8;
-  for (int item = threadIdx.x; item < TY * TX * g3; item += kThreads) {
-    int g = item / (TY * TX), p = item - g * (TY * TX);
-    int py = p / TX, px = p - py * TX;
-    int oy = oy0 + py, ox = ox0 + px;
-    if (oy >= Ho || ox >= Wo) continue;
-    float acc[8];
+    // per lane: its A rows (stem pixels lane/4 and lane/4 + 8 of each m16
+    // tile) and k pair, its B row and column
+    const int g = lane >> 2, c4 = lane & 3;
+    const int brow = lane & 15, bcol = (lane >> 4) * 8;
+#pragma unroll 1
+    for (int u = warp; u < St::kUnits; u += kWarps) {
+      float sacc[St::kM][St::kNT][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int dy = 0; dy < 3; ++dy)
-      for (int dx = 0; dx < 3; ++dx)
-        fma_pixel(stem + ((2 * py + dy) * SX + 2 * px + dx) * sst, c2,
-                  w1 + (size_t)(dy * 3 + dx) * c2 * c3 + g * 8, c3, acc);
+      for (int i = 0; i < St::kM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = silu(acc[j] + b1[g * 8 + j]);
-    store8_bf16(out + (((size_t)b * Ho + oy) * Wo + ox) * c3 + g * 8, acc);
+        for (int j = 0; j < St::kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[i][j][e] = 0.f;
+      int pb[St::kM][2];  // image offset of the pixel's tap (0, 0)
+#pragma unroll
+      for (int i = 0; i < St::kM; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int m = (u * St::kM + i) * 16 + g + 8 * h;
+          m = m < kStemPx ? m : 0;  // past the last pixel: never stored
+          const int r = m / P2::cols, q = m - r * P2::cols;
+          pb[i][h] = 2 * r * kImgPitch + 6 * q;
+        }
+#pragma unroll 1
+      for (int ks = 0; ks < kK / 16; ++ks) {
+        // k = 18*dy + t: image row dy, packed byte t of the pixel's 6
+        const int ka = 16 * ks + 2 * c4, kb = ka + 8;
+        const int oa = ka < kTaps ? ka / 18 * kImgPitch + ka % 18 : 0;
+        const int ob = kb < kTaps ? kb / 18 * kImgPitch + kb % 18 : 0;
+        uint32_t a[St::kM][4];
+#pragma unroll
+        for (int i = 0; i < St::kM; ++i) {
+          a[i][0] = u8x2_bf16x2(img + pb[i][0] + oa);
+          a[i][1] = u8x2_bf16x2(img + pb[i][1] + oa);
+          a[i][2] = u8x2_bf16x2(img + pb[i][0] + ob);
+          a[i][3] = u8x2_bf16x2(img + pb[i][1] + ob);
+        }
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+#pragma unroll
+          for (int p = 0; p < St::kNT / 2; ++p) {
+            uint32_t bf[4];
+            ldsm_x4_trans(bf, wsplit + (s * kK + 16 * ks + brow) * St::kWp +
+                                  bcol + 16 * p);
+#pragma unroll
+            for (int i = 0; i < St::kM; ++i) {
+              mma16816(sacc[i][2 * p], a[i], bf[0], bf[1]);
+              mma16816(sacc[i][2 * p + 1], a[i], bf[2], bf[3]);
+            }
+          }
+      }
+      // + b0, SiLU, one rounding to bf16, into the pixel's patch slot;
+      // zero outside the stem image (layer 1's padding) and past c2
+#pragma unroll
+      for (int i = 0; i < St::kM; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = (u * St::kM + i) * 16 + g + 8 * h;
+          if (m >= kStemPx) continue;
+          const int r = m / P2::cols, q = m - r * P2::cols;
+          const int sy = 2 * oy0 - 1 + r, sx = 2 * ox0 - 1 + q;
+          const bool in = sy >= 0 && sy < Hs && sx >= 0 && sx < Ws;
+          __nv_bfloat16* dst =
+              patch + (r * P2::row_slots + P2::slot(q)) * ps + 2 * c4;
+#pragma unroll
+          for (int j = 0; j < St::kNT; ++j) {
+            const int n = 8 * j + 2 * c4;
+            float2 v = make_float2(0.f, 0.f);
+            if (in && n < c2)
+              v = make_float2(silu(sacc[i][j][2 * h] + __ldg(b0 + n)),
+                              silu(sacc[i][j][2 * h + 1] + __ldg(b0 + n + 1)));
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+                __floats2bfloat162_rn(v.x, v.y);
+          }
+        }
+    }
+    __syncthreads();  // the patch is whole; the stem's operands are dead
+  };
+
+  const int wm = warp % Sp::kWarpsM, wn = warp / Sp::kWarpsM;
+  auto valid = [&](int p) {
+    return oy0 + p / kTileX < Ho && ox0 + p % kTileX < Wo;
+  };
+  auto dst = [&](int p) -> __nv_bfloat16* {
+    const int oy = oy0 + p / kTileX, ox = ox0 + p % kTileX;
+    return oy < Ho && ox < Wo ? out + (((size_t)b * Ho + oy) * Wo + ox) * c3
+                              : nullptr;
+  };
+  // the stem once, before (not inside) the chunks' main loops, so none of
+  // its values stays live through them
+  stem();
+  const int n_chunks = (c3 + N - 1) / N;
+  // one K chunk of all c2 channels (padded to 16: CP), passed as a run-time
+  // value like the other 3x3 kernels' chunk, so the main loop's k16 steps
+  // stay a loop with an exit and the compiler does not preload them all
+  const int ck = (c2 + 15) / 16 * 16;
+  for (int nc = 0; nc < n_chunks; ++nc) {
+    const int n0 = nc * N;
+    float acc[Sp::kMTiles][Sp::kNTiles][4];
+    conv3x3_mma::conv_mainloop<2, N, CP>(acc, patch, wbuf, w1, c2, c3, n0,
+                                         ck, [](int) {}, [](int) {});
+    __syncthreads();  // the products have read the patch and the ring
+    __nv_bfloat16* ot = nc + 1 == n_chunks ? patch : ot_mid;
+    stage_outputs<Sp::kMTiles, Sp::kNTiles, N, Sp::kOs, false>(
+        acc, BiasSilu{b1}, valid, ot, nullptr, wm, wn, lane, n0, c3);
+    __syncthreads();
+    store_outputs<kTileY * kTileX, N, Sp::kOs, kThreads>(ot, dst, tid, n0,
+                                                         c3);
   }
+}
+
+template <int CP, int N>
+cudaError_t launch_cp(const uint8_t* x, const float* w0, const float* b0,
+                      const void* w1, const float* b1, void* out, int B,
+                      int H, int W, int c2, int c3, cudaStream_t stream) {
+  const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
+  const int Ho = (Hs + 1) / 2, Wo = (Ws + 1) / 2;
+  const int tiles_x = (Wo + kTileX - 1) / kTileX;
+  const int tiles_y = (Ho + kTileY - 1) / kTileY;
+  const size_t smem = Smem<CP, N>::bytes((c3 + N - 1) / N);
+  auto kern = stem_l1_kernel<CP, N>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  // 4-byte image loads: every staged row starts on a 4-byte boundary
+  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  kern<<<dim3(tiles_x * tiles_y, B), kThreads, smem, stream>>>(
+      x, w0, b0, reinterpret_cast<const __nv_bfloat16*>(w1), b1,
+      reinterpret_cast<__nv_bfloat16*>(out), H, W, c2, c3, Hs, Ws, Ho, Wo,
+      tiles_x, vec);
+  return cudaGetLastError();
+}
+
+template <int CP>
+cudaError_t launch_n(const uint8_t* x, const float* w0, const float* b0,
+                     const void* w1, const float* b1, void* out, int B, int H,
+                     int W, int c2, int c3, cudaStream_t stream) {
+  return conv3x3_mma::chunk_n(c3) == 48
+             ? launch_cp<CP, 48>(x, w0, b0, w1, b1, out, B, H, W, c2, c3,
+                                 stream)
+             : launch_cp<CP, 96>(x, w0, b0, w1, b1, out, B, H, W, c2, c3,
+                                 stream);
 }
 
 }  // namespace
 
+// Requires c2 % 8 == 0, c2 <= 80, c3 % 8 == 0, 16-byte aligned w1.
 extern "C" int stem_l1_launch(const uint8_t* x, const float* w0,
                               const float* b0, const void* w1, const float* b1,
                               void* out, int B, int H, int W, int c2, int c3,
@@ -120,13 +340,15 @@ extern "C" int stem_l1_launch(const uint8_t* x, const float* w0,
   const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
   const int Ho = (Hs + 1) / 2, Wo = (Ws + 1) / 2;
   if (B == 0 || Ho <= 0 || Wo <= 0) return 0;
-  size_t smem = (size_t)IY * IX * 3 * sizeof(float) +
-                (size_t)SY * SX * smem_stride(c2) * sizeof(__nv_bfloat16);
-  cudaError_t err = allow_smem(stem_l1_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Wo + TX - 1) / TX, (Ho + TY - 1) / TY, B);
-  stem_l1_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w0, b0, reinterpret_cast<const __nv_bfloat16*>(w1), b1,
-      reinterpret_cast<__nv_bfloat16*>(out), H, W, c2, c3, Hs, Ws, Ho, Wo);
-  return (int)cudaGetLastError();
+  auto st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch ((c2 + 15) / 16 * 16) {
+    case 16: err = launch_n<16>(x, w0, b0, w1, b1, out, B, H, W, c2, c3, st); break;
+    case 32: err = launch_n<32>(x, w0, b0, w1, b1, out, B, H, W, c2, c3, st); break;
+    case 48: err = launch_n<48>(x, w0, b0, w1, b1, out, B, H, W, c2, c3, st); break;
+    case 64: err = launch_n<64>(x, w0, b0, w1, b1, out, B, H, W, c2, c3, st); break;
+    case 80: err = launch_n<80>(x, w0, b0, w1, b1, out, B, H, W, c2, c3, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
 }

@@ -140,12 +140,13 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 L = ctypes.c_longlong
 
 
-def query(source: str, symbol: str, *args: int) -> int:
+def query(source: str, symbol: str, *args: int, argtypes=None) -> int:
     """Call a host entry point of ``source`` that launches nothing (a
-    launch plan) with int arguments; returns its non-negative result, and
-    raises on the minus-CUDA-error it returns on failure."""
+    launch plan) with int arguments (or of ``argtypes``); returns its
+    non-negative result, and raises on the minus-CUDA-error it returns on
+    failure."""
     fn = getattr(library(source), symbol)
-    fn.argtypes = [I] * len(args)
+    fn.argtypes = list(argtypes or [I] * len(args))
     fn.restype = ctypes.c_int
     out = fn(*args)
     if out < 0:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_cuda, partial_count
+from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
 
 KERNEL = Kernel(
     "stem_l1", "stem_l1_launch", [P, P, P, P, P, P, I, I, I, I, I],
@@ -131,7 +131,8 @@ def fused_stem_l1(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
     """Fused ingest + stem + layer 1 on the packed ``(B, H, 3W)`` uint8
     image; operands from :func:`fold_stem_l1_params`.  Returns
     ``(B, Ho, Wo, c3)``.  CPU tensors take the plain version; CUDA tensors
-    take the kernel, which computes bf16 outputs only."""
+    take the kernel, which computes bf16 outputs only, for c2 <= 80 (the
+    widths of yolov5n to yolov5x: its shared memory holds the stem tile)."""
     if x_packed.device.type == "cpu":
         return fused_stem_l1_plain(x_packed, w0, b0, w1, b1, dtype)
     if dtype != torch.bfloat16:
@@ -145,10 +146,12 @@ def fused_stem_l1(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
     W = W3 // 3
     c2, c3 = b0.shape[0], b1.shape[0]
     if (W3 % 3 or H < 2 or W < 2 or w0.shape != (108, c2)
-            or w1.shape != (9 * c2, c3) or c2 % 8 or c3 % 8):
+            or w1.shape != (9 * c2, c3) or c2 % 8 or c3 % 8 or c2 > 80):
         raise ValueError(
             f"stem+L1 kernel: bad shapes x {tuple(x_packed.shape)}, w0 "
-            f"{tuple(w0.shape)}, w1 {tuple(w1.shape)} (channels % 8 == 0)")
+            f"{tuple(w0.shape)}, w1 {tuple(w1.shape)} (channels % 8 == 0, "
+            f"c2 <= 80)")
+    check_aligned(w1=w1)
     hs, ws = (H - 2) // 2 + 1, (W - 2) // 2 + 1
     out = torch.empty(B, (hs + 1) // 2, (ws + 1) // 2, c3,
                       dtype=torch.bfloat16, device=x_packed.device)

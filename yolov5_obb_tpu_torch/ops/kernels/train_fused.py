@@ -35,14 +35,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
+from ._build import I, Kernel, P, check_aligned, check_cuda, query
 
 _BF = torch.bfloat16
 MAX_IN, MAX_W, MAX_OUT, MAX_PAIRS = 8, 4, 2, 2
-# pixels per tile of the 1x1 forward (one statistics partial row each) and
-# of the backward: csrc/train_fused_1x1.cu's kFwdTile and kBwdTile
+# pixels per tile of the 1x1 forward (one statistics partial row each):
+# csrc/train_fused_1x1.cu's kFwdTile
 _TILE_1X1_FWD = 128
-_TILE_1X1_BWD = 64
 # output (rows, columns) per tile of a 3x3 pass, one statistics partial row
 # per tile: csrc/conv3x3_mma.cuh's (kTileY, kTileX) at both strides
 _TILE_3X3 = (8, 16)
@@ -187,7 +186,7 @@ class _Desc(ctypes.Structure):
     ``csrc/train_fused_1x1.cu``; the two layouts must match)."""
 
     _fields_ = [("z", P * MAX_IN), ("gb", P * MAX_IN), ("w", P * MAX_W),
-                ("wt", P * MAX_W), ("out", P * MAX_OUT),
+                ("out", P * MAX_OUT),
                 ("dz_out", P * MAX_OUT), ("dstat", P * MAX_OUT),
                 ("dz_in", P * MAX_IN), ("ns", I * MAX_IN),
                 ("group", I * MAX_IN), ("npair", I * MAX_OUT),
@@ -260,6 +259,15 @@ def pass_1x1_partial_rows(n_pixels: int) -> int:
     return -(-n_pixels // _TILE_1X1_FWD)
 
 
+def pass_1x1_bwd_parts(d: _Desc, n_pixels: int) -> int:
+    """Rows of the 1x1 backward kernel's partial for a pass: the CTAs it
+    launches along the pixels, planned by the kernel's own library
+    (``pass1x1_bwd_parts``: the occupancy query at the pass's shared
+    memory, over its rounds of dW units, at most one per tile)."""
+    return query("train_fused_1x1", "pass1x1_bwd_parts",
+                 ctypes.addressof(d), n_pixels, argtypes=[P, I])
+
+
 def pass_1x1_fwd(ns_flags, groups, outs, z_ins, gbs, ws):
     """Forward of the grouped 1x1 pass → ``(z_outs, stats)`` as in
     :func:`pass_1x1_fwd_plain`.  CPU tensors take the plain version; CUDA
@@ -296,7 +304,10 @@ def pass_1x1_bwd(ns_flags, groups, outs, z_ins, gbs, ws, z_outs, dz_outs,
                                   z_outs, dz_outs, dstats)
     wq = [w.to(_BF).contiguous() for w in ws]
     B, H, W, ci, cos = _check_1x1(ns_flags, groups, outs, z_ins, gbs, wq)
-    wt = [w.T.contiguous() for w in wq]
+    if sorted(w for pairs in outs for _, w in pairs) != list(range(len(ws))):
+        raise ValueError(f"1x1 pass backward kernel: each weight must be in "
+                         f"exactly one pair, got {outs} for {len(ws)} "
+                         f"weights")
     dev = z_ins[0].device
     d = _desc(ns_flags, groups, outs, z_ins, gbs, wq, cos)
     for o, (zo, dz, ds) in enumerate(zip(z_outs, dz_outs, dstats)):
@@ -313,12 +324,10 @@ def pass_1x1_bwd(ns_flags, groups, outs, z_ins, gbs, ws, z_outs, dz_outs,
     check_aligned(**_named("z_in", z_ins), **_named("w", wq),
                   **_named("z_out", z_outs), **_named("dz_out", dz_outs))
     dz_ins = [torch.empty(B, H, W, ci, dtype=_BF, device=dev) for _ in z_ins]
-    for i, t in enumerate(wt):
-        d.wt[i] = t.data_ptr()
     for i, t in enumerate(dz_ins):
         d.dz_in[i] = t.data_ptr()
     N = B * H * W
-    parts = partial_count(dev, -(-N // _TILE_1X1_BWD), per_sm=2)
+    parts = pass_1x1_bwd_parts(d, N)
     nwe = sum(w.numel() for w in wq)
     R = nwe + len(z_ins) * 2 * ci
     partial = torch.empty(parts, R, device=dev)
