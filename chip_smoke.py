@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
       parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh,
-      the body of every 3x3 conv kernel; the stem+L1 kernel; the
-      downsample weight gradient; the 1x1 pass forward and backward) their
+      the body of every 3x3 conv kernel; the stem+L1 kernel and the train
+      stem's forward on csrc/stem_mma.cuh; the C3 kernel; the downsample
+      weight gradient; the 1x1 pass forward and backward) their
       registers and spill bytes from ptxas,
       which must be 0, and their tensor-core and global-load instructions
       from ``cuobjdump -sass``, which must hold HMMA;
@@ -18,18 +19,22 @@ Phases, each fatal on failure:
       512/1024/2048 and on a clustered input that overflows M=64; the
       pair-IoU kernel on the clustered input at n = 4096), with kernel /
       plain / library times and the bound from the bytes and operations of
-      the shape; the stem+L1 kernel also bit for bit on repeat, and beside
-      its bf16 library call the same function with the stem in float32;
+      the shape; the stem+L1 and C3 kernels also bit for bit on repeat,
+      and beside the stem+L1 kernel's bf16 library call the same function
+      with the stem in float32;
   (b') each train kernel (stem forward and weight gradient, downsample
       forward and weight gradient) against its plain version at the train
       path's shapes (the stem; the layer-1 and layer-3 downsamples), dW from
-      autograd with a seeded cotangent, the same times and bounds;
+      autograd with a seeded cotangent, the same times and bounds; the
+      stem's forward also bit for bit on repeat, and beside its bf16
+      library call the same function (the float32 conv, TF32 off);
   (c) the inference path: yolov5m, batch 16, 1024², conf 0.25, IoU 0.45,
       single-label, 2048 candidates, max_det 1500, random weights from a seed
       with the detection density tuned to ~300 dets/img; every inference
       kernel's launch count must move; the same path with the plain versions
       is the reference (keep masks on the same candidates, detections per
-      image);
+      image); the forward with FUSED_C3_MIN_SPATIAL at its default (256²)
+      and at 128² (layer 4's C3(192, n = 4) on the kernel too), in turns;
   (d) the train path: yolov5m, batch 16, 1024², bf16, packed stem, random
       weights from a seed, SGD at nominal batch 16, two seeded batches of 64
       label slots with 8 live targets (tools/bench_train.py's recipe, CSL
@@ -101,10 +106,13 @@ FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
 # the libraries holding tensor-core kernels → the substrings of those
 # kernels' names: the 3x3 conv body (csrc/conv3x3_mma.cuh), the stem+L1
-# kernel, the downsample weight gradient, the 1x1 pass forward and backward
+# kernel and the train stem's forward (csrc/stem_mma.cuh), the C3 kernel,
+# the downsample weight gradient, the 1x1 pass forward and backward
 # (csrc/mma.cuh's helpers)
 MMA_SOURCES = {"down": ("conv3x3_mma",),
                "stem_l1": ("stem_l1_kernel",),
+               "c3": ("c3_kernel",),
+               "stem_train": ("stem_fwd_kernel",),
                "down_train": ("conv3x3_mma", "down_wgrad_kernel"),
                "train_fused_3x3": ("conv3x3_mma",),
                "train_fused_1x1": ("p1x1_fwd_kernel", "p1x1_bwd_kernel")}
@@ -335,14 +343,15 @@ def check_stem_only(gen, dev):
     }
 
 
-def check_c3(gen, dev):
+def check_c3_operands(gen, dev, c, n, H):
+    """A seeded C3(c, c, n) at ``H``² (batch BATCH): x, the kernel's
+    operands, and the library call (the same convs through cuDNN in bf16)."""
     import torch
     import torch.nn.functional as F
 
     from yolov5_obb_tpu_torch.models.layers import C3
     from yolov5_obb_tpu_torch.ops.kernels import c3_kernel as K
 
-    c, n, H = 96, 2, IMGSZ // 4
     c_ = c // 2
     m = C3(c, c, n).to(dev)
     with torch.no_grad():
@@ -356,17 +365,13 @@ def check_c3(gen, dev):
                     getattr(mod, a).copy_(getattr(st, a))
     p = K.fold_c3_params(m)
     x = torch.randn(BATCH, H, H, c, generator=gen, device=dev).to(torch.bfloat16)
-    got = K.fused_c3(x, p)
-    want = K.fused_c3_plain(x, p)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
 
     def conv(t, w, ss, pad=0):  # NCHW channels-last bf16 conv + folded BN + SiLU
         y = F.conv2d(t, w.permute(3, 2, 0, 1), padding=pad)
         return F.silu(y * ss[0, :, None, None].bfloat16()
                       + ss[1, :, None, None].bfloat16())
 
-    def library():  # the same convs through cuDNN in bf16
+    def library():
         xt = x.permute(0, 3, 1, 2)
         cur = conv(xt, p["w1"][None, None], p["s1"])
         for k in range(n):
@@ -376,19 +381,53 @@ def check_c3(gen, dev):
         w3 = torch.cat([p["w3a"], p["w3b"]])[None, None]
         return conv(torch.cat([cur, c2c], 1), w3, p["s3"])
 
+    return x, p, library
+
+
+def check_c3(gen, dev):
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels import c3_kernel as K
+
+    c, n, H = 96, 2, IMGSZ // 4
+    c_ = c // 2
+    x, p, library = check_c3_operands(gen, dev, c, n, H)
+    got = K.fused_c3(x, p)
+    want = K.fused_c3_plain(x, p)
+    repeat = torch.equal(got, K.fused_c3(x, p))
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+
     macs = c * c_ + n * (c_ * c_ + 9 * c_ * c_) + c * c_ + 2 * c_ * c
     flops = 2 * BATCH * H * H * macs
+    # one scale, shift and SiLU (ACT_OPS float32 operations) per conv
+    # output; with the n-pixel halo the kernel recomputes around each 8x16
+    # tile, cv1 and bottleneck k's 1x1 fill the tile grown by n - k + 1
+    # pixels a side, its 3x3 by n - k
+    grown = lambda e: (8 + 2 * e) * (16 + 2 * e) / 128
+    acts = c_ + n * 2 * c_ + c_ + c
+    acts_halo = (c_ * grown(n) + sum(c_ * (grown(n - k + 1) + grown(n - k))
+                                     for k in range(1, n + 1)) + c_ + c)
     nbytes = 2 * x.numel() * 2
+    # the products (tensor cores) and the activations (float32 pipe) run on
+    # separate units and overlap: the floor is the larger of the two
+    t_products = flops / PEAK_BF16 * 1e3
+    t_acts = BATCH * H * H * acts * ACT_OPS / PEAK_FP32 * 1e3
     return "c3", K.KERNEL, {
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.float().abs().clamp(min=1e-2)).max()),
-        "tolerance": "bf16 rounding of the intermediates, abs <= 0.06",
-        "ok": float(err.max()) <= 0.06,
+        "repeat_bitwise": repeat,
+        "tolerance": "bf16 rounding of the intermediates, abs <= 0.06; "
+                     "repeats bit for bit",
+        "ok": float(err.max()) <= 0.06 and repeat,
         "ms": cuda_time(lambda: K.fused_c3(x, p), 5),
         "plain_ms": cuda_time(lambda: K.fused_c3_plain(x, p), 3),
         "library_ms": cuda_time(library, 5),
-        "bound": bound(nbytes, (flops, PEAK_BF16)), "flops": flops,
-        "bytes": nbytes,
+        "bound": max(bound(nbytes, (flops, PEAK_BF16)),
+                     (t_acts, "operations")),
+        "bound_products_ms": t_products, "bound_activations_ms": t_acts,
+        "flops": flops, "bytes": nbytes,
+        "silu_per_px": acts, "silu_per_px_with_halo": acts_halo,
     }
 
 
@@ -451,11 +490,11 @@ def _grad_check(fn, x, w, gen, plain_kw):
     return out
 
 
-def _train_results(fwd, wgrad, got, flops, fwd_peak, fwd_bytes, wgrad_bytes,
+def _train_results(fwd, wgrad, got, flops, fwd_work, fwd_bytes, wgrad_bytes,
                    times):
     """Per-kernel result dicts of a forward/weight-gradient pair: both do
-    ``flops`` operations, the forward's at ``fwd_peak`` (its operands'
-    type), the weight gradient's on bf16 operands."""
+    ``flops`` operations, the forward as the (operations, peak rate) pairs
+    ``fwd_work`` it runs, the weight gradient on bf16 operands."""
     (zk, gk), (zp, gp) = got["kernel"], got["plain"]
     f_err = float((zk.float() - zp.float()).abs().max())
     f_tol = float(zp.float().abs().max()) / 128
@@ -465,7 +504,7 @@ def _train_results(fwd, wgrad, got, flops, fwd_peak, fwd_bytes, wgrad_bytes,
         fwd: {"max_abs_err": f_err, "ok": f_err <= f_tol,
               "tolerance": f"bf16: one ulp of the largest output, abs <= "
                            f"{f_tol:.4g}",
-              "bound": bound(fwd_bytes, (flops, fwd_peak)),
+              "bound": bound(fwd_bytes, *fwd_work),
               "flops": flops, "bytes": fwd_bytes, **times[0]},
         wgrad: {"max_abs_err": w_err, "ok": w_err <= w_tol,
                 "tolerance": f"2e-2 * max|dW| = {w_tol:.4g} (bf16 products, "
@@ -487,14 +526,19 @@ def check_stem_train(gen, dev):
     w = (conv_weights(gen, c2, 3, 6, dev) / 255.0).requires_grad_()
     got = _grad_check(S.stem_conv_train, x, w, gen, {"plain": True})
     dz = got["kernel"][0]  # any bf16 tensor of dz's shape
-    xb = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
-    wb = w.detach().to(torch.bfloat16)
-    dzb = dz.permute(0, 3, 1, 2)
     wd = w.detach()
+    repeat = torch.equal(dz, S.stem_train_fwd(x, wd))
+    xn = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2)
+    xb = xn.to(torch.bfloat16)
+    wb = wd.to(torch.bfloat16)
+    dzb = dz.permute(0, 3, 1, 2)
     times = [
         {"ms": cuda_time(lambda: S.stem_train_fwd(x, wd), 5),
          "plain_ms": cuda_time(lambda: S.stem_train_fwd_plain(x, wd), 3),
-         "library_ms": cuda_time(lambda: F.conv2d(xb, wb, None, 2, 2), 5)},
+         "library_ms": cuda_time(lambda: F.conv2d(xb, wb, None, 2, 2), 5),
+         # the same function: the float32 conv (TF32 off), rounded to bf16
+         "library_f32_ms": cuda_time(lambda: F.conv2d(
+             xn.float(), wd, None, 2, 2).to(torch.bfloat16), 5)},
         {"ms": cuda_time(lambda: S.stem_train_wgrad(x, dz), 5),
          "plain_ms": cuda_time(lambda: S.stem_train_wgrad_plain(x, dz), 3),
          "library_ms": cuda_time(lambda: torch.nn.grad.conv2d_weight(
@@ -502,11 +546,16 @@ def check_stem_train(gen, dev):
     ]
     hs = IMGSZ // 2
     flops = 2 * BATCH * hs * hs * 108 * c2
-    # the forward multiplies uint8 values by float32 weights (float32 work);
-    # the weight gradient multiplies bf16 image values by bf16 dz
+    # the forward multiplies uint8 values by float32 weights as three bf16
+    # products on the tensor cores; the weight gradient multiplies bf16
+    # image values by bf16 dz
     nbytes = x.numel() + dz.numel() * 2 + wd.numel() * 4
     res = _train_results("stem_train_fwd", "stem_train_wgrad", got, flops,
-                         PEAK_FP32, nbytes, nbytes, times)
+                         [(3 * flops, PEAK_BF16)], nbytes, nbytes, times)
+    fwd = res["stem_train_fwd"]
+    fwd["repeat_bitwise"] = repeat
+    fwd["tolerance"] += "; repeats bit for bit"
+    fwd["ok"] = fwd["ok"] and repeat
     return {"stem_train_fwd": (S.TRAIN_FWD_KERNEL, res["stem_train_fwd"]),
             "stem_train_wgrad": (S.TRAIN_WGRAD_KERNEL,
                                  res["stem_train_wgrad"])}
@@ -549,7 +598,7 @@ def check_down_train(gen, dev):
         flops = 2 * BATCH * (H // 2) ** 2 * 9 * ci * co
         nbytes = x.numel() * 2 + dz.numel() * 2
         res = _train_results("down_train_fwd", "down_train_wgrad", got, flops,
-                             PEAK_BF16, nbytes + wq.numel() * 2,
+                             [(flops, PEAK_BF16)], nbytes + wq.numel() * 2,
                              nbytes + w.numel() * 4, times)
         # the input gradient: the same transposed conv on both paths, but
         # cuDNN may pick another algorithm (and sum order) per call
@@ -1042,6 +1091,8 @@ def main_path(dev, report):
     # rest of a predict call is decode + selection + rotated NMS
     with torch.inference_mode():
         forward_ms = cuda_time(lambda: model(xs[1]), 5)
+    gate = c3_gate_ab(model, xs[1])
+    log(f"FUSED_C3_MIN_SPATIAL A/B: {gate}")
     report.update({
         "ms_per_img": dt * 1e3 / BATCH, "dets_per_img": dets_per_img,
         "predict_ms_per_batch": dt * 1e3, "forward_ms_per_batch": forward_ms,
@@ -1051,8 +1102,50 @@ def main_path(dev, report):
         "dets_abs_diff_vs_plain": det_diff,
         "keep_mask_mismatches": keep_mismatch,
         "launches_per_3_predicts": dict(launches),
+        "c3_gate_ab": gate,
     })
     return launches
+
+
+def c3_gate_ab(model, x):
+    """The C3 gate on the forward: ``FUSED_C3_MIN_SPATIAL`` at its default
+    (256²: layer 2's C3(96, n = 2) on the kernel) and lowered to 128² (layer
+    4's C3(192, n = 4) too), set through ``models.layers`` as the card tests
+    do; the forward's CUDA-event ms in turns default, lowered, lowered,
+    default, the C3 kernel's launches per forward, and the Detect maps of
+    the two settings against each other, within row 2's bar (abs <= 0.06)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.models import layers
+    from yolov5_obb_tpu_torch.ops.kernels import c3_kernel
+
+    default, lowered = layers.FUSED_C3_MIN_SPATIAL, 128 * 128
+    maps, per_fwd, ms = {}, {}, []
+    try:
+        with torch.inference_mode():
+            for setting in (default, lowered):
+                layers.FUSED_C3_MIN_SPATIAL = setting
+                c3_kernel.KERNEL.launches = 0
+                maps[setting] = model(x)
+                torch.cuda.synchronize()
+                per_fwd[setting] = c3_kernel.KERNEL.launches
+            for setting in (default, lowered, lowered, default):
+                layers.FUSED_C3_MIN_SPATIAL = setting
+                ms.append(cuda_time(lambda: model(x), 5))
+    finally:
+        layers.FUSED_C3_MIN_SPATIAL = default
+    require(per_fwd[default] == 1 and per_fwd[lowered] == 2,
+            f"C3 kernel launches per forward {per_fwd}")
+    require(all(bool(torch.isfinite(m).all()) for m in maps[lowered]),
+            "non-finite Detect maps with the C3 gate lowered")
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(maps[default], maps[lowered]))
+    require(diff <= 0.06, f"Detect maps with the C3 gate lowered differ "
+            f"from the default's by {diff:.4g} (> 0.06)")
+    return {"min_spatial": [default, lowered],
+            "forward_ms_per_batch": [(ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2],
+            "forward_ms_turns": ms, "c3_launches_per_forward": per_fwd,
+            "maps_max_abs_diff_lowered_vs_default": diff}
 
 
 # ---------------------------------------------------------------------------
@@ -1448,8 +1541,8 @@ def train_path(dev, report, fused=False):
     require(prof["device_ms"] > 0, "the profiler saw no device time")
     # the step's tensor-core kernels count as the port's, not as cuDNN's
     tc = prof["tensor_core_kernels"]
-    want = (("p1x1_fwd_kernel", "p1x1_bwd_kernel") if fused
-            else ("down_wgrad_kernel",))
+    want = (("p1x1_fwd_kernel", "p1x1_bwd_kernel", "stem_fwd_kernel")
+            if fused else ("down_wgrad_kernel", "stem_fwd_kernel"))
     require(all(any(w in n for n, *_ in tc) for w in want) and
             all(g == "port kernels" for _, g, *_ in tc),
             f"profile groups of the tensor-core kernels: {tc}")

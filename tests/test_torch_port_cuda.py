@@ -155,10 +155,8 @@ def test_down_kernel(dev, H, W):
     assert (got.float() - want.float()).abs().max() <= 0.05
 
 
-@pytest.mark.parametrize("n,H,W", [(1, 32, 40), (2, 21, 13), (4, 16, 16)])
-def test_c3_kernel(dev, n, H, W):
-    gen = torch.Generator(device=dev).manual_seed(2)
-    m = C3(16, 16, n).to(dev)
+def _c3_module(gen, dev, c1, c2, n, shortcut=True):
+    m = C3(c1, c2, n, shortcut).to(dev)
     with torch.no_grad():
         for mod in m.modules():
             if isinstance(mod, torch.nn.Conv2d):
@@ -168,11 +166,41 @@ def test_c3_kernel(dev, n, H, W):
                 st = _bn(gen, mod.num_features, dev)
                 for a in ("weight", "bias", "running_mean", "running_var"):
                     getattr(mod, a).copy_(getattr(st, a))
-    p = c3_kernel.fold_c3_params(m)
-    x = torch.randn(2, H, W, 16, generator=gen, device=dev).to(torch.bfloat16)
+    return c3_kernel.fold_c3_params(m)
+
+
+# C3(16): c_ = 8, K and N padded to 16 with zeros; layer 2 of yolov5n/s/m/l/x
+# (c1 = 32 .. 160, n = 1 .. 4) and yolov5m's layer 4 (C3(192, n = 4)) at an
+# odd size, ragged against the 8x16 tile; c_ = 224, whose tiles do not fit a
+# block at the full tile width
+@pytest.mark.parametrize("c1,n,H,W", [
+    (16, 1, 32, 40), (16, 2, 21, 13), (16, 4, 16, 16), (32, 1, 21, 37),
+    (64, 1, 21, 37), (96, 2, 21, 37), (128, 3, 21, 37), (160, 4, 21, 37),
+    (192, 4, 21, 37), (448, 1, 9, 11)])
+def test_c3_kernel(dev, c1, n, H, W):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    p = _c3_module(gen, dev, c1, c1, n)
+    x = torch.randn(2, H, W, c1, generator=gen, device=dev).to(torch.bfloat16)
     got = _counted(c3_kernel.KERNEL, lambda: c3_kernel.fused_c3(x, p))
     want = c3_kernel.fused_c3_plain(x, p)
+    assert got.shape == want.shape == (2, H, W, c1)
     assert (got.float() - want.float()).abs().max() <= 0.06
+    # no atomics, a fixed order of sums: repeated runs agree bit for bit
+    assert torch.equal(got, c3_kernel.fused_c3(x, p))
+
+
+# shortcut off and c1 != c2 (the model's head C3s), through fused_c3 on
+# folded operands; c1 % 8 != 0 stages x through registers
+@pytest.mark.parametrize("c1,c2,n", [(24, 32, 2), (18, 16, 1), (96, 48, 3)])
+def test_c3_kernel_no_shortcut(dev, c1, c2, n):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    p = _c3_module(gen, dev, c1, c2, n, shortcut=False)
+    x = torch.randn(2, 19, 27, c1, generator=gen, device=dev).to(torch.bfloat16)
+    got = _counted(c3_kernel.KERNEL, lambda: c3_kernel.fused_c3(x, p, False))
+    want = c3_kernel.fused_c3_plain(x, p, False)
+    assert got.shape == want.shape == (2, 19, 27, c2)
+    assert (got.float() - want.float()).abs().max() <= 0.06
+    assert torch.equal(got, c3_kernel.fused_c3(x, p, False))
 
 
 @pytest.mark.parametrize("n,clustered", [(100, False), (300, True)])
@@ -199,7 +227,10 @@ def test_neighbor_kernel(dev, n, clustered):
     assert bool((pidx[..., -1] > 0).any()) == clustered  # rows overflowing M
 
 
-@pytest.mark.parametrize("H,W,c2", [(64, 64, 16), (70, 42, 48), (34, 98, 8)])
+# the stem widths of yolov5n/m/l/x and c2 = 8 (K, N padded to 16); c2 = 96
+# runs in two column chunks
+@pytest.mark.parametrize("H,W,c2", [(64, 64, 16), (70, 42, 48), (34, 98, 8),
+                                    (45, 67, 64), (66, 38, 80), (30, 50, 96)])
 def test_stem_train_kernels(dev, H, W, c2):
     gen = torch.Generator(device=dev).manual_seed(4)
     B = 2
@@ -213,6 +244,8 @@ def test_stem_train_kernels(dev, H, W, c2):
     assert z.dtype == torch.bfloat16
     # bf16 output: at most one ulp of the largest value
     assert (z.float() - zp.float()).abs().max() <= zp.float().abs().max() / 128
+    # a fixed order of sums: the forward repeats bit for bit
+    assert torch.equal(z, stem_kernel.stem_train_fwd(x, w.detach()))
     cot = torch.randn(z.shape, generator=gen, device=dev)
     g = _counted(stem_kernel.TRAIN_WGRAD_KERNEL, lambda: torch.autograd.grad(
         (z.float() * cot).sum(), w)[0])

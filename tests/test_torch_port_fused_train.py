@@ -677,21 +677,50 @@ def _section(text, start, end):
 
 def test_stem_l1_runs_the_tensor_core_bodies():
     """Row 1 (the stem+L1 kernel) runs its stem as mma.sync products of the
-    uint8 image and three bf16 terms of each float32 weight, and its layer
-    1 on the 3x3 body's own main loop (conv_mainloop, no copy of it): no
+    uint8 image and three bf16 terms of each float32 weight (stem_mma.cuh's
+    GEMM, which row 7a's forward shares), and its layer 1 on the 3x3 body's
+    own main loop (conv_mainloop through patch_mainloop, no copy of it): no
     scalar product loop is left."""
     text = _csrc("stem_l1.cu").read_text()
-    assert "conv3x3_mma.cuh" in _includes("stem_l1.cu")
-    assert "mma.cuh" in _includes("stem_l1.cu")
+    assert {"conv3x3_mma.cuh", "stem_mma.cuh", "mma.cuh"} <= _includes(
+        "stem_l1.cu")
     kern = _section(text, "stem_l1_kernel(", "cudaError_t launch_cp(")
-    assert "mma16816(" in kern and "conv3x3_mma::conv_mainloop<2," in kern
+    assert "stem_mma::products<" in kern
+    assert "conv3x3_mma::patch_mainloop<2," in kern
     assert "fmaf(" not in text and "fma_pixel" not in text
     # the split: hi, mid, lo, each rounded to bf16, into one accumulator
-    assert kern.count("__float2bfloat16(") == 3
-    assert "for (int s = 0; s < 3; ++s)" in kern
+    stem = _csrc("stem_mma.cuh").read_text()
+    assert stem.count("__float2bfloat16(") == 3
+    assert "for (int s = 0; s < 3; ++s)" in stem and "mma16816(" in stem
+    assert "fmaf(" not in stem
     body = _csrc("conv3x3_mma.cuh").read_text()
     assert body.count("mma16816(") == 2  # one main loop, in conv_mainloop
-    assert "conv_mainloop<S, N, kMaxChunkK>(" in body
+    assert "patch_mainloop<S, N, kMaxChunkK>(" in body
+    patch = _section(body, "void patch_mainloop(", "// One CTA:")
+    assert "conv_mainloop<" in patch and "mma16816(" not in patch
+
+
+def test_c3_and_stem_train_forward_run_on_tensor_cores():
+    """Row 2 (the C3 block) runs every conv as mma.sync GEMMs on the 3x3
+    body's main loop (conv_mainloop, no copy of it) and stores through
+    mma.cuh's epilogue, its scalar body and the helpers only it used gone;
+    row 7a (the train stem's forward) runs stem_mma.cuh's GEMM, not the
+    scalar stem_conv.cuh tile, which only row 6 and row 7b's patch staging
+    keep."""
+    c3 = _csrc("c3.cu").read_text()
+    assert {"conv3x3_mma.cuh", "mma.cuh"} <= _includes("c3.cu")
+    assert "conv3x3_mma::conv_mainloop<" in c3
+    assert "mma16816(" not in c3 and "stage_outputs<" in c3
+    assert "store_outputs<" in c3
+    for scalar in ("conv1x1_region", "fma_pixel", "fmaf("):
+        assert scalar not in c3
+    common = _csrc("common.cuh").read_text()
+    assert "fma_pixel" not in common and "smem_stride" not in common
+    train = _csrc("stem_train.cu").read_text()
+    fwd = _section(train, "stem_fwd_kernel(", "cudaError_t fwd_launch(")
+    assert "stem_mma::products<" in fwd and "stage_outputs<" in fwd
+    assert "tile_conv" not in train and "fmaf(" not in fwd
+    assert "stem_conv::tile_conv(" in _csrc("stem.cu").read_text()
 
 
 def test_pass_1x1_backward_runs_on_tensor_cores():

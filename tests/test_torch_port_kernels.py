@@ -88,11 +88,12 @@ def test_down_plain_matches_pallas(H, W):
     assert err.max() <= 0.05, err.max()  # tests/test_down_kernel.py bar
 
 
-def _c3_pair(rng, C, n):
-    """Same random C3 weights as a JAX (params, batch_stats) tree and a port
-    C3 module."""
-    c_ = C // 2
-    port = C3(C, C, n)
+def _c3_pair(rng, C, n, c2=None, shortcut=True):
+    """Same random C3(C, c2) weights as a JAX (params, batch_stats) tree and
+    a port C3 module."""
+    c2 = C if c2 is None else c2
+    c_ = c2 // 2
+    port = C3(C, c2, n, shortcut)
     params, stats = {}, {}
 
     def cba(name, ci, co, k, port_cba, p=params, s=stats):
@@ -108,7 +109,7 @@ def _c3_pair(rng, C, n):
 
     cba("ConvBnAct_0", C, c_, 1, port.cv1)
     cba("ConvBnAct_1", C, c_, 1, port.cv2)
-    cba("ConvBnAct_2", 2 * c_, C, 1, port.cv3)
+    cba("ConvBnAct_2", 2 * c_, c2, 1, port.cv3)
     for j in range(n):
         params[f"Bottleneck_{j}"], stats[f"Bottleneck_{j}"] = {}, {}
         cba("ConvBnAct_0", c_, c_, 1, port.m[j].cv1,
@@ -118,18 +119,22 @@ def _c3_pair(rng, C, n):
     return params, stats, port
 
 
-@pytest.mark.parametrize("n", [1, 2])
-def test_c3_plain_matches_pallas(n):
+# C3(16, 16) with the shortcut; C3(16, 32) without it (c1 != c2, as the
+# head's C3s; JAX fused_c3 takes both, c3_kernel.py:13-14)
+@pytest.mark.parametrize("n,c2,shortcut", [
+    pytest.param(1, 16, True, id="1"), pytest.param(2, 16, True, id="2"),
+    pytest.param(2, 32, False, id="2-c2_32-no_shortcut")])
+def test_c3_plain_matches_pallas(n, c2, shortcut):
     rng = np.random.default_rng(2 + n)
     C = 16
-    params, stats, port = _c3_pair(rng, C, n)
+    params, stats, port = _c3_pair(rng, C, n, c2, shortcut)
     x = rng.standard_normal((2, 32, 40, C)).astype(np.float32)
     jx, tx = _bf16(x)
     p = jc3.fold_c3_params(params, stats, n=n)
     want = np.asarray(jc3.fused_c3(jx, p["w1"], p["s1"], p["bots"], p["w2"],
                                    p["s2"], p["w3a"], p["w3b"], p["s3"], n=n,
-                                   shortcut=True), np.float32)
-    got = c3_kernel.fused_c3(tx, c3_kernel.fold_c3_params(port), True)
+                                   shortcut=shortcut), np.float32)
+    got = c3_kernel.fused_c3(tx, c3_kernel.fold_c3_params(port), shortcut)
     assert got.shape == want.shape
     err = np.abs(got.float().numpy() - want)
     assert err.max() <= 0.06, err.max()  # tests/test_c3_kernel.py bar

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """A/B variants of the port's tensor-core kernels on one NVIDIA card.
 
-    python3 tools/torch_conv3x3_ab.py [variants.json [case ...]]
+    python3 tools/torch_conv3x3_ab.py [--csrc NAME=DIR ...] [variants.json [case ...]]
 
 ``variants.json`` maps a name to a list of substitutions, each
 ``[regex, replacement]`` (applied to ``csrc/conv3x3_mma.cuh``) or
 ``[file, regex, replacement]`` (applied to ``csrc/<file>``), in the
-directory ``yolov5_obb_tpu_torch``.  Each variant's tensor-core libraries
-(``stem_l1.cu``, ``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
-``train_fused_1x1.cu``) that its substitutions touch are compiled with the
-port's flags into the (gitignored) build directory.  At the yolov5m b16
-1024² shapes of every tensor-core kernel — the stem+L1 kernel (row 1: the
-packed 1024² image → 256² x 96), the inference downsample (row 3, layer 3:
+directory ``yolov5_obb_tpu_torch``.  Each ``--csrc NAME=DIR`` adds the
+variant NAME: the sources of another ``csrc`` directory (e.g. a parent
+commit's, unpacked under the gitignored ``chip_tree/``) in place of the
+port's.  Each variant's
+tensor-core libraries (``stem_l1.cu``, ``c3.cu``, ``stem_train.cu``,
+``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
+``train_fused_1x1.cu``) whose sources differ from the port's are compiled
+with the port's flags into the (gitignored) build directory.  At the
+yolov5m b16 1024² shapes of every tensor-core kernel — the stem+L1 kernel
+(row 1: the packed 1024² image → 256² x 96), the C3 kernel (row 2: layer
+2, 256² x 96, n = 2; and layer 4, 128² x 192, n = 4), the train stem's
+forward (row 7a: the packed 1024² image → 512² x 48), the inference
+downsample (row 3, layer 3:
 256² x 96 → 128² x 192), the raw train downsample (row 8a, L1: 512² x 48 →
 96, L3) and its weight gradient (row 8b, L1, L3), the grouped 1x1 pass
 forward (row 9a) and backward (row 9b), each at the four structures of the
@@ -19,9 +26,10 @@ C3 region at 256², the stride-1 bottleneck pass (row 10, 256² x 48 → 48)
 and the stride-2 passes (row 11, L1, L3) — every build runs through the
 port's own wrapper (the variant's entry point bound in place of the main
 build's, and its launch plans, such as the partial counts, asked of it), is
-held to the plain version and timed with CUDA events, in the order main,
-variants, variants reversed, main; the library call (cuDNN, bf16; for row
-1 the same function, its stem in float32) beside it; then a profiler split
+held to the plain version and to the main build's outputs (bit for bit:
+``same_as_main``) and timed with CUDA events, in the order main, variants,
+variants reversed, main; the library call (cuDNN, bf16; for rows 1 and 7a
+the same function, the stem in float32) beside it; then a profiler split
 of the main build's call into its kernels.  Prints the card line and one
 JSON line per case.  Case names after the variants file (``{}`` for none)
 keep only the cases named so or starting with one of them and "_", e.g.
@@ -41,10 +49,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-SOURCES = ("stem_l1", "down", "down_train", "train_fused_3x3",
-           "train_fused_1x1")
-# case → (kind, ci, co or 1x1 structure, input side, stride)
+SOURCES = ("stem_l1", "c3", "stem_train", "down", "down_train",
+           "train_fused_3x3", "train_fused_1x1")
+# case → (kind, ci, co or 1x1 structure or C3 depth, input side, stride)
 CASES = (("row1", "stem_l1", 48, 96, 1024, 2),
+         ("row2", "c3", 96, 2, 256, 1),
+         ("row2_L4", "c3", 192, 4, 128, 1),
+         ("row7a", "stem_train", 3, 48, 1024, 2),
          ("row3_L3", "down", 96, 192, 256, 2),
          ("row8a_L1", "down_train", 48, 96, 512, 2),
          ("row8a_L3", "down_train", 96, 192, 256, 2),
@@ -89,24 +100,30 @@ def cuda_time(fn, iters=10, warmup=2):
 
 def _kernels():
     """The tensor-core kernels' Kernel objects (their wrappers launch)."""
+    from yolov5_obb_tpu_torch.ops.kernels import c3_kernel as C
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
     from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    return [S.KERNEL, D.KERNEL, D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL,
-            TF.KERNEL_1X1, TF.KERNEL_1X1_BWD, TF.KERNEL_3X3S1,
-            TF.KERNEL_3X3S2]
+    return [S.KERNEL, C.KERNEL, S.TRAIN_FWD_KERNEL, D.KERNEL,
+            D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL, TF.KERNEL_1X1,
+            TF.KERNEL_1X1_BWD, TF.KERNEL_3X3S1, TF.KERNEL_3X3S2]
 
 
-def build_variant(name, subs):
-    """The variant's ``(entry points, libraries)``: ``(source, symbol) →
-    ctypes function`` and ``source → CDLL``; or None when a substitution
-    changes nothing or a build fails."""
+def start_variant(name, subs):
+    """Copy the sources, apply the variant's substitutions and start the
+    compiles of the libraries they touch (a changed header touches them
+    all); returns ``(directory, {source: compile})``, or None when a
+    substitution changes nothing."""
     from yolov5_obb_tpu_torch.ops.kernels import _build
 
     d = _build.BUILD_DIR / "variants" / name
     shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(_build.CSRC_DIR, d)
+    if isinstance(subs, Path):  # another csrc directory
+        shutil.copytree(subs, d)
+        subs = []
+    else:
+        shutil.copytree(_build.CSRC_DIR, d)
     for sub in subs:
         file, pat, rep = sub if len(sub) == 3 else ("conv3x3_mma.cuh", *sub)
         text = (d / file).read_text()
@@ -116,16 +133,27 @@ def build_variant(name, subs):
                   f"skipped", flush=True)
             return None
         (d / file).write_text(new)
-    # rebuild the libraries the substitutions touch (a changed header
-    # touches them all); the others are the main build's
+    main = lambda f: _build.CSRC_DIR / f.name
     changed = {f.name for f in d.iterdir() if f.suffix in (".cu", ".cuh")
-               and f.read_bytes() != (_build.CSRC_DIR / f.name).read_bytes()}
+               and (not main(f).exists()
+                    or f.read_bytes() != main(f).read_bytes())}
+    changed |= {f.name for f in _build.CSRC_DIR.iterdir()
+                if f.suffix == ".cuh" and not (d / f.name).exists()}
     header = any(f.endswith(".cuh") for f in changed)
-    procs = {src: subprocess.Popen(
+    return d, {src: subprocess.Popen(
         [_build._nvcc(), *_build._flags(src), "-I", str(d), "-o",
          str(d / f"{src}.so"), str(d / f"{src}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for src in SOURCES
         if header or f"{src}.cu" in changed}
+
+
+def finish_variant(name, started):
+    """The variant's ``(entry points, libraries)``: ``(source, symbol) →
+    ctypes function`` and ``source → CDLL`` (the main build's where the
+    variant compiled none); or None when a compile fails."""
+    from yolov5_obb_tpu_torch.ops.kernels import _build
+
+    d, procs = started
     libs = {src: _build.library(src) for src in SOURCES if src not in procs}
     for src, proc in procs.items():
         log = proc.communicate()[0]
@@ -184,6 +212,25 @@ def _case(kind, ci, co, H, stride, gen, dev):
     bf = torch.bfloat16
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     gbf = lambda c: torch.stack([1 + 0.3 * rnd(c), 0.2 * rnd(c)])
+    if kind == "c3":  # co: the depth n
+        from chip_smoke import check_c3_operands
+
+        x, p, library = check_c3_operands(gen, dev, ci, co, H)
+        from yolov5_obb_tpu_torch.ops.kernels import c3_kernel as K
+
+        return (lambda: K.fused_c3(x, p), lambda: K.fused_c3_plain(x, p),
+                library)
+    if kind == "stem_train":
+        from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+        x = torch.randint(0, 256, (BATCH, H, 3 * H), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        w = rnd(co, 3, 6, 6) / 108 ** 0.5 / 255.0
+        xn = x.view(BATCH, H, H, 3).permute(0, 3, 1, 2)
+        return (lambda: S.stem_train_fwd(x, w),
+                lambda: S.stem_train_fwd_plain(x, w),
+                # the same function: the float32 conv (TF32 off)
+                lambda: F.conv2d(xn.float(), w, None, 2, 2).to(bf))
     if kind == "stem_l1":
         import types
 
@@ -260,17 +307,27 @@ def _case(kind, ci, co, H, stride, gen, dev):
             lambda: TF.pass_3x3_fwd_plain(x, gb, wf, stride), conv)
 
 
+def _flat(t):
+    import torch
+
+    return [t] if isinstance(t, torch.Tensor) else [u for v in t
+                                                     for u in _flat(v)]
+
+
+def _same(got, main) -> bool:
+    """Bit for bit the main build's outputs."""
+    import torch
+
+    return all(torch.equal(a, b) for a, b in zip(_flat(got), _flat(main)))
+
+
 def _errors(got, want):
     """bf16 outputs: max |Δ| against one ulp of the largest; float32 ones
     (statistics, weight gradients): max |Δ| over the largest."""
     import torch
 
-    def flat(t):
-        return [t] if isinstance(t, torch.Tensor) else [
-            u for v in t for u in flat(v)]
-
     res = {"err": 0.0, "tol": 0.0, "rel": 0.0}
-    for g, w in zip(flat(got), flat(want)):
+    for g, w in zip(_flat(got), _flat(want)):
         if w.dtype == torch.bfloat16:
             res["err"] = max(res["err"], float(
                 (g.float() - w.float()).abs().max()))
@@ -293,12 +350,29 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    variants = (json.loads(Path(sys.argv[1]).read_text())
-                if len(sys.argv) > 1 else {})
-    only = tuple(sys.argv[2:])
+    args = sys.argv[1:]
+    variants = {}
+    while args[:1] == ["--csrc"]:
+        name, _, where = args[1].partition("=")
+        csrc = Path(where).resolve()
+        if not (csrc / "mma.cuh").is_file():
+            print(f"--csrc {args[1]}: no csrc directory there",
+                  file=sys.stderr)
+            return 1
+        variants[name] = csrc
+        args = args[2:]
+    if args:  # a file, or the JSON itself (e.g. ``{}``)
+        variants.update(json.loads(args[0] if args[0].lstrip().startswith("{")
+                                   else Path(args[0]).read_text()))
+    only = tuple(args[1:])
+    from yolov5_obb_tpu_torch.ops.kernels import _build
+
+    _build.build()  # the main build, then every variant's compiles at once
+    started = {name: start_variant(name, subs)
+               for name, subs in variants.items()}
     builds = {"main": None}
-    for name, subs in variants.items():
-        build = build_variant(name, subs)
+    for name, st in started.items():
+        build = st and finish_variant(name, st)
         if build is not None:
             builds[name] = build
     dev = torch.device("cuda")
@@ -309,13 +383,21 @@ def main() -> int:
             continue
         call, plain, library = _case(kind, ci, co, H, stride, gen, dev)
         want = plain()
-        res = {}
+        res, first = {}, None
         order = list(builds)
         for name in order + order[::-1]:
             with bound_to(builds[name]):
-                got = call()
-                torch.cuda.synchronize()
-                r = res.setdefault(name, {**_errors(got, want), "ms": []})
+                try:
+                    got = call()
+                    torch.cuda.synchronize()
+                except RuntimeError as e:  # a variant that refuses the case
+                    if name == "main":
+                        raise
+                    res[name] = {"error": str(e)}
+                    continue
+                first = got if first is None else first
+                r = res.setdefault(name, {**_errors(got, want), "ms": [],
+                                          "same_as_main": _same(got, first)})
                 r["ms"].append(cuda_time(call))
         res["library_ms"] = cuda_time(library)
         torch.cuda.synchronize()

@@ -5,6 +5,7 @@
 // at stride 1 and 2 (train_fused_3x3.cu: a BatchNorm + SiLU prologue on the
 // input, per-channel sums of the float32 accumulator) and layer 1 of the
 // stem+L1 kernel (stem_l1.cu: its patch computed in the CTA, not copied).
+// Its main loop (conv_mainloop) also runs the five convs of c3.cu.
 //
 // x (B, H, W, ci) bf16; taps w (9*ci, co) bf16, row (3*dy + dx)*ci + c.
 // z (B, (H-1)/S + 1, (W-1)/S + 1, co) bf16: the float32 sums, through the
@@ -173,112 +174,143 @@ struct BnSilu {
   }
 };
 
-// The body's main loop: acc (zeroed here) = the conv of the patch with the
-// taps w at output channels n0 .. n0 + N - 1, walked in chunks of ck_max
-// (<= kMaxK) input channels (ci padded to 16).  load_patch(k) stages chunk
-// k's patch into `patch` (pitch ck_max + 8 bf16 per slot): chunk 0's
-// before the first taps are copied, a later chunk's once the previous one
-// is read; whatever cp.async copies it issues land before the chunk's first
-// products.  activate(k) runs at the chunk's first tap, after those copies
-// landed and before the barrier that publishes them.  The taps stream
-// through the kStages ring at wbuf.  Every 3x3 conv of the port runs this
-// loop: conv_kernel on a patch it copies from device memory, the stem+L1
-// kernel (stem_l1.cu) on one it computes itself.
-template <int S, int N, int kMaxK, typename LoadPatch, typename Activate>
+// The main loop of every tensor-core conv of the port: acc (zeroed first
+// when `zero`, else added to) += the products of a shared A operand with the
+// weights w (taps * ci rows, row tap*ci + c; co columns) at output channels
+// n0 .. n0 + kCols - 1, K = taps x ci (ci padded to 16) walked in chunks of
+// ck_max (<= kMaxK) channels, one ring step per (chunk, tap).  Every lane
+// gives its A row address in each of its kMT m16 tiles (shared-window bytes,
+// its k half included: any pixel geometry) in arow; aoff(tap, k) is the
+// byte offset of step (chunk k, tap)'s A.  Only the warp's first `live` m16
+// tiles and first `pairs` n8 pairs of its kNT n8 tiles (columns wn*8*kNT ..)
+// are computed.  load_a(k) stages chunk k's A: chunk 0's before the first
+// weights are copied and, with `restage`, a later chunk's once the previous
+// one is read; whatever cp.async copies it issues land before the chunk's
+// first products.  activate(k) runs at the chunk's first tap, after those
+// copies landed and before the barrier that publishes them.  The weights
+// stream through a ring of kStages (ck_max, kCols) tiles at shared address
+// ring by cp.async, two steps ahead of the products, one barrier per step.
+// Users: conv_kernel and the stem+L1 kernel's layer 1 (through
+// patch_mainloop) and the five convs of c3.cu.
+template <int kMT, int kNT, int kCols, int kMaxK, int kThreads,
+          typename AOff, typename LoadA, typename Activate>
 __device__ __forceinline__ void conv_mainloop(
+    float (&acc)[kMT][kNT][4], bool zero, const uint32_t (&arow)[kMT],
+    int live, int pairs, int wn, uint32_t ring,
+    const __nv_bfloat16* __restrict__ w, int taps, int ci, int co, int n0,
+    int ck_max, bool restage, const AOff& aoff, const LoadA& load_a,
+    const Activate& activate) {
+  constexpr int kWs = kCols + 8;  // bf16 per ring row
+  const int lane = threadIdx.x & 31;
+  const int cp = (ci + 15) / 16 * 16;
+  const int steps = taps * ((cp + ck_max - 1) / ck_max);
+
+  // the weights of step s (chunk s / taps, tap s % taps) into ring slot
+  // buf: rows c0 .. c0 + ck - 1, zero past ci and co
+  auto load_w = [&](int s, int buf) {
+    const int k = s / taps, tap = s - k * taps;
+    const int c0 = k * ck_max, ck = min(ck_max, cp - c0);
+    for (int i = threadIdx.x; i < ck * (kCols / 8); i += kThreads) {
+      const int r = i / (kCols / 8), g = i - r * (kCols / 8);
+      const int c = c0 + r, n = n0 + 8 * g;
+      const bool full = c < ci && n < co;
+      cp_async16(ring + 2 * ((buf * ck_max + r) * kWs + 8 * g),
+                 full ? w + ((size_t)tap * ci + c) * co + n : w, full);
+    }
+  };
+  // the lane's B row and column in ring slot 0
+  const uint32_t bbase =
+      ring + 2 * ((lane & 15) * kWs + wn * 8 * kNT + (lane >> 4) * 8);
+
+  load_a(0);
+  load_w(0, 0);
+  cp_async_commit();
+  if (steps > 1) load_w(1, 1);
+  cp_async_commit();
+  // zeroed after load_a: an A computed in the CTA needs the registers first
+  if (zero) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int k = s / taps, tap = s - k * taps;
+    const int ck = min(ck_max, cp - k * ck_max);
+    if (restage && tap == 0 && k > 0) {
+      __syncthreads();  // the previous chunk is read
+      load_a(k);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();  // this step's weights (and chunk 0's A) landed
+    }
+    if (tap == 0) activate(k);
+    __syncthreads();  // ... for all; step s - 1's ring slot is free
+    if (s + 2 < steps) load_w(s + 2, (s + 2) % kStages);
+    cp_async_commit();
+
+    const uint32_t astep = aoff(tap, k);
+    const uint32_t bstep = bbase + 2 * (s % kStages) * ck_max * kWs;
+#pragma unroll
+    for (int kk = 0; kk < kMaxK; kk += 16) {
+      if (kk >= ck) break;
+      uint32_t a[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        if (i < live) ldsm_x4(a[i], arow[i] + astep + 2 * kk);
+#pragma unroll
+      for (int p = 0; p < kNT / 2; ++p) {
+        if (p >= pairs) break;
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, bstep + 2 * (kk * kWs + 16 * p));
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+          if (i < live) {
+            mma16816(acc[i][2 * p], a[i], bf[0], bf[1]);
+            mma16816(acc[i][2 * p + 1], a[i], bf[2], bf[3]);
+          }
+      }
+    }
+  }
+}
+
+// conv_mainloop on a Patch<S> of an 8x16 output tile: acc (zeroed here) =
+// the 3x3 conv of the patch with the taps w at output channels n0 .. n0 +
+// N - 1, walked in chunks of ck_max (<= kMaxK) input channels.
+// load_patch(k) stages chunk k's patch into `patch` (pitch ck_max + 8 bf16
+// per slot); activate(k) as conv_mainloop's.  The taps stream through the
+// kStages ring at wbuf.  Runs conv_kernel on a patch it copies from device
+// memory and the stem+L1 kernel (stem_l1.cu) on one it computes itself.
+template <int S, int N, int kMaxK, typename LoadPatch, typename Activate>
+__device__ __forceinline__ void patch_mainloop(
     float (&acc)[Split<N>::kMTiles][Split<N>::kNTiles][4],
     const __nv_bfloat16* patch, __nv_bfloat16* wbuf,
     const __nv_bfloat16* __restrict__ w, int ci, int co, int n0, int ck_max,
     const LoadPatch& load_patch, const Activate& activate) {
   using P = Patch<S>;
   using Sp = Split<N>;
-  constexpr int kChunkN = N, kWs = Sp::kWs;
-  constexpr int kWarpsM = Sp::kWarpsM, kMTiles = Sp::kMTiles;
-  constexpr int kNTiles = Sp::kNTiles;
+  constexpr int kMTiles = Sp::kMTiles;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int wm = warp % Sp::kWarpsM, wn = warp / Sp::kWarpsM;
   const int ps = ck_max + 8;  // bf16 per patch slot
-  const int cp = (ci + 15) / 16 * 16;
-  const int kchunks = (cp + ck_max - 1) / ck_max;
-  const int steps = 9 * kchunks;
-
-  // the tap tile of step s (chunk s / 9, tap s % 9) into ring slot `buf`
-  auto load_taps = [&](int s, int buf) {
-    const int c0 = (s / 9) * ck_max, tap = s % 9;
-    const int ck = min(ck_max, cp - c0);
-    __nv_bfloat16* dst = wbuf + (size_t)buf * ck_max * kWs;
-    for (int i = tid; i < ck * (kChunkN / 8); i += kThreads) {
-      const int k = i / (kChunkN / 8), g = i - k * (kChunkN / 8);
-      const int c = c0 + k, n = n0 + 8 * g;
-      const bool full = c < ci && n < co;
-      cp_async16(dst + k * kWs + 8 * g,
-                 full ? w + ((size_t)tap * ci + c) * co + n : w, full);
-    }
-  };
-
   // per lane: its A row (output pixel px = lane % 16 of output row
-  // kMTiles*wm + i) at tap (0, 0), and its k half; its B row and column
-  int abase[kMTiles];
+  // kMTiles*wm + i) at tap (0, 0), and its k half
+  uint32_t arow[kMTiles];
 #pragma unroll
   for (int i = 0; i < kMTiles; ++i)
-    abase[i] = S * (kMTiles * wm + i) * P::row_slots + P::slot(S * (lane & 15));
-  const int akoff = (lane >> 4) * 8;
-  const int brow = lane & 15, bcol = wn * (8 * kNTiles) + (lane >> 4) * 8;
-
-  // the pipeline: step s computes chunk s / 9's tap s % 9 while the taps of
-  // step s + 2 load; a chunk's patch loads (and is activated) once the
-  // previous chunk is read
-  load_patch(0);
-  load_taps(0, 0);
-  cp_async_commit();
-  if (steps > 1) load_taps(1, 1);
-  cp_async_commit();
-  // zeroed after load_patch: a patch computed in the CTA needs the
-  // registers first
-#pragma unroll
-  for (int i = 0; i < kMTiles; ++i)
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  for (int s = 0; s < steps; ++s) {
-    const int tap = s % 9, k = s / 9;
-    const int ck = min(ck_max, cp - k * ck_max);
-    if (tap == 0 && k > 0) {
-      __syncthreads();  // the previous chunk's patch is read
-      load_patch(k);
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {
-      cp_async_wait<1>();  // this step's taps (and chunk 0's patch) landed
-    }
-    if (tap == 0) activate(k);
-    __syncthreads();  // ... for all; step s - 1's tap slot is free
-    if (s + 2 < steps) load_taps(s + 2, (s + 2) % kStages);
-    cp_async_commit();
-
+    arow[i] = smem_addr(patch) +
+              2 * ((S * (kMTiles * wm + i) * P::row_slots +
+                    P::slot(S * (lane & 15))) * ps + (lane >> 4) * 8);
+  auto aoff = [&](int tap, int) -> uint32_t {
     const int dy = tap / 3, dx = tap - 3 * dy;
-    const int toff = dy * P::row_slots + P::slot(dx);
-    const __nv_bfloat16* wt = wbuf + (size_t)(s % kStages) * ck_max * kWs;
-#pragma unroll
-    for (int kk = 0; kk < kMaxK; kk += 16) {
-      if (kk >= ck) break;
-      uint32_t a[kMTiles][4];
-#pragma unroll
-      for (int i = 0; i < kMTiles; ++i)
-        ldsm_x4(a[i], patch + (abase[i] + toff) * ps + kk + akoff);
-#pragma unroll
-      for (int p = 0; p < kNTiles / 2; ++p) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, wt + (kk + brow) * kWs + bcol + 16 * p);
-#pragma unroll
-        for (int i = 0; i < kMTiles; ++i) {
-          mma16816(acc[i][2 * p], a[i], bf[0], bf[1]);
-          mma16816(acc[i][2 * p + 1], a[i], bf[2], bf[3]);
-        }
-      }
-    }
-  }
+    return 2 * (dy * P::row_slots + P::slot(dx)) * ps;
+  };
+  conv_mainloop<kMTiles, Sp::kNTiles, N, kMaxK, kThreads>(
+      acc, true, arow, kMTiles, Sp::kNTiles / 2, wn, smem_addr(wbuf), w, 9,
+      ci, co, n0, ck_max, true, aoff, load_patch, activate);
 }
 
 // One CTA: output tile (ty, tx) of image b, output channels n0 .. n0+N-1.
@@ -380,8 +412,8 @@ conv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gb,
   };
 
   float acc[kMTiles][kNTiles][4];
-  conv_mainloop<S, N, kMaxChunkK>(acc, patch, wbuf, w, ci, co, n0, ck_max,
-                                  load_patch, activate_own);
+  patch_mainloop<S, N, kMaxChunkK>(acc, patch, wbuf, w, ci, co, n0, ck_max,
+                                   load_patch, activate_own);
 
   // epilogue: the mapped bf16 outputs through shared memory (the patch's
   // room), then 16-byte stores; with kStats the per-channel sums of the

@@ -5,8 +5,9 @@
 // per-channel statistics summed in a fixed order.
 //
 // Users: conv3x3_mma.cuh (every 3x3 conv kernel, the stem+L1 kernel's
-// layer 1), stem_l1.cu's stem, down_train.cu's weight gradient,
-// train_fused_1x1.cu's forward and backward.
+// layer 1), stem_mma.cuh (the stem of stem_l1.cu and of stem_train.cu's
+// forward), c3.cu, down_train.cu's weight gradient, train_fused_1x1.cu's
+// forward and backward.
 #pragma once
 
 #include "common.cuh"
@@ -16,10 +17,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes global → shared; zeros (and no read) when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  cp_async16(smem_addr(dst), src, full);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -40,6 +44,20 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+// the same from a shared-memory address (smem_addr's), so an address
+// computed once stays one 32-bit register
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 // two 8x8 matrices, from the row addresses of lanes 0-15
 __device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {

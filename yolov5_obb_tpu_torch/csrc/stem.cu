@@ -19,10 +19,9 @@
 // (50 MB image, 403 MB y), 0.135 ms: operations bound it.  This first
 // version does them in scalar float32 FMAs.
 //
-// Design: the tile body of stem_conv.cuh (the train-mode stem's forward:
-// one block per 8x32 tile of stem outputs, the image patch staged as float
-// in shared memory, 8 output channels of one pixel per thread) with a bias +
-// SiLU epilogue.
+// Design: the tile body of stem_conv.cuh (one block per 8x32 tile of stem
+// outputs, the image patch staged as float in shared memory, 8 output
+// channels of one pixel per thread) with a bias + SiLU epilogue.
 #include "stem_conv.cuh"
 
 namespace {

@@ -1,6 +1,7 @@
-// The stem Conv(6x6, s2, p2) body shared by the inference stem (stem.cu:
-// bias + SiLU epilogue) and the train-mode raw stem conv (stem_train.cu: the
-// float32 sums as they are; its weight gradient stages the same patches).
+// The scalar stem Conv(6x6, s2, p2) body of the inference stem alone
+// (stem.cu: bias + SiLU epilogue); the train-mode stem's weight gradient
+// (stem_train.cu) stages the same patches.  (The stem+L1 kernel and the
+// train-mode forward run the tensor-core stem of stem_mma.cuh.)
 //
 // x (B, H, 3W) uint8 — a free view of the NHWC batch — and the taps
 // w (108, c2) float32, row (6*dy + dx)*3 + c (the /255 normalize folded in).

@@ -20,27 +20,20 @@
 //
 // Design: one CTA per 8x16 tile of layer-1 outputs of one image, the 4 warps
 // of conv3x3_mma.cuh's body.
-// 1. The stem on the tensor cores with float32 products.  A uint8 value is
-//    exact in bf16; each float32 weight is split once per CTA into three bf16
-//    terms w = hi + mid + lo (3 x 8 significant bits: float32's 24) in
-//    shared memory, and the three products add into the same float32
-//    accumulators (mma.sync m16n8k16).  GEMM view: M = the 17x33 stem
+// 1. The stem on the tensor cores with float32 products (stem_mma.cuh: the
+//    uint8 image exact in bf16, each float32 weight split once per CTA into
+//    three bf16 terms, K in the weights' row order) over the 17x33 stem
 //    pixels under the tile (layer 1's stride-2 patch, 9.6% more than the
-//    tile's 4 x 128), N = c2 (padded to 16), K = 6 image rows x 18
-//    contiguous packed bytes (108, padded to 112 with zero weights), so K is
-//    the weights' own row order.  The image rows the tile needs (38 x 210
-//    bytes) are staged as uint8; each A register is one 2-byte load of two
-//    neighbouring packed bytes turned into a bf16 pair (the pair never
-//    crosses a tap row: 18 is even).  B (the split weights, [k][c2 + 8]) by
-//    ldmatrix.x4.trans, conflict-free.  Each warp takes 3 m16 tiles at a time
-//    (2 at c2 > 48): 12 steps of 48 pixels share the 4 warps evenly.
+//    tile's 4 x 128).  The image rows the tile needs (38 x 210 bytes) are
+//    staged as uint8.  Each warp takes 3 m16 tiles at a time (2 at c2 >
+//    48): 12 steps of 48 pixels share the 4 warps evenly.
 // 2. The stem epilogue: + b0, SiLU (IEEE expf), one rounding to bf16,
 //    written straight into the layer-1 patch in the layout the body's
 //    stride-2 gather reads (Patch<2>: even and odd columns apart, a slot of
 //    c2 + 8 channels: an odd number of 16-byte units).  A stem pixel outside
 //    the stem image, and a channel past c2, is written as zero: layer 1's
 //    padding.
-// 3. Layer 1 on conv3x3_mma.cuh's main loop (conv_mainloop), its patch
+// 3. Layer 1 on conv3x3_mma.cuh's main loop (patch_mainloop), its patch
 //    filled by step 2 instead of copied from device memory (one chunk of all
 //    c2 channels; the loop's patch hook does nothing), the taps streaming
 //    through the body's cp.async ring,
@@ -54,6 +47,7 @@
 // most 80 (yolov5x): the patch, the split weights and the image must fit a
 // block's shared memory.
 #include "conv3x3_mma.cuh"
+#include "stem_mma.cuh"
 
 namespace {
 
@@ -63,25 +57,14 @@ using conv3x3_mma::kTileX;
 using conv3x3_mma::kTileY;
 using conv3x3_mma::Split;
 using P2 = conv3x3_mma::Patch<2>;
+using Img = stem_mma::Rect<P2::rows, P2::cols>;  // the stem pixels per CTA
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kStemPx = P2::rows * P2::cols;       // stem pixels per CTA
-constexpr int kImgRows = 2 * P2::rows + 4;         // image rows per CTA
-constexpr int kImgBytes = 3 * (2 * P2::cols + 4);  // packed bytes per row
-constexpr int kImgWords = (kImgBytes + 3) / 4;
-constexpr int kImgPitch = 4 * kImgWords;           // bytes per staged row
-constexpr int kTaps = 108;                         // 6 rows x 18 bytes
-constexpr int kK = 112;                            // K padded to k16 steps
 
-// The stem GEMM for c2 padded to CP: n8 tiles, m16 tiles per warp step,
-// steps, and the bf16 per row and in all of the three split weights.
+// The stem GEMM for c2 padded to CP: m16 tiles per warp step.
 template <int CP> struct Stem {
-  static_assert(CP % 16 == 0 && CP <= 80, "c2 padded to 16, at most 80");
-  static constexpr int kNT = CP / 8;
   static constexpr int kM = CP <= 48 ? 3 : 2;
-  static constexpr int kUnits = (kStemPx + 16 * kM - 1) / (16 * kM);
-  static constexpr int kWp = CP + 8;
-  static constexpr int kSplit = 3 * kK * kWp;
+  using G = stem_mma::Gemm<CP, kM, Img::kPx>;
 };
 
 // Shared memory, in bf16 elements from its start: the patch (whose room
@@ -94,20 +77,12 @@ template <int CP, int N> struct Smem {
   static constexpr int kPatch = kPatchIn > kOt ? kPatchIn : kOt;
   static constexpr int kRing = kStages * CP * Split<N>::kWs;
   static constexpr int kStemBytes =
-      Stem<CP>::kSplit * 2 + kImgRows * kImgPitch;
+      Stem<CP>::G::kSplit * 2 + Img::kImgRows * Img::kImgPitch;
   static size_t bytes(int n_chunks) {
     const size_t l1 = (size_t)(kRing + (n_chunks > 1 ? kOt : 0)) * 2;
     return (size_t)kPatch * 2 + (l1 > kStemBytes ? l1 : kStemBytes);
   }
 };
-
-// two neighbouring packed bytes → the bf16 pair of an A register (exact)
-__device__ __forceinline__ uint32_t u8x2_bf16x2(const uint8_t* p) {
-  const uint32_t v = *reinterpret_cast<const uint16_t*>(p);
-  __nv_bfloat162 h =
-      __floats2bfloat162_rn((float)(v & 0xffu), (float)(v >> 8));
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // layer 1's epilogue: + b1, SiLU (common.cuh's: IEEE expf and division)
 struct BiasSilu {
@@ -138,7 +113,7 @@ stem_l1_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w0,
   extern __shared__ float4 smem4[];
   auto* patch = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* wsplit = patch + Sm::kPatch;   // the stem's operands ...
-  auto* img = reinterpret_cast<uint8_t*>(wsplit + St::kSplit);
+  auto* img = reinterpret_cast<uint8_t*>(wsplit + St::G::kSplit);
   __nv_bfloat16* wbuf = patch + Sm::kPatch;     // ... then layer 1's ring
   __nv_bfloat16* ot_mid = wbuf + Sm::kRing;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -149,110 +124,29 @@ stem_l1_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w0,
   // the stem of the tile's 17x33 stem pixels (rows 2*oy0 - 1 .., columns
   // 2*ox0 - 1 ..) into the patch
   auto stem = [&]() {
-    // w0 split into three bf16 terms, [term][k][n], zero past 108 and c2
-    for (int i = tid; i < kK * CP; i += kThreads) {
-      const int k = i / CP, n = i - k * CP;
-      const float w = k < kTaps && n < c2 ? __ldg(w0 + k * c2 + n) : 0.f;
-      const __nv_bfloat16 hi = __float2bfloat16(w);
-      const float r1 = w - __bfloat162float(hi);
-      const __nv_bfloat16 mid = __float2bfloat16(r1);
-      const __nv_bfloat16 lo = __float2bfloat16(r1 - __bfloat162float(mid));
-      wsplit[k * St::kWp + n] = hi;
-      wsplit[(kK + k) * St::kWp + n] = mid;
-      wsplit[(2 * kK + k) * St::kWp + n] = lo;
-    }
-    // image rows 4*oy0 - 4 .., packed bytes 3*(4*ox0 - 4) .. (zero outside
-    // the image: the stem's padding); 4 bytes a load where the rows allow
-    const uint8_t* xb = x + (size_t)b * H * W * 3;
-    const int gy0 = 4 * oy0 - 4, gc0 = 3 * (4 * ox0 - 4), W3 = 3 * W;
-    if (vec) {
-      for (int i = tid; i < kImgRows * kImgWords; i += kThreads) {
-        const int r = i / kImgWords, u = i - r * kImgWords;
-        const int gy = gy0 + r, gc = gc0 + 4 * u;
-        uint32_t v = 0u;
-        if (gy >= 0 && gy < H && gc >= 0 && gc < W3)
-          v = __ldg(reinterpret_cast<const unsigned int*>(
-              xb + (size_t)gy * W3 + gc));
-        *reinterpret_cast<uint32_t*>(img + r * kImgPitch + 4 * u) = v;
-      }
-    } else {
-      for (int i = tid; i < kImgRows * kImgBytes; i += kThreads) {
-        const int r = i / kImgBytes, c = i - r * kImgBytes;
-        const int gy = gy0 + r, gc = gc0 + c;
-        img[r * kImgPitch + c] =
-            gy >= 0 && gy < H && gc >= 0 && gc < W3
-                ? __ldg(xb + (size_t)gy * W3 + gc)
-                : (uint8_t)0;
-      }
-    }
+    stem_mma::split_weights<CP, kThreads>(w0, c2, 0, wsplit);
+    // image rows 4*oy0 - 4 .., packed bytes 3*(4*ox0 - 4) ..
+    stem_mma::stage_image<Img, kThreads>(x + (size_t)b * H * W * 3, H, W,
+                                         4 * oy0 - 4, 3 * (4 * ox0 - 4), img,
+                                         vec);
     __syncthreads();
-
-    // per lane: its A rows (stem pixels lane/4 and lane/4 + 8 of each m16
-    // tile) and k pair, its B row and column
+    // + b0, SiLU, one rounding to bf16, into the pixel's patch slot; zero
+    // outside the stem image (layer 1's padding) and past c2
     const int g = lane >> 2, c4 = lane & 3;
-    const int brow = lane & 15, bcol = (lane >> 4) * 8;
-#pragma unroll 1
-    for (int u = warp; u < St::kUnits; u += kWarps) {
-      float sacc[St::kM][St::kNT][4];
-#pragma unroll
-      for (int i = 0; i < St::kM; ++i)
-#pragma unroll
-        for (int j = 0; j < St::kNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sacc[i][j][e] = 0.f;
-      int pb[St::kM][2];  // image offset of the pixel's tap (0, 0)
-#pragma unroll
-      for (int i = 0; i < St::kM; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          int m = (u * St::kM + i) * 16 + g + 8 * h;
-          m = m < kStemPx ? m : 0;  // past the last pixel: never stored
-          const int r = m / P2::cols, q = m - r * P2::cols;
-          pb[i][h] = 2 * r * kImgPitch + 6 * q;
-        }
-#pragma unroll 1
-      for (int ks = 0; ks < kK / 16; ++ks) {
-        // k = 18*dy + t: image row dy, packed byte t of the pixel's 6
-        const int ka = 16 * ks + 2 * c4, kb = ka + 8;
-        const int oa = ka < kTaps ? ka / 18 * kImgPitch + ka % 18 : 0;
-        const int ob = kb < kTaps ? kb / 18 * kImgPitch + kb % 18 : 0;
-        uint32_t a[St::kM][4];
-#pragma unroll
-        for (int i = 0; i < St::kM; ++i) {
-          a[i][0] = u8x2_bf16x2(img + pb[i][0] + oa);
-          a[i][1] = u8x2_bf16x2(img + pb[i][1] + oa);
-          a[i][2] = u8x2_bf16x2(img + pb[i][0] + ob);
-          a[i][3] = u8x2_bf16x2(img + pb[i][1] + ob);
-        }
-#pragma unroll
-        for (int s = 0; s < 3; ++s)
-#pragma unroll
-          for (int p = 0; p < St::kNT / 2; ++p) {
-            uint32_t bf[4];
-            ldsm_x4_trans(bf, wsplit + (s * kK + 16 * ks + brow) * St::kWp +
-                                  bcol + 16 * p);
-#pragma unroll
-            for (int i = 0; i < St::kM; ++i) {
-              mma16816(sacc[i][2 * p], a[i], bf[0], bf[1]);
-              mma16816(sacc[i][2 * p + 1], a[i], bf[2], bf[3]);
-            }
-          }
-      }
-      // + b0, SiLU, one rounding to bf16, into the pixel's patch slot;
-      // zero outside the stem image (layer 1's padding) and past c2
+    auto epi = [&](int u, const auto& sacc) {
 #pragma unroll
       for (int i = 0; i < St::kM; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = (u * St::kM + i) * 16 + g + 8 * h;
-          if (m >= kStemPx) continue;
+          if (m >= Img::kPx) continue;
           const int r = m / P2::cols, q = m - r * P2::cols;
           const int sy = 2 * oy0 - 1 + r, sx = 2 * ox0 - 1 + q;
           const bool in = sy >= 0 && sy < Hs && sx >= 0 && sx < Ws;
           __nv_bfloat16* dst =
               patch + (r * P2::row_slots + P2::slot(q)) * ps + 2 * c4;
 #pragma unroll
-          for (int j = 0; j < St::kNT; ++j) {
+          for (int j = 0; j < St::G::kNT; ++j) {
             const int n = 8 * j + 2 * c4;
             float2 v = make_float2(0.f, 0.f);
             if (in && n < c2)
@@ -262,7 +156,9 @@ stem_l1_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w0,
                 __floats2bfloat162_rn(v.x, v.y);
           }
         }
-    }
+    };
+    stem_mma::products<CP, St::kM, Img, kWarps>(wsplit, img, warp, lane,
+                                                epi);
     __syncthreads();  // the patch is whole; the stem's operands are dead
   };
 
@@ -286,8 +182,8 @@ stem_l1_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w0,
   for (int nc = 0; nc < n_chunks; ++nc) {
     const int n0 = nc * N;
     float acc[Sp::kMTiles][Sp::kNTiles][4];
-    conv3x3_mma::conv_mainloop<2, N, CP>(acc, patch, wbuf, w1, c2, c3, n0,
-                                         ck, [](int) {}, [](int) {});
+    conv3x3_mma::patch_mainloop<2, N, CP>(acc, patch, wbuf, w1, c2, c3, n0,
+                                          ck, [](int) {}, [](int) {});
     __syncthreads();  // the products have read the patch and the ring
     __nv_bfloat16* ot = nc + 1 == n_chunks ? patch : ot_mid;
     stage_outputs<Sp::kMTiles, Sp::kNTiles, N, Sp::kOs, false>(

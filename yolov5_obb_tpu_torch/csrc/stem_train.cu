@@ -15,49 +15,136 @@
 // The image takes no gradient.
 //
 // Bounds on this card at yolov5m b16 1024² (c2 = 48, 4.2 M output pixels):
-// forward 43.5 GFLOP of float32 work, 0.65 ms at 67 TFLOP/s, against 453 MB
-// moved (50 MB image, 403 MB z), 0.135 ms: operations bound it.  The weight
-// gradient reads the same 453 MB (0.135 ms) for the same 43.5 GFLOP of
-// bf16 products (0.044 ms at the tensor-core peak): bytes bound it.  This
-// first version does both in scalar float32 FMAs.
+// the forward's 43.5 GFLOP run as three bf16 products (130.5 GFLOP, 0.13 ms
+// at the tensor-core peak) against 453 MB moved (50 MB image, 403 MB z),
+// 0.135 ms: bytes bound it, barely.  The weight gradient reads the same 453
+// MB (0.135 ms) for the same 43.5 GFLOP of bf16 products (0.044 ms): bytes
+// bound it.
 //
-// Design.  Forward: the tile body of stem_conv.cuh (one block per 8x32 tile
-// of stem outputs, the image patch staged as float in shared memory, 8
-// output channels of one pixel per thread), stored as it is.
-// Weight gradient: two stages, no atomics.  Stage 1: a fixed number of CTAs
-// (`parts`, from the wrapper) each walk the 8x32 pixel tiles tile_id ≡
-// blockIdx.x (mod parts), staging the tile's image patch and its dz rows
-// (float) in shared memory; thread (tap, k-group) keeps dW rows
-// (tap, c = 0..2) x 8 output channels in registers over every pixel of every
-// tile, then writes its CTA's partial.  Stage 2 (wgrad.cuh) sums the
-// partials in order.
+// Design.  Forward: stem_mma.cuh's tensor-core stem (each float32 weight
+// split into three bf16 terms, the uint8 image exact in bf16) on kRows x
+// kCols rectangles of stem outputs, no halo; the raw sums rounded once to
+// bf16 go through mma.cuh's stage_outputs and store_outputs (16-byte
+// coalesced stores).  Persistent CTAs (as many as are resident at once)
+// walk the rectangles, so each splits its weights once for ~40 of them
+// (1024², b16).  A c2 past 80 runs in chunks of 80 columns (a grid axis).
+// Weight gradient (scalar float32 FMAs): two stages, no atomics.  Stage 1:
+// a fixed number of CTAs (`parts`, from the wrapper) each walk the 8x32
+// pixel tiles tile_id ≡ blockIdx.x (mod parts), staging the tile's image
+// patch and its dz rows (float) in shared memory (stem_conv.cuh's
+// stage_patch); thread (tap, k-group) keeps dW rows (tap, c = 0..2) x 8
+// output channels in registers over every pixel of every tile, then
+// writes its CTA's partial.  Stage 2 (wgrad.cuh) sums the partials in
+// order.
 #include "stem_conv.cuh"
+#include "stem_mma.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
 using stem_conv::IX;
 using stem_conv::kImg;
-using stem_conv::kThreads;
 using stem_conv::stage_patch;
 using stem_conv::TX;
 using stem_conv::TY;
 
-// the forward's epilogue: one rounding to bf16
-struct StoreRaw {
-  __nv_bfloat16* z;
-  __device__ __forceinline__ void operator()(const float* acc, int,
-                                             size_t off) const {
-    store8_bf16(z + off, acc);
+// the forward's rectangle of stem outputs and its warps
+constexpr int kRows = 8, kCols = 32;
+constexpr int kFwdWarps = 4, kFwdThreads = 32 * kFwdWarps;
+// a rectangle's image bytes start at 6*sx0 - 6, 2 mod 4 (sx0 is a multiple
+// of 32): staged from 2 bytes earlier
+using FwdRect = stem_mma::Rect<kRows, kCols, 2>;
+
+// m16 tiles a warp step: 4 (64 pixels) up to 48 columns, else 2; both give
+// each warp the same number of units of an 8x32 rectangle
+template <int CP> struct Fwd {
+  static constexpr int kM = CP <= 48 ? 4 : 2;
+  using G = stem_mma::Gemm<CP, kM, FwdRect::kPx>;
+  static constexpr int kOs = CP + 8;  // bf16 per staged output pixel
+  static constexpr size_t kSmem =
+      ((size_t)G::kSplit + FwdRect::kPx * kOs) * 2 +
+      FwdRect::kImgRows * FwdRect::kImgPitch;
+};
+
+// the forward's epilogue: the float32 sums as they are (rounded once by
+// stage_outputs)
+struct Raw {
+  struct Pair {};
+  __device__ __forceinline__ Pair at(int) const { return {}; }
+  __device__ __forceinline__ float2 operator()(const Pair&, float2 v) const {
+    return v;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+// CTA (blockIdx.x, blockIdx.y): the rectangles blockIdx.x, + gridDim.x, ..
+// (rectangle t: image t / per_image), columns blockIdx.y * CP ..
+template <int CP>
+__global__ void __launch_bounds__(kFwdThreads, CP <= 48 ? 3 : 2)
 stem_fwd_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w,
                 __nv_bfloat16* __restrict__ z, int H, int W, int c2, int Hs,
-                int Ws) {
-  __shared__ float img[kImg];
-  stem_conv::tile_conv(x, w, StoreRaw{z}, img, H, W, c2, Hs, Ws);
+                int Ws, int tiles_x, int per_image, int ntiles, int vec) {
+  using F = Fwd<CP>;
+  extern __shared__ float4 smem4[];
+  auto* wsplit = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* ot = wsplit + F::G::kSplit;
+  auto* img = reinterpret_cast<uint8_t*>(ot + FwdRect::kPx * F::kOs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * CP;
+  stem_mma::split_weights<CP, kFwdThreads>(w, c2, n0, wsplit);
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int b = t / per_image, rem = t - b * per_image;
+    const int sy0 = (rem / tiles_x) * kRows, sx0 = (rem % tiles_x) * kCols;
+    __syncthreads();  // the previous rectangle's products and stores are done
+    stem_mma::stage_image<FwdRect, kFwdThreads>(
+        x + (size_t)b * H * W * 3, H, W, 2 * sy0 - 2, 3 * (2 * sx0 - 2), img,
+        vec);
+    __syncthreads();  // the image (and the split weights) for all
+    auto valid = [&](int p) {
+      return p < FwdRect::kPx && sy0 + p / kCols < Hs && sx0 + p % kCols < Ws;
+    };
+    auto epi = [&](int u, const auto& sacc) {
+      stage_outputs<F::kM, F::G::kNT, CP, F::kOs, false>(
+          sacc, Raw{}, valid, ot, nullptr, u, 0, lane, n0, c2);
+    };
+    stem_mma::products<CP, F::kM, FwdRect, kFwdWarps>(wsplit, img, warp,
+                                                      lane, epi);
+    __syncthreads();
+    auto dst = [&](int p) -> __nv_bfloat16* {
+      const int sy = sy0 + p / kCols, sx = sx0 + p % kCols;
+      return sy < Hs && sx < Ws ? z + (((size_t)b * Hs + sy) * Ws + sx) * c2
+                                : nullptr;
+    };
+    store_outputs<FwdRect::kPx, CP, F::kOs, kFwdThreads>(ot, dst, tid, n0,
+                                                         c2);
+  }
+}
+
+template <int CP>
+cudaError_t fwd_launch(const uint8_t* x, const float* w, void* z, int B,
+                       int H, int W, int c2, cudaStream_t stream) {
+  const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
+  const int tiles_x = (Ws + kCols - 1) / kCols;
+  const int per_image = tiles_x * ((Hs + kRows - 1) / kRows);
+  const int ntiles = B * per_image;
+  auto kern = stem_fwd_kernel<CP>;
+  cudaError_t err = allow_smem(kern, Fwd<CP>::kSmem);
+  if (err != cudaSuccess) return err;
+  // persistent CTAs: as many as are resident at once
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kFwdThreads, Fwd<CP>::kSmem);
+  if (err != cudaSuccess) return err;
+  const int grid = min(ntiles, (per_sm > 0 ? per_sm : 1) * sms);
+  // 4-byte image loads: every staged row starts on a 4-byte boundary
+  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  kern<<<dim3(grid, (c2 + CP - 1) / CP), kFwdThreads, Fwd<CP>::kSmem,
+         stream>>>(x, w, reinterpret_cast<__nv_bfloat16*>(z), H, W, c2, Hs,
+                   Ws, tiles_x, per_image, ntiles, vec);
+  return cudaGetLastError();
 }
 
 // Stage 1 of the weight gradient; blockDim.x >= 36 * c2/8 (one thread per
@@ -136,15 +223,22 @@ __global__ void stem_wgrad_kernel(const uint8_t* __restrict__ x,
 
 }  // namespace
 
+// Requires c2 % 8 == 0.
 extern "C" int stem_train_fwd_launch(const uint8_t* x, const float* w, void* z,
                                      int B, int H, int W, int c2,
                                      void* stream) {
   const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
   if (B == 0 || Hs <= 0 || Ws <= 0) return 0;
-  dim3 grid((Ws + TX - 1) / TX, (Hs + TY - 1) / TY, B);
-  stem_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, w, reinterpret_cast<__nv_bfloat16*>(z), H, W, c2, Hs, Ws);
-  return (int)cudaGetLastError();
+  auto st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch ((c2 + 15) / 16 * 16) {
+    case 16: err = fwd_launch<16>(x, w, z, B, H, W, c2, st); break;
+    case 32: err = fwd_launch<32>(x, w, z, B, H, W, c2, st); break;
+    case 48: err = fwd_launch<48>(x, w, z, B, H, W, c2, st); break;
+    case 64: err = fwd_launch<64>(x, w, z, B, H, W, c2, st); break;
+    default: err = fwd_launch<80>(x, w, z, B, H, W, c2, st);  // chunks of 80
+  }
+  return (int)err;
 }
 
 // partial: parts * 108 * c2 floats of scratch; dw: 108 * c2 floats.

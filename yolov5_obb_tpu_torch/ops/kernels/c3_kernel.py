@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_cuda
+from ._build import I, Kernel, P, check_aligned, check_cuda
 
 KERNEL = Kernel(
     "c3", "c3_launch",
@@ -83,7 +83,8 @@ def fused_c3_plain(x, p: dict, shortcut: bool = True):
 def fused_c3(x, p: dict, shortcut: bool = True):
     """Fused C3(c1, c2, n, shortcut, e=0.5, g=1) on ``(B, H, W, c1)``;
     operands from :func:`fold_c3_params`.  CPU tensors take the plain
-    version; CUDA tensors take the kernel (bf16, 1 <= n <= 4)."""
+    version; CUDA tensors take the kernel (bf16, 1 <= n <= 4, even c1, c_
+    and c2 multiples of 8, 16-byte aligned weights)."""
     if x.device.type == "cpu":
         return fused_c3_plain(x, p, shortcut)
     check_cuda("x", x, torch.bfloat16, 4)
@@ -106,6 +107,8 @@ def fused_c3(x, p: dict, shortcut: bool = True):
     if bad or not 1 <= n <= 4 or c1 % 2 or c_ % 8 or c2 % 8:
         raise ValueError(f"c3 kernel: unsupported shapes x {tuple(x.shape)}, "
                          f"n={n}, c_={c_}, c2={c2}, mismatched {bad}")
+    # the kernel copies the weights 16 bytes at a time
+    check_aligned(**{k: p[k] for k in ("w1", "wa", "wt", "w2", "w3a", "w3b")})
     out = torch.empty(B, H, W, c2, dtype=torch.bfloat16, device=x.device)
     KERNEL.launch(x, p["w1"], p["s1"], p["wa"], p["sa"], p["wt"], p["st"],
                   p["w2"], p["s2"], p["w3a"], p["w3b"], p["s3"], out,
