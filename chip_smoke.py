@@ -7,9 +7,10 @@ Phases, each fatal on failure:
   (a) set-up: card name and power limit, torch/CUDA versions, build of the
       CUDA kernels from yolov5_obb_tpu_torch/csrc (one nvcc per source, in
       parallel), timed; for the tensor-core kernels (csrc/conv3x3_mma.cuh,
-      the body of every 3x3 conv kernel; the stem+L1 kernel and the train
-      stem's forward on csrc/stem_mma.cuh; the C3 kernel; the downsample
-      weight gradient; the 1x1 pass forward and backward) their
+      the body of every 3x3 conv kernel; the stem+L1 kernel, the stem-only
+      kernel and the train stem's forward on csrc/stem_mma.cuh; the C3
+      kernel; the stem and downsample weight gradients; the 1x1 pass
+      forward and backward) their
       registers and spill bytes from ptxas,
       which must be 0, and their tensor-core and global-load instructions
       from ``cuobjdump -sass``, which must hold HMMA;
@@ -19,14 +20,15 @@ Phases, each fatal on failure:
       512/1024/2048 and on a clustered input that overflows M=64; the
       pair-IoU kernel on the clustered input at n = 4096), with kernel /
       plain / library times and the bound from the bytes and operations of
-      the shape; the stem+L1 and C3 kernels also bit for bit on repeat,
-      and beside the stem+L1 kernel's bf16 library call the same function
-      with the stem in float32;
+      the shape; the stem+L1, stem-only and C3 kernels also bit for bit on
+      repeat, and beside the stem+L1 and stem-only kernels' bf16 library
+      calls the same function with the stem in float32;
   (b') each train kernel (stem forward and weight gradient, downsample
       forward and weight gradient) against its plain version at the train
       path's shapes (the stem; the layer-1 and layer-3 downsamples), dW from
       autograd with a seeded cotangent, the same times and bounds; the
-      stem's forward also bit for bit on repeat, and beside its bf16
+      stem's forward and weight gradient also bit for bit on repeat, and
+      beside the forward's bf16
       library call the same function (the float32 conv, TF32 off);
   (c) the inference path: yolov5m, batch 16, 1024², conf 0.25, IoU 0.45,
       single-label, 2048 candidates, max_det 1500, random weights from a seed
@@ -106,13 +108,14 @@ FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
 # the libraries holding tensor-core kernels → the substrings of those
 # kernels' names: the 3x3 conv body (csrc/conv3x3_mma.cuh), the stem+L1
-# kernel and the train stem's forward (csrc/stem_mma.cuh), the C3 kernel,
-# the downsample weight gradient, the 1x1 pass forward and backward
-# (csrc/mma.cuh's helpers)
+# kernel, the stem-only kernel and the train stem's forward
+# (csrc/stem_mma.cuh), the C3 kernel, the stem and downsample weight
+# gradients, the 1x1 pass forward and backward (csrc/mma.cuh's helpers)
 MMA_SOURCES = {"down": ("conv3x3_mma",),
                "stem_l1": ("stem_l1_kernel",),
+               "stem": ("stem_kernel",),
                "c3": ("c3_kernel",),
-               "stem_train": ("stem_fwd_kernel",),
+               "stem_train": ("stem_fwd_kernel", "stem_wgrad_kernel"),
                "down_train": ("conv3x3_mma", "down_wgrad_kernel"),
                "train_fused_3x3": ("conv3x3_mma",),
                "train_fused_1x1": ("p1x1_fwd_kernel", "p1x1_bwd_kernel")}
@@ -320,25 +323,36 @@ def check_stem_only(gen, dev):
                                 bn_stats(gen, c2, dev))
     got = S.fused_stem(x, w0, b0)
     want = S.fused_stem_plain(x, w0, b0)
+    repeat = torch.equal(got, S.fused_stem(x, w0, b0))
     torch.cuda.synchronize()
     err, tol = _ulp_err(got, want)
-    k0 = w0.reshape(6, 6, 3, c2).permute(3, 2, 0, 1).to(torch.bfloat16)
-    xb = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
+    k0f = w0.reshape(6, 6, 3, c2).permute(3, 2, 0, 1).contiguous()
+    k0 = k0f.to(torch.bfloat16)
+    xn = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2)
+    xb = xn.to(torch.bfloat16)
 
     def library():  # the same conv (+ bias, SiLU) through cuDNN in bf16
         return F.silu(F.conv2d(xb, k0, b0.bfloat16(), 2, 2))
 
+    def library_f32():  # the same function: the conv in float32 (no TF32)
+        return F.silu(F.conv2d(xn.float(), k0f, b0, 2, 2)).to(torch.bfloat16)
+
+    # uint8 values times float32 weights, run as three bf16 products on
+    # the tensor cores
     hs = IMGSZ // 2
-    flops = 2 * BATCH * hs * hs * 108 * c2  # uint8 x float32 weights
+    flops = 2 * BATCH * hs * hs * 108 * c2
     nbytes = x.numel() + got.numel() * 2
     return "stem", S.STEM_KERNEL, {
         "max_abs_err": err,
-        "tolerance": f"bf16: one ulp of the largest output, abs <= {tol:.4g}",
-        "ok": err <= tol,
+        "repeat_bitwise": repeat,
+        "tolerance": f"bf16: one ulp of the largest output, abs <= {tol:.4g}"
+                     f"; repeats bit for bit",
+        "ok": err <= tol and repeat,
         "ms": cuda_time(lambda: S.fused_stem(x, w0, b0), 5),
         "plain_ms": cuda_time(lambda: S.fused_stem_plain(x, w0, b0), 3),
         "library_ms": cuda_time(library, 5),
-        "bound": bound(nbytes, (flops, PEAK_FP32)), "flops": flops,
+        "library_f32_ms": cuda_time(library_f32, 5),
+        "bound": bound(nbytes, (3 * flops, PEAK_BF16)), "flops": flops,
         "bytes": nbytes,
     }
 
@@ -528,6 +542,8 @@ def check_stem_train(gen, dev):
     dz = got["kernel"][0]  # any bf16 tensor of dz's shape
     wd = w.detach()
     repeat = torch.equal(dz, S.stem_train_fwd(x, wd))
+    dw = S.stem_train_wgrad(x, dz)
+    w_repeat = torch.equal(dw, S.stem_train_wgrad(x, dz))
     xn = x.view(BATCH, IMGSZ, IMGSZ, 3).permute(0, 3, 1, 2)
     xb = xn.to(torch.bfloat16)
     wb = wd.to(torch.bfloat16)
@@ -556,6 +572,10 @@ def check_stem_train(gen, dev):
     fwd["repeat_bitwise"] = repeat
     fwd["tolerance"] += "; repeats bit for bit"
     fwd["ok"] = fwd["ok"] and repeat
+    wgrad = res["stem_train_wgrad"]
+    wgrad["repeat_bitwise"] = w_repeat
+    wgrad["tolerance"] += "; repeats bit for bit"
+    wgrad["ok"] = wgrad["ok"] and w_repeat
     return {"stem_train_fwd": (S.TRAIN_FWD_KERNEL, res["stem_train_fwd"]),
             "stem_train_wgrad": (S.TRAIN_WGRAD_KERNEL,
                                  res["stem_train_wgrad"])}
@@ -1337,8 +1357,8 @@ def step_breakdown(model, loss_fn, opt, state, batch):
 
 # kernel-name substrings → group, first match wins: this port's kernels,
 # cuDNN/CUTLASS convolutions, reductions, elementwise passes
-_GROUPS = (("port kernels", ("stem_l1_kernel", "stem_fwd_kernel",
-                             "stem_wgrad_kernel",
+_GROUPS = (("port kernels", ("stem_l1_kernel", "stem_kernel",
+                             "stem_fwd_kernel", "stem_wgrad_kernel",
                              "down_wgrad_kernel", "sum_partials",
                              "sum_rows", "conv3x3_mma", "p1x1_fwd_kernel",
                              "p1x1_bwd_kernel")),
@@ -1541,8 +1561,9 @@ def train_path(dev, report, fused=False):
     require(prof["device_ms"] > 0, "the profiler saw no device time")
     # the step's tensor-core kernels count as the port's, not as cuDNN's
     tc = prof["tensor_core_kernels"]
-    want = (("p1x1_fwd_kernel", "p1x1_bwd_kernel", "stem_fwd_kernel")
-            if fused else ("down_wgrad_kernel", "stem_fwd_kernel"))
+    want = ("stem_fwd_kernel", "stem_wgrad_kernel") + (
+        ("p1x1_fwd_kernel", "p1x1_bwd_kernel") if fused
+        else ("down_wgrad_kernel",))
     require(all(any(w in n for n, *_ in tc) for w in want) and
             all(g == "port kernels" for _, g, *_ in tc),
             f"profile groups of the tensor-core kernels: {tc}")

@@ -75,7 +75,13 @@ def test_stem_l1_kernel(dev, H, W, c2, c3):
     assert torch.equal(got, stem_kernel.fused_stem_l1(x, *ops))
 
 
-@pytest.mark.parametrize("H,W,c2", [(64, 64, 48), (70, 42, 32), (37, 51, 8)])
+# the yolov5n/s/m/l/x stem widths, c2 = 8 (K and N padded to 16) and c2 =
+# 96 (two column chunks)
+@pytest.mark.parametrize("c2", [16, 32, 48, 64, 80, 8, 96])
+# ragged against the 8x32 rectangle, odd sizes, widths whose packed rows are
+# not 4-byte multiples (byte-wise image staging)
+@pytest.mark.parametrize("H,W", [(64, 64), (70, 42), (2, 2), (37, 131),
+                                 (37, 51)])
 def test_stem_kernel(dev, H, W, c2):
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randint(0, 256, (2, H, 3 * W), generator=gen, device=dev,
@@ -90,6 +96,8 @@ def test_stem_kernel(dev, H, W, c2):
     assert got.dtype == torch.bfloat16
     # bf16 output: at most one ulp of the largest value
     assert (got.float() - want.float()).abs().max() <= want.float().abs().max() / 128
+    # no atomics, a fixed order of sums: repeated runs agree bit for bit
+    assert torch.equal(got, stem_kernel.fused_stem(x, w0, b0))
 
 
 def _rboxes(rng, shape, spread):
@@ -228,12 +236,19 @@ def test_neighbor_kernel(dev, n, clustered):
 
 
 # the stem widths of yolov5n/m/l/x and c2 = 8 (K, N padded to 16); c2 = 96
-# runs in two column chunks
+# runs in two column chunks, c2 = 200 (the weight gradient's cap) in three;
+# widths whose packed rows are not 4-byte multiples (byte-wise staging)
 @pytest.mark.parametrize("H,W,c2", [(64, 64, 16), (70, 42, 48), (34, 98, 8),
-                                    (45, 67, 64), (66, 38, 80), (30, 50, 96)])
-def test_stem_train_kernels(dev, H, W, c2):
+                                    (45, 67, 64), (66, 38, 80), (30, 50, 96),
+                                    (37, 131, 48), (37, 131, 32),
+                                    (19, 26, 200)])
+def test_stem_train_kernels(dev, monkeypatch, H, W, c2):
     gen = torch.Generator(device=dev).manual_seed(4)
     B = 2
+    # the weight gradient's partial count is csrc/stem_train.cu's own plan
+    asked, query = [], stem_kernel.query
+    monkeypatch.setattr(stem_kernel, "query",
+                        lambda *a: asked.append(a) or query(*a))
     x = torch.randint(0, 256, (B, H, 3 * W), generator=gen, device=dev,
                       dtype=torch.uint8)
     w = (_w(gen, c2, 3, 6, dev) / 255.0).requires_grad_()
@@ -250,6 +265,9 @@ def test_stem_train_kernels(dev, H, W, c2):
     g = _counted(stem_kernel.TRAIN_WGRAD_KERNEL, lambda: torch.autograd.grad(
         (z.float() * cot).sum(), w)[0])
     gp = torch.autograd.grad((zp.float() * cot).sum(), w)[0]
+    assert asked == [("stem_train", "stem_train_wgrad_parts", B, H, W, c2)]
+    tiles = B * -(-z.shape[1] // 8) * -(-z.shape[2] // 32)  # 8x32 tiles
+    assert 1 <= stem_kernel.wgrad_parts(B, H, W, c2) <= tiles
     assert g.shape == gp.shape == w.shape and g.dtype == torch.float32
     # the tolerance of tests/test_stem_kernel.py: bf16 products, f32 sums
     assert (g - gp).abs().max() <= 2e-2 * gp.abs().max()

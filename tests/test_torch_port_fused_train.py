@@ -631,11 +631,11 @@ def _includes(source):
 
 
 @pytest.mark.parametrize("source", ["down_train.cu", "train_fused_1x1.cu",
-                                    "conv3x3_mma.cuh"])
+                                    "conv3x3_mma.cuh", "stem_train.cu"])
 def test_tensor_core_bodies_share_mma_header(source):
-    """Rows 8b and 9a run on the tensor cores through mma.cuh, whose PTX
+    """Rows 8b, 9a and 7b run on the tensor cores through mma.cuh, whose PTX
     helpers the 3x3 body no longer defines itself; the 1x1 forward has no
-    scalar product loop (fma_pixel) and the weight gradient no fmaf."""
+    scalar product loop (fma_pixel) and the weight gradients no fmaf."""
     text = _csrc(source).read_text()
     assert "mma.cuh" in _includes(source)
     assert "asm volatile" not in text  # the PTX lives in mma.cuh
@@ -646,6 +646,12 @@ def test_tensor_core_bodies_share_mma_header(source):
         assert "fma_pixel" not in fwd and "mma16816(" in fwd
     if source == "down_train.cu":
         assert "fmaf(" not in text and "mma16816(" in text
+    if source == "stem_train.cu":
+        wgrad = _section(text, "stem_wgrad_kernel(", "cudaError_t wgrad_parts(")
+        assert "mma16816(" in wgrad and "ldsm_x4_trans(" in wgrad
+        assert "fmaf(" not in text and "stem_conv::" not in text
+        assert _includes(source) == {"stem_mma.cuh", "mma.cuh", "wgrad.cuh",
+                                     "common.cuh"}
 
 
 def test_pass_1x1_forward_bounds_its_staging():
@@ -704,9 +710,9 @@ def test_c3_and_stem_train_forward_run_on_tensor_cores():
     """Row 2 (the C3 block) runs every conv as mma.sync GEMMs on the 3x3
     body's main loop (conv_mainloop, no copy of it) and stores through
     mma.cuh's epilogue, its scalar body and the helpers only it used gone;
-    row 7a (the train stem's forward) runs stem_mma.cuh's GEMM, not the
-    scalar stem_conv.cuh tile, which only row 6 and row 7b's patch staging
-    keep."""
+    rows 7a (the train stem's forward) and 6 (the stem alone) run
+    stem_mma.cuh's GEMM on its persistent rectangles (rects: products, then
+    mma.cuh's stage_outputs), and the scalar stem_conv.cuh tile is gone."""
     c3 = _csrc("c3.cu").read_text()
     assert {"conv3x3_mma.cuh", "mma.cuh"} <= _includes("c3.cu")
     assert "conv3x3_mma::conv_mainloop<" in c3
@@ -716,11 +722,19 @@ def test_c3_and_stem_train_forward_run_on_tensor_cores():
         assert scalar not in c3
     common = _csrc("common.cuh").read_text()
     assert "fma_pixel" not in common and "smem_stride" not in common
+    stem = _csrc("stem_mma.cuh").read_text()
+    rects = _section(stem, "void rects(", "cudaError_t launch_rects(")
+    assert "products<" in rects and "stage_outputs<" in rects
+    assert "store_outputs<" in rects
     train = _csrc("stem_train.cu").read_text()
-    fwd = _section(train, "stem_fwd_kernel(", "cudaError_t fwd_launch(")
-    assert "stem_mma::products<" in fwd and "stage_outputs<" in fwd
-    assert "tile_conv" not in train and "fmaf(" not in fwd
-    assert "stem_conv::tile_conv(" in _csrc("stem.cu").read_text()
+    fwd = _section(train, "stem_fwd_kernel(", "struct Wgrad {")
+    assert "stem_mma::rects<CP>(x, w, Raw{}, z, g)" in fwd
+    only = _csrc("stem.cu").read_text()
+    assert "stem_mma::rects<CP>(x, w, BiasSilu{bias}, y, g)" in only
+    assert _includes("stem.cu") == {"stem_mma.cuh", "mma.cuh", "common.cuh"}
+    assert not _csrc("stem_conv.cuh").exists()
+    for text in (train, only):
+        assert "tile_conv" not in text and "fmaf(" not in text
 
 
 def test_pass_1x1_backward_runs_on_tensor_cores():
@@ -872,8 +886,50 @@ def test_down_wgrad_partial_follows_the_chunks(monkeypatch, ci, co, H, W):
     assert dims == [B, H, W, ci, co]
 
 
+@pytest.mark.parametrize("c2,H,W,ok", [
+    (48, 1024, 1024, True),   # yolov5m at the train path's shape
+    (16, 64, 64, True), (8, 2, 2, True), (96, 37, 131, True),
+    (200, 19, 26, True),      # the cap: three column chunks
+    (208, 19, 26, False), (44, 19, 26, False)])
+def test_stem_wgrad_partial_follows_the_query(monkeypatch, c2, H, W, ok):
+    """The stem weight gradient's partial is (parts, 108, c2), with parts
+    planned by stem_train.cu itself (stem_train_wgrad_parts: the occupancy
+    query, no residency assumed) and handed back to its launch; the wrapper
+    mirrors none of the kernel's tiles, and refuses c2 % 8 != 0 or c2 > 200
+    before asking or launching."""
+    from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+    text = _csrc("stem_train.cu").read_text()
+    plan = _section(text, "cudaError_t wgrad_parts(", "}  // namespace")
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in plan
+    assert 'extern "C" int stem_train_wgrad_parts(' in text
+    assert not hasattr(S, "_TRAIN_TILE")
+    launched, asked = [], []
+    monkeypatch.setattr(S, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(S, "check_aligned", lambda **k: None)
+    monkeypatch.setattr(S.TRAIN_WGRAD_KERNEL, "launch",
+                        lambda *a: launched.append(a))
+    parts = 5 + c2 % 7
+    monkeypatch.setattr(S, "query", lambda *a: asked.append(a) or parts)
+    B = 2
+    Hs, Ws = (H - 2) // 2 + 1, (W - 2) // 2 + 1
+    x = torch.empty(B, H, 3 * W, dtype=torch.uint8, device="meta")
+    dz = torch.empty(B, Hs, Ws, c2, dtype=torch.bfloat16, device="meta")
+    if not ok:
+        with pytest.raises(ValueError, match="c2 <= 200"):
+            S.stem_train_wgrad(x, dz)
+        assert not launched and not asked
+        return
+    dw = S.stem_train_wgrad(x, dz)
+    assert asked == [("stem_train", "stem_train_wgrad_parts", B, H, W, c2)]
+    (_, _, partial, out, *dims, p), = launched
+    assert partial.shape == (parts, 108, c2) and p == parts
+    assert out.shape == (108, c2) and dw.shape == (c2, 3, 6, 6)
+    assert dims == [B, H, W, c2]
+
+
 @pytest.mark.parametrize("kernel", ["down_wgrad", "pass_1x1_fwd",
-                                    "pass_1x1_bwd"])
+                                    "pass_1x1_bwd", "stem_wgrad"])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_alignment_checked_before_launch(monkeypatch, kernel, misaligned):
     """The kernels that copy 16 bytes at a time check every such operand's
@@ -899,6 +955,18 @@ def test_alignment_checked_before_launch(monkeypatch, kernel, misaligned):
         x = torch.empty(2, 17, 33, 16, dtype=torch.bfloat16, device="meta")
         dz = torch.empty(2, 9, 17, 32, dtype=torch.bfloat16, device="meta")
         call, want = (lambda: D.down_train_wgrad(x, dz)), [["x", "dz"]]
+    elif kernel == "stem_wgrad":
+        from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
+
+        launched = {"wgrad": []}
+        monkeypatch.setattr(S, "check_cuda", lambda *a: None)
+        monkeypatch.setattr(S, "check_aligned", aligned)
+        monkeypatch.setattr(S.TRAIN_WGRAD_KERNEL, "launch",
+                            lambda *a: launched["wgrad"].append(a))
+        monkeypatch.setattr(S, "query", lambda *a: 3)
+        x = torch.empty(2, 37, 3 * 131, dtype=torch.uint8, device="meta")
+        dz = torch.empty(2, 18, 65, 48, dtype=torch.bfloat16, device="meta")
+        call, want = (lambda: S.stem_train_wgrad(x, dz)), [["dz"]]
     else:
         launched, fwd, bwd = _meta_1x1(monkeypatch, 2, 17, 33,
                                        aligned=aligned)

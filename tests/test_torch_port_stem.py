@@ -26,12 +26,14 @@ from yolov5_obb_tpu_torch.utils.fuse import fuse_conv_bn
 from yolov5_obb_tpu_torch.utils.weights import from_jax_variables
 
 
-def test_fused_stem_plain_matches_pallas():
+# the stem widths of yolov5s-ghost and yolov5m
+@pytest.mark.parametrize("c2", [32, 48])
+def test_fused_stem_plain_matches_pallas(c2):
     """fused_stem_plain against JAX fused_stem(use_pallas=True) at H = 64
     (tests/test_stem_kernel.py's shape): one bf16 ulp of the largest
     output; fold_stem_params against JAX's (its taps through remap_w6)."""
     rng = np.random.default_rng(0)
-    B, H, W, c2 = 2, 64, 64, 48
+    B, H, W = 2, 64, 64
     img = rng.integers(0, 255, (B, H, W, 3)).astype(np.uint8)
     k = (rng.standard_normal((6, 6, 3, c2)) / np.sqrt(108)).astype(np.float32)
     scale, bias = rng.uniform(0.5, 1.5, c2), rng.normal(0, 0.2, c2)

@@ -10,15 +10,16 @@ directory ``yolov5_obb_tpu_torch``.  Each ``--csrc NAME=DIR`` adds the
 variant NAME: the sources of another ``csrc`` directory (e.g. a parent
 commit's, unpacked under the gitignored ``chip_tree/``) in place of the
 port's.  Each variant's
-tensor-core libraries (``stem_l1.cu``, ``c3.cu``, ``stem_train.cu``,
-``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
+tensor-core libraries (``stem_l1.cu``, ``stem.cu``, ``c3.cu``,
+``stem_train.cu``, ``down.cu``, ``down_train.cu``, ``train_fused_3x3.cu``,
 ``train_fused_1x1.cu``) whose sources differ from the port's are compiled
 with the port's flags into the (gitignored) build directory.  At the
 yolov5m b16 1024² shapes of every tensor-core kernel — the stem+L1 kernel
 (row 1: the packed 1024² image → 256² x 96), the C3 kernel (row 2: layer
-2, 256² x 96, n = 2; and layer 4, 128² x 192, n = 4), the train stem's
-forward (row 7a: the packed 1024² image → 512² x 48), the inference
-downsample (row 3, layer 3:
+2, 256² x 96, n = 2; and layer 4, 128² x 192, n = 4), the stem-only
+kernel (row 6: the packed 1024² image → 512² x 48), the train stem's
+forward (row 7a: the same shapes) and its weight gradient (row 7b: dz
+512² x 48 bf16), the inference downsample (row 3, layer 3:
 256² x 96 → 128² x 192), the raw train downsample (row 8a, L1: 512² x 48 →
 96, L3) and its weight gradient (row 8b, L1, L3), the grouped 1x1 pass
 forward (row 9a) and backward (row 9b), each at the four structures of the
@@ -28,8 +29,8 @@ port's own wrapper (the variant's entry point bound in place of the main
 build's, and its launch plans, such as the partial counts, asked of it), is
 held to the plain version and to the main build's outputs (bit for bit:
 ``same_as_main``) and timed with CUDA events, in the order main, variants,
-variants reversed, main; the library call (cuDNN, bf16; for rows 1 and 7a
-the same function, the stem in float32) beside it; then a profiler split
+variants reversed, main; the library call (cuDNN, bf16; for rows 1, 6 and
+7a the same function, the stem in float32) beside it; then a profiler split
 of the main build's call into its kernels.  Prints the card line and one
 JSON line per case.  Case names after the variants file (``{}`` for none)
 keep only the cases named so or starting with one of them and "_", e.g.
@@ -49,13 +50,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-SOURCES = ("stem_l1", "c3", "stem_train", "down", "down_train",
+SOURCES = ("stem_l1", "stem", "c3", "stem_train", "down", "down_train",
            "train_fused_3x3", "train_fused_1x1")
 # case → (kind, ci, co or 1x1 structure or C3 depth, input side, stride)
 CASES = (("row1", "stem_l1", 48, 96, 1024, 2),
          ("row2", "c3", 96, 2, 256, 1),
          ("row2_L4", "c3", 192, 4, 128, 1),
+         ("row6", "stem", 3, 48, 1024, 2),
          ("row7a", "stem_train", 3, 48, 1024, 2),
+         ("row7b", "stem_wgrad", 3, 48, 1024, 2),
          ("row3_L3", "down", 96, 192, 256, 2),
          ("row8a_L1", "down_train", 48, 96, 512, 2),
          ("row8a_L3", "down_train", 96, 192, 256, 2),
@@ -105,15 +108,28 @@ def _kernels():
     from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    return [S.KERNEL, C.KERNEL, S.TRAIN_FWD_KERNEL, D.KERNEL,
+    return [S.KERNEL, S.STEM_KERNEL, C.KERNEL, S.TRAIN_FWD_KERNEL,
+            S.TRAIN_WGRAD_KERNEL, D.KERNEL,
             D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL, TF.KERNEL_1X1,
             TF.KERNEL_1X1_BWD, TF.KERNEL_3X3S1, TF.KERNEL_3X3S2]
 
 
+def _includes(d, name):
+    """The headers ``d/name`` includes, directly or through another."""
+    seen, todo = set(), [name]
+    while todo:
+        for inc in re.findall(r'^#include "([^"]+)"',
+                              (d / todo.pop()).read_text(), re.M):
+            if inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    return seen
+
+
 def start_variant(name, subs):
     """Copy the sources, apply the variant's substitutions and start the
-    compiles of the libraries they touch (a changed header touches them
-    all); returns ``(directory, {source: compile})``, or None when a
+    compiles of the libraries they touch (a source, or a header it
+    includes); returns ``(directory, {source: compile})``, or None when a
     substitution changes nothing."""
     from yolov5_obb_tpu_torch.ops.kernels import _build
 
@@ -139,12 +155,11 @@ def start_variant(name, subs):
                     or f.read_bytes() != main(f).read_bytes())}
     changed |= {f.name for f in _build.CSRC_DIR.iterdir()
                 if f.suffix == ".cuh" and not (d / f.name).exists()}
-    header = any(f.endswith(".cuh") for f in changed)
     return d, {src: subprocess.Popen(
         [_build._nvcc(), *_build._flags(src), "-I", str(d), "-o",
          str(d / f"{src}.so"), str(d / f"{src}.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for src in SOURCES
-        if header or f"{src}.cu" in changed}
+        if changed & ({f"{src}.cu"} | _includes(d, f"{src}.cu"))}
 
 
 def finish_variant(name, started):
@@ -220,31 +235,37 @@ def _case(kind, ci, co, H, stride, gen, dev):
 
         return (lambda: K.fused_c3(x, p), lambda: K.fused_c3_plain(x, p),
                 library)
-    if kind == "stem_train":
+    if kind.startswith("stem"):
+        from chip_smoke import bn_stats
         from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
 
         x = torch.randint(0, 256, (BATCH, H, 3 * H), generator=gen,
                           device=dev, dtype=torch.uint8)
-        w = rnd(co, 3, 6, 6) / 108 ** 0.5 / 255.0
         xn = x.view(BATCH, H, H, 3).permute(0, 3, 1, 2)
+        bn = lambda c: bn_stats(gen, c, dev)
+    if kind == "stem":
+        w0, b0 = S.fold_stem_params(rnd(co, 3, 6, 6) / 108 ** 0.5, bn(co))
+        k0 = w0.reshape(6, 6, 3, co).permute(3, 2, 0, 1).contiguous()
+        return (lambda: S.fused_stem(x, w0, b0),
+                lambda: S.fused_stem_plain(x, w0, b0),
+                # the same function: the float32 conv (TF32 off), SiLU
+                lambda: F.silu(F.conv2d(xn.float(), k0, b0, 2, 2)).to(bf))
+    if kind == "stem_train":
+        w = rnd(co, 3, 6, 6) / 108 ** 0.5 / 255.0
         return (lambda: S.stem_train_fwd(x, w),
                 lambda: S.stem_train_fwd_plain(x, w),
                 # the same function: the float32 conv (TF32 off)
                 lambda: F.conv2d(xn.float(), w, None, 2, 2).to(bf))
+    if kind == "stem_wgrad":
+        hs = (H - 2) // 2 + 1
+        dz = rnd(BATCH, hs, hs, co).to(bf)
+        dzn = dz.permute(0, 3, 1, 2)
+        return (lambda: S.stem_train_wgrad(x, dz),
+                lambda: S.stem_train_wgrad_plain(x, dz),
+                # the same function: bf16 products, float32 sums (cuDNN)
+                lambda: torch.nn.grad.conv2d_weight(
+                    xn.to(bf), (co, 3, 6, 6), dzn, 2, 2))
     if kind == "stem_l1":
-        import types
-
-        from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
-
-        def bn(c):
-            u = lambda lo, hi: lo + (hi - lo) * torch.rand(
-                c, generator=gen, device=dev)
-            return types.SimpleNamespace(
-                weight=u(0.5, 1.5), bias=u(-0.2, 0.2),
-                running_mean=u(-0.3, 0.3), running_var=u(0.5, 2.0))
-
-        x = torch.randint(0, 256, (BATCH, H, 3 * H), generator=gen,
-                          device=dev, dtype=torch.uint8)
         ops = S.fold_stem_l1_params(rnd(ci, 3, 6, 6) / 108 ** 0.5, bn(ci),
                                     rnd(co, ci, 3, 3) / (9 * ci) ** 0.5,
                                     bn(co))
@@ -390,7 +411,8 @@ def main() -> int:
                 try:
                     got = call()
                     torch.cuda.synchronize()
-                except RuntimeError as e:  # a variant that refuses the case
+                except (RuntimeError, AttributeError) as e:  # a variant
+                    # that refuses the case or lacks an entry point
                     if name == "main":
                         raise
                     res[name] = {"error": str(e)}

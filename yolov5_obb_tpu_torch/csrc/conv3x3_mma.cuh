@@ -147,19 +147,9 @@ __device__ __forceinline__ float silu_fast(float v) {
   return __fdividef(v, 1.f + __expf(-v));
 }
 
-// Epilogues: map the float32 sums (v.x, v.y) of output channels n, n + 1
-// of one pixel before the one bf16 rounding.  `at(n)` fetches what a
-// channel pair needs, once for all of a thread's pixels (n < co).
-struct Raw {
-  struct Pair {};
-  __device__ __forceinline__ Pair at(int) const { return {}; }
-  __device__ __forceinline__ float2 operator()(const Pair&, float2 v) const {
-    return v;
-  }
-};
-
-// BatchNorm as a scale/shift after the conv, then SiLU (common.cuh's: IEEE
-// expf and division, as the plain version's float32 sigmoid)
+// An epilogue (as mma.cuh's Raw and BiasSilu): BatchNorm as a scale/shift
+// after the conv, then SiLU (common.cuh's: IEEE expf and division, as the
+// plain version's float32 sigmoid)
 struct BnSilu {
   const float* ss;  // (2, co): scale row, then shift row
   int co;

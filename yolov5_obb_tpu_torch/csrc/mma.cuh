@@ -5,9 +5,9 @@
 // per-channel statistics summed in a fixed order.
 //
 // Users: conv3x3_mma.cuh (every 3x3 conv kernel, the stem+L1 kernel's
-// layer 1), stem_mma.cuh (the stem of stem_l1.cu and of stem_train.cu's
-// forward), c3.cu, down_train.cu's weight gradient, train_fused_1x1.cu's
-// forward and backward.
+// layer 1), stem_mma.cuh (the stem of stem_l1.cu, stem.cu and
+// stem_train.cu's forward), c3.cu, the weight gradients of stem_train.cu
+// and down_train.cu, train_fused_1x1.cu's forward and backward.
 #pragma once
 
 #include "common.cuh"
@@ -24,6 +24,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
   cp_async16(smem_addr(dst), src, full);
+}
+// 4 bytes global → shared (4-byte aligned both); zeros (and no read) when
+// !full
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -90,6 +98,30 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
 // 16*(kMTiles*wm + i) .. and chunk columns wn*8*kNTiles + 8*j .. (the
 // mma.sync C fragment: rows lane/4 and lane/4 + 8, columns 2*(lane%4), +1).
 // ---------------------------------------------------------------------------
+
+// Epilogues: map the float32 sums (v.x, v.y) of output channels n, n + 1
+// of one pixel before the one bf16 rounding.  `at(n)` fetches what a
+// channel pair needs, once for all of a thread's pixels (n < co).
+struct Raw {
+  struct Pair {};
+  __device__ __forceinline__ Pair at(int) const { return {}; }
+  __device__ __forceinline__ float2 operator()(const Pair&, float2 v) const {
+    return v;
+  }
+};
+
+// + bias, then SiLU (common.cuh's: IEEE expf and division, as the plain
+// versions' float32 sigmoid)
+struct BiasSilu {
+  const float* b;
+  struct Pair {
+    float b0, b1;
+  };
+  __device__ __forceinline__ Pair at(int n) const { return {b[n], b[n + 1]}; }
+  __device__ __forceinline__ float2 operator()(const Pair& p, float2 v) const {
+    return make_float2(silu(v.x + p.b0), silu(v.y + p.b1));
+  }
+};
 
 // Each float32 pair through the epilogue functor, rounded once to bf16, into
 // the staging tile ot (pixel p at ot + p*kOs, chunk column c at + c); with

@@ -15,49 +15,42 @@
 // counterpart: the kernel reads the 6x6 taps directly and takes every shape.
 //
 // Bound on this card at yolov5m b16 1024² (c2 = 48, 4.2 M output pixels):
-// 43.5 GFLOP of float32 work, 0.65 ms at 67 TFLOP/s, against 453 MB moved
-// (50 MB image, 403 MB y), 0.135 ms: operations bound it.  This first
-// version does them in scalar float32 FMAs.
+// the 43.5 GFLOP run as three bf16 products (130.5 GFLOP, 0.13 ms at the
+// tensor-core peak) against 453 MB moved (50 MB image, 403 MB y), 0.135 ms:
+// bytes bound it, barely.
 //
-// Design: the tile body of stem_conv.cuh (one block per 8x32 tile of stem
-// outputs, the image patch staged as float in shared memory, 8 output
-// channels of one pixel per thread) with a bias + SiLU epilogue.
-#include "stem_conv.cuh"
+// Design: stem_mma.cuh's tensor-core stem (each float32 weight split once
+// per CTA into three bf16 terms, the uint8 image exact in bf16, three
+// mma.sync products into one float32 accumulator) on its persistent 8x32
+// rectangles, the train-mode forward's body (stem_train.cu), with a bias +
+// SiLU epilogue (IEEE expf and division, then one rounding to bf16) before
+// mma.cuh's staged 16-byte stores.  A c2 past 80 runs in chunks of 80
+// columns.
+#include "stem_mma.cuh"
 
 namespace {
 
-struct BiasSilu {
-  const float* bias;
-  __nv_bfloat16* y;
-  __device__ __forceinline__ void operator()(float* acc, int g,
-                                             size_t off) const {
-    const float4 ba = __ldg(reinterpret_cast<const float4*>(bias + 8 * g));
-    const float4 bb = __ldg(reinterpret_cast<const float4*>(bias + 8 * g + 4));
-    const float b8[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = silu(acc[j] + b8[j]);
-    store8_bf16(y + off, acc);
-  }
-};
-
-__global__ void __launch_bounds__(stem_conv::kThreads)
+template <int CP>
+__global__ void __launch_bounds__(stem_mma::kRectThreads,
+                                  stem_mma::RectGemm<CP>::kPerSm)
 stem_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-            int H, int W, int c2, int Hs, int Ws) {
-  __shared__ float img[stem_conv::kImg];
-  stem_conv::tile_conv(x, w, BiasSilu{bias, y}, img, H, W, c2, Hs, Ws);
+            stem_mma::RectGrid g) {
+  stem_mma::rects<CP>(x, w, BiasSilu{bias}, y, g);
 }
 
 }  // namespace
 
+// Requires c2 % 8 == 0.
 extern "C" int stem_launch(const uint8_t* x, const float* w, const float* bias,
                            void* y, int B, int H, int W, int c2,
                            void* stream) {
-  const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
-  if (B == 0 || Hs <= 0 || Ws <= 0) return 0;
-  dim3 grid((Ws + stem_conv::TX - 1) / stem_conv::TX,
-            (Hs + stem_conv::TY - 1) / stem_conv::TY, B);
-  stem_kernel<<<grid, stem_conv::kThreads, 0, (cudaStream_t)stream>>>(
-      x, w, bias, reinterpret_cast<__nv_bfloat16*>(y), H, W, c2, Hs, Ws);
-  return (int)cudaGetLastError();
+  const stem_mma::RectGrid g = stem_mma::rect_grid(x, B, H, W, c2);
+  if (B == 0 || g.Hs <= 0 || g.Ws <= 0) return 0;
+  auto yb = reinterpret_cast<__nv_bfloat16*>(y);
+  return (int)stem_mma::by_width(c2, [&](auto cp) {
+    constexpr int CP = decltype(cp)::value;
+    return stem_mma::launch_rects<CP>(stem_kernel<CP>, g,
+                                      (cudaStream_t)stream, x, w, bias, yb);
+  });
 }

@@ -84,18 +84,6 @@ template <int CP, int N> struct Smem {
   }
 };
 
-// layer 1's epilogue: + b1, SiLU (common.cuh's: IEEE expf and division)
-struct BiasSilu {
-  const float* b;
-  struct Pair {
-    float b0, b1;
-  };
-  __device__ __forceinline__ Pair at(int n) const { return {b[n], b[n + 1]}; }
-  __device__ __forceinline__ float2 operator()(const Pair& p, float2 v) const {
-    return make_float2(silu(v.x + p.b0), silu(v.y + p.b1));
-  }
-};
-
 // (two CTAs per SM: what the shared memory allows at yolov5m; ptxas may then
 // use up to 255 registers and needs no spill)
 template <int CP, int N>

@@ -1,6 +1,7 @@
 // The stem Conv(6x6, s2, p2) of the packed uint8 image as a tensor-core GEMM
-// with float32 products: the stem of the stem+L1 kernel (stem_l1.cu) and
-// the train-mode stem's forward (stem_train.cu).
+// with float32 products: the stem of the stem+L1 kernel (stem_l1.cu), of
+// the stem-only kernel (stem.cu) and of the train-mode stem's forward
+// (stem_train.cu, whose weight gradient stages the image as here).
 //
 // x (B, H, 3W) uint8 — a free view of the NHWC batch — and the taps w0
 // (108, c2) float32, row (6*dy + dx)*3 + c.  Stem pixel (sy, sx) reads image
@@ -20,6 +21,8 @@
 // odd number of 16-byte units) by ldmatrix.x4.trans, conflict-free.  A warp
 // takes kM m16 tiles at a time (a unit); the units go round the warps.
 #pragma once
+
+#include <type_traits>
 
 #include "mma.cuh"
 
@@ -74,8 +77,9 @@ __device__ __forceinline__ void split_weights(const float* __restrict__ w0,
 // The rectangle's image rows gy0 .. and packed bytes gc0 - R::kOff .. of
 // one image xb into img (zero outside the image: the stem's padding); 4
 // bytes a load where the rows allow (vec: W % 4 == 0, a 4-byte aligned
-// image and gc0 - R::kOff a multiple of 4).
-template <typename R, int kThreads>
+// image and gc0 - R::kOff a multiple of 4), by cp.async with kAsync (the
+// caller commits and waits), else byte by byte.
+template <typename R, int kThreads, bool kAsync = false>
 __device__ __forceinline__ void stage_image(const uint8_t* __restrict__ xb,
                                             int H, int W, int gy0, int gc0,
                                             uint8_t* img, int vec) {
@@ -85,6 +89,12 @@ __device__ __forceinline__ void stage_image(const uint8_t* __restrict__ xb,
     for (int i = threadIdx.x; i < R::kImgRows * R::kImgWords; i += kThreads) {
       const int r = i / R::kImgWords, u = i - r * R::kImgWords;
       const int gy = gy0 + r, gc = gc0 + 4 * u;
+      if (kAsync) {
+        const bool in = gy >= 0 && gy < H && gc >= 0 && gc < W3;
+        cp_async4(img + r * R::kImgPitch + 4 * u,
+                  in ? xb + (size_t)gy * W3 + gc : xb, in);
+        continue;
+      }
       uint32_t v = 0u;
       if (gy >= 0 && gy < H && gc >= 0 && gc < W3)
         v = __ldg(reinterpret_cast<const unsigned int*>(
@@ -175,6 +185,142 @@ __device__ __forceinline__ void products(const __nv_bfloat16* wsplit,
     }
     epi(u, sacc);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The stem alone on persistent CTAs: stem.cu (+ bias, SiLU) and
+// stem_train.cu's forward (the raw sums).  As many CTAs as are resident at
+// once walk the kRectRows x kRectCols rectangles of stem pixels (no halo),
+// so each splits its weights once for all of its rectangles (~40 at 1024²,
+// b16).  A c2 past 80 runs in chunks of 80 columns (grid axis y).  The sums
+// go through an epilogue functor and mma.cuh's stage_outputs (one rounding
+// to bf16) and leave in 16-byte coalesced stores (store_outputs).
+// ---------------------------------------------------------------------------
+
+constexpr int kRectRows = 8, kRectCols = 32;
+constexpr int kRectThreads = 128, kRectWarps = kRectThreads / 32;
+// a rectangle's image bytes start at 6*sx0 - 6, 2 mod 4 (sx0 is a multiple
+// of 32): staged from 2 bytes earlier
+using Rect8x32 = Rect<kRectRows, kRectCols, 2>;
+
+// The GEMM of CP columns over a rectangle: m16 tiles a warp step, 4 (64
+// pixels) up to 48 columns, else 2 (both give each warp the same number of
+// units); CTAs per SM (what the shared memory allows); shared memory: the
+// split weights, the staged outputs and the image.
+template <int CP> struct RectGemm {
+  static constexpr int kM = CP <= 48 ? 4 : 2;
+  static constexpr int kPerSm = CP <= 48 ? 3 : 2;
+  using G = Gemm<CP, kM, Rect8x32::kPx>;
+  static constexpr int kOs = CP + 8;  // bf16 per staged output pixel
+  static constexpr size_t kSmem =
+      ((size_t)G::kSplit + Rect8x32::kPx * kOs) * 2 +
+      Rect8x32::kImgRows * Rect8x32::kImgPitch;
+};
+
+// A shape's 8x32 rectangles of stem pixels: rectangle t is in image t /
+// per_image, at rectangle row (t % per_image) / tiles_x and column
+// t % tiles_x.
+struct RectGrid {
+  int H, W, c2, Hs, Ws, tiles_x, per_image, ntiles;
+  int vec;  // 4-byte image loads: every staged row starts on a 4-byte boundary
+};
+
+inline RectGrid rect_grid(const uint8_t* x, int B, int H, int W, int c2) {
+  RectGrid g;
+  g.H = H;
+  g.W = W;
+  g.c2 = c2;
+  g.Hs = (H - 2) / 2 + 1;
+  g.Ws = (W - 2) / 2 + 1;
+  g.tiles_x = (g.Ws + kRectCols - 1) / kRectCols;
+  g.per_image = g.tiles_x * ((g.Hs + kRectRows - 1) / kRectRows);
+  g.ntiles = B * g.per_image;
+  g.vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  return g;
+}
+
+// f(std::integral_constant<int, CP>{}) for c2 padded to 16; past 80, CP = 80
+// (chunks of 80 columns)
+template <typename F>
+auto by_width(int c2, const F& f) {
+  switch ((c2 + 15) / 16 * 16) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    default: return f(std::integral_constant<int, 80>{});
+  }
+}
+
+// The body of CTA (blockIdx.x, blockIdx.y) of kRectThreads threads: the
+// rectangles blockIdx.x, + gridDim.x, .., columns blockIdx.y * CP .. of
+// y (B, Hs, Ws, c2) bf16 = epi(the stem sums w·x), rounded once.
+template <int CP, typename Epi>
+__device__ __forceinline__ void rects(const uint8_t* __restrict__ x,
+                                      const float* __restrict__ w,
+                                      const Epi& epi,
+                                      __nv_bfloat16* __restrict__ y,
+                                      const RectGrid& g) {
+  using RG = RectGemm<CP>;
+  extern __shared__ float4 smem4[];
+  auto* wsplit = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* ot = wsplit + RG::G::kSplit;
+  auto* img = reinterpret_cast<uint8_t*>(ot + Rect8x32::kPx * RG::kOs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.y * CP;
+  split_weights<CP, kRectThreads>(w, g.c2, n0, wsplit);
+  for (int t = blockIdx.x; t < g.ntiles; t += gridDim.x) {
+    const int b = t / g.per_image, rem = t - b * g.per_image;
+    const int sy0 = (rem / g.tiles_x) * kRectRows;
+    const int sx0 = (rem % g.tiles_x) * kRectCols;
+    __syncthreads();  // the previous rectangle's products and stores are done
+    stage_image<Rect8x32, kRectThreads>(x + (size_t)b * g.H * g.W * 3, g.H,
+                                        g.W, 2 * sy0 - 2, 3 * (2 * sx0 - 2),
+                                        img, g.vec);
+    __syncthreads();  // the image (and the split weights) for all
+    auto valid = [&](int p) {
+      return p < Rect8x32::kPx && sy0 + p / kRectCols < g.Hs &&
+             sx0 + p % kRectCols < g.Ws;
+    };
+    auto to_ot = [&](int u, const auto& sacc) {
+      stage_outputs<RG::kM, RG::G::kNT, CP, RG::kOs, false>(
+          sacc, epi, valid, ot, nullptr, u, 0, lane, n0, g.c2);
+    };
+    products<CP, RG::kM, Rect8x32, kRectWarps>(wsplit, img, warp, lane,
+                                               to_ot);
+    __syncthreads();
+    auto dst = [&](int p) -> __nv_bfloat16* {
+      const int sy = sy0 + p / kRectCols, sx = sx0 + p % kRectCols;
+      return sy < g.Hs && sx < g.Ws
+                 ? y + (((size_t)b * g.Hs + sy) * g.Ws + sx) * g.c2
+                 : nullptr;
+    };
+    store_outputs<Rect8x32::kPx, CP, RG::kOs, kRectThreads>(ot, dst, tid, n0,
+                                                            g.c2);
+  }
+}
+
+// The launch of kern, a kernel whose body is rects<CP> and whose arguments
+// are args then g: as many CTAs as are resident at once (the occupancy
+// query: shared memory and registers), at most one per rectangle, times
+// the chunks of CP columns.
+template <int CP, typename K, typename... Args>
+cudaError_t launch_rects(K kern, const RectGrid& g, cudaStream_t stream,
+                         Args... args) {
+  constexpr size_t smem = RectGemm<CP>::kSmem;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = allow_smem(kern, smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kRectThreads, smem)) != cudaSuccess)
+    return err;
+  const int grid = min(g.ntiles, (per_sm > 0 ? per_sm : 1) * sms);
+  kern<<<dim3(grid, (g.c2 + CP - 1) / CP), kRectThreads, smem, stream>>>(
+      args..., g);
+  return cudaGetLastError();
 }
 
 }  // namespace stem_mma

@@ -11,8 +11,8 @@
 // kernel: the exact uint8 values times float32 weights, float32
 // accumulation, one rounding to bf16.
 // Weight gradient: dz (B, Hs, Ws, c2) bf16 → dW (108, c2) float32, same row
-// order.  The image values (exact in bf16) times dz, float32 accumulation.
-// The image takes no gradient.
+// order.  The image values (exact in bf16) times dz, float32 accumulation,
+// as the TPU kernel's bf16 x bf16 MXU product.  The image takes no gradient.
 //
 // Bounds on this card at yolov5m b16 1024² (c2 = 48, 4.2 M output pixels):
 // the forward's 43.5 GFLOP run as three bf16 products (130.5 GFLOP, 0.13 ms
@@ -21,204 +21,210 @@
 // MB (0.135 ms) for the same 43.5 GFLOP of bf16 products (0.044 ms): bytes
 // bound it.
 //
-// Design.  Forward: stem_mma.cuh's tensor-core stem (each float32 weight
-// split into three bf16 terms, the uint8 image exact in bf16) on kRows x
-// kCols rectangles of stem outputs, no halo; the raw sums rounded once to
-// bf16 go through mma.cuh's stage_outputs and store_outputs (16-byte
-// coalesced stores).  Persistent CTAs (as many as are resident at once)
-// walk the rectangles, so each splits its weights once for ~40 of them
-// (1024², b16).  A c2 past 80 runs in chunks of 80 columns (a grid axis).
-// Weight gradient (scalar float32 FMAs): two stages, no atomics.  Stage 1:
-// a fixed number of CTAs (`parts`, from the wrapper) each walk the 8x32
-// pixel tiles tile_id ≡ blockIdx.x (mod parts), staging the tile's image
-// patch and its dz rows (float) in shared memory (stem_conv.cuh's
-// stage_patch); thread (tap, k-group) keeps dW rows (tap, c = 0..2) x 8
-// output channels in registers over every pixel of every tile, then
-// writes its CTA's partial.  Stage 2 (wgrad.cuh) sums the partials in
-// order.
-#include "stem_conv.cuh"
+// Design.  Forward: stem_mma.cuh's tensor-core stem on its persistent 8x32
+// rectangles (stem.cu's body), the raw sums rounded once to bf16.
+// Weight gradient: a split-K GEMM on mma.sync m16n8k16 (bf16 in, float32
+// accumulation), two stages and no atomics.  dW = patchᵀ · dz: M = the taps
+// in the forward's K order k = 18*dy + 3*dx + c (108, padded to 128: each
+// of the 4 warps holds two m16 tiles; rows past 108 are never written), N =
+// c2 (CP columns a CTA, chunks of 80 past 80 on grid axis y), K = the
+// output pixels, one 8x32 rectangle (16 k16 steps) a tile.  The `parts`
+// CTAs (as many as reside on the card, by the occupancy query of
+// stem_train_wgrad_parts, which the wrapper sizes its partial by) each
+// walk the tiles t ≡ blockIdx.x (mod parts), their dW block in registers.
+// A tile's image rows (uint8, staged as stem_mma.cuh's stage_image does,
+// by 4-byte cp.async where the rows allow) and its dz rows (c2 + 8 bf16 a
+// pixel: an odd number of 16-byte units) are staged by cp.async (zero
+// outside the image and the output and past c2), double-buffered, so the
+// next tile's copies land behind this tile's products.  A: an A register's
+// pair is one tap at two neighbouring pixels, two bytes 6 apart in the
+// staged row, turned exactly into a bf16 pair; the per-lane tap offsets
+// are computed once.  B: the dz rows by ldmatrix.x4.trans.  The CTA then
+// writes its partial dW; stage 2 (wgrad.cuh's sum_partials) sums the
+// partials in order.
 #include "stem_mma.cuh"
 #include "wgrad.cuh"
 
 namespace {
 
-using stem_conv::IX;
-using stem_conv::kImg;
-using stem_conv::stage_patch;
-using stem_conv::TX;
-using stem_conv::TY;
+using stem_mma::kRectCols;
+using stem_mma::kRectRows;
+using stem_mma::Rect8x32;
+using stem_mma::RectGrid;
 
-// the forward's rectangle of stem outputs and its warps
-constexpr int kRows = 8, kCols = 32;
-constexpr int kFwdWarps = 4, kFwdThreads = 32 * kFwdWarps;
-// a rectangle's image bytes start at 6*sx0 - 6, 2 mod 4 (sx0 is a multiple
-// of 32): staged from 2 bytes earlier
-using FwdRect = stem_mma::Rect<kRows, kCols, 2>;
-
-// m16 tiles a warp step: 4 (64 pixels) up to 48 columns, else 2; both give
-// each warp the same number of units of an 8x32 rectangle
-template <int CP> struct Fwd {
-  static constexpr int kM = CP <= 48 ? 4 : 2;
-  using G = stem_mma::Gemm<CP, kM, FwdRect::kPx>;
-  static constexpr int kOs = CP + 8;  // bf16 per staged output pixel
-  static constexpr size_t kSmem =
-      ((size_t)G::kSplit + FwdRect::kPx * kOs) * 2 +
-      FwdRect::kImgRows * FwdRect::kImgPitch;
-};
-
-// the forward's epilogue: the float32 sums as they are (rounded once by
-// stage_outputs)
-struct Raw {
-  struct Pair {};
-  __device__ __forceinline__ Pair at(int) const { return {}; }
-  __device__ __forceinline__ float2 operator()(const Pair&, float2 v) const {
-    return v;
-  }
-};
-
-// CTA (blockIdx.x, blockIdx.y): the rectangles blockIdx.x, + gridDim.x, ..
-// (rectangle t: image t / per_image), columns blockIdx.y * CP ..
 template <int CP>
-__global__ void __launch_bounds__(kFwdThreads, CP <= 48 ? 3 : 2)
+__global__ void __launch_bounds__(stem_mma::kRectThreads,
+                                  stem_mma::RectGemm<CP>::kPerSm)
 stem_fwd_kernel(const uint8_t* __restrict__ x, const float* __restrict__ w,
-                __nv_bfloat16* __restrict__ z, int H, int W, int c2, int Hs,
-                int Ws, int tiles_x, int per_image, int ntiles, int vec) {
-  using F = Fwd<CP>;
+                __nv_bfloat16* __restrict__ z, RectGrid g) {
+  stem_mma::rects<CP>(x, w, Raw{}, z, g);
+}
+
+// The weight gradient's CTA: 4 warps, warp w holding dW rows (taps) 32w ..
+// 32w + 31 (kWgMT m16 tiles) x the CP columns of its chunk.
+constexpr int kWgWarps = 4, kWgThreads = 32 * kWgWarps, kWgMT = 2;
+constexpr int kSteps = kRectRows * kRectCols / 16;  // k16 steps a tile
+
+template <int CP> struct Wgrad {
+  static_assert(CP % 16 == 0 && CP <= 80, "c2 padded to 16, at most 80");
+  static constexpr int kNT = CP / 8;
+  static constexpr int kDs = CP + 8;  // bf16 per staged dz pixel
+  // CTAs per SM: what the shared memory allows
+  static constexpr int kPerSm = CP <= 48 ? 3 : 2;
+  static constexpr int kDzBytes = Rect8x32::kPx * kDs * 2;
+  // bytes of one stage: dz rows, then image rows (a multiple of 16)
+  static constexpr int kStage =
+      kDzBytes + Rect8x32::kImgRows * Rect8x32::kImgPitch;
+  static constexpr size_t kSmem = 2 * (size_t)kStage;
+};
+
+// the image bytes at p and p + 6 (one tap at two neighbouring stem pixels)
+// → the bf16 pair of an A register, exactly: byte v is the float whose bits
+// are 0x4b0000vv (2^23 + v) less 2^23, and its bf16 is that float's upper
+// half
+__device__ __forceinline__ uint32_t u8s6_bf16x2(const uint8_t* p) {
+  const float lo = __uint_as_float(0x4b000000u | p[0]) - 8388608.f;
+  const float hi = __uint_as_float(0x4b000000u | p[6]) - 8388608.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Stage 1 of the weight gradient: CTA (blockIdx.x, blockIdx.y) sums the
+// tiles blockIdx.x, + gridDim.x, .. at columns blockIdx.y * CP .. into its
+// partial dW (partial + blockIdx.x * 108 * c2).
+template <int CP>
+__global__ void __launch_bounds__(kWgThreads, Wgrad<CP>::kPerSm)
+stem_wgrad_kernel(const uint8_t* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ dz,
+                  float* __restrict__ partial, RectGrid g) {
+  using Wg = Wgrad<CP>;
+  constexpr int kDs = Wg::kDs, kPitch = Rect8x32::kImgPitch;
   extern __shared__ float4 smem4[];
-  auto* wsplit = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* ot = wsplit + F::G::kSplit;
-  auto* img = reinterpret_cast<uint8_t*>(ot + FwdRect::kPx * F::kOs);
+  auto* sm = reinterpret_cast<uint8_t*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.y * CP;
-  stem_mma::split_weights<CP, kFwdThreads>(w, c2, n0, wsplit);
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int b = t / per_image, rem = t - b * per_image;
-    const int sy0 = (rem / tiles_x) * kRows, sx0 = (rem % tiles_x) * kCols;
-    __syncthreads();  // the previous rectangle's products and stores are done
-    stem_mma::stage_image<FwdRect, kFwdThreads>(
-        x + (size_t)b * H * W * 3, H, W, 2 * sy0 - 2, 3 * (2 * sx0 - 2), img,
-        vec);
-    __syncthreads();  // the image (and the split weights) for all
-    auto valid = [&](int p) {
-      return p < FwdRect::kPx && sy0 + p / kCols < Hs && sx0 + p % kCols < Ws;
-    };
-    auto epi = [&](int u, const auto& sacc) {
-      stage_outputs<F::kM, F::G::kNT, CP, F::kOs, false>(
-          sacc, Raw{}, valid, ot, nullptr, u, 0, lane, n0, c2);
-    };
-    stem_mma::products<CP, F::kM, FwdRect, kFwdWarps>(wsplit, img, warp,
-                                                      lane, epi);
-    __syncthreads();
-    auto dst = [&](int p) -> __nv_bfloat16* {
-      const int sy = sy0 + p / kCols, sx = sx0 + p % kCols;
-      return sy < Hs && sx < Ws ? z + (((size_t)b * Hs + sy) * Ws + sx) * c2
-                                : nullptr;
-    };
-    store_outputs<FwdRect::kPx, CP, F::kOs, kFwdThreads>(ot, dst, tid, n0,
-                                                         c2);
+
+  // tile t's dz rows (columns n0 .., zero past the stem image and c2) and
+  // image rows into stage buffer buf
+  auto stage = [&](int t, int buf) {
+    uint8_t* st = sm + buf * Wg::kStage;
+    auto* dzs = reinterpret_cast<__nv_bfloat16*>(st);
+    const int b = t / g.per_image, rem = t - b * g.per_image;
+    const int sy0 = (rem / g.tiles_x) * kRectRows;
+    const int sx0 = (rem % g.tiles_x) * kRectCols;
+    constexpr int kG = CP / 8;
+    for (int i = tid; i < Rect8x32::kPx * kG; i += kWgThreads) {
+      const int p = i / kG, q = i - p * kG;
+      const int sy = sy0 + p / kRectCols, sx = sx0 + p % kRectCols;
+      const int n = n0 + 8 * q;
+      const bool in = sy < g.Hs && sx < g.Ws && n < g.c2;
+      cp_async16(dzs + p * kDs + 8 * q,
+                 in ? dz + (((size_t)b * g.Hs + sy) * g.Ws + sx) * g.c2 + n
+                    : dz,
+                 in);
+    }
+    stem_mma::stage_image<Rect8x32, kWgThreads, true>(
+        x + (size_t)b * g.H * g.W * 3, g.H, g.W, 2 * sy0 - 2,
+        3 * (2 * sx0 - 2), st + Wg::kDzBytes, g.vec);
+  };
+
+  float acc[kWgMT][Wg::kNT][4];
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i)
+#pragma unroll
+    for (int j = 0; j < Wg::kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // per lane: the image offsets of its A rows' taps (k = 18*dy + t: row
+  // dy, byte t; taps past 108 read byte 0 and are never written) and of
+  // its pixel 2*(lane%4) in a k16 step; its B row (pixel lane % 16) and
+  // column half
+  const int gq = lane >> 2, c4 = lane & 3;
+  int toff[kWgMT][2];
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 16 * (kWgMT * warp + i) + gq + 8 * h;
+      toff[i][h] = k < stem_mma::kTaps ? k / 18 * kPitch + k % 18 : 0;
+    }
+  const int aoff = Wg::kDzBytes + 12 * c4 + Rect8x32::kOff;
+  const int boff = (lane & 15) * kDs + (lane >> 4) * 8;
+
+  int t = blockIdx.x;
+  if (t < g.ntiles) stage(t, 0);
+  cp_async_commit();
+  for (int k = 0; t < g.ntiles; t += gridDim.x, ++k) {
+    if (t + (int)gridDim.x < g.ntiles) stage(t + gridDim.x, (k + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies landed (this thread's) ...
+    __syncthreads();     // ... and everyone's
+    const uint8_t* st = sm + (k & 1) * Wg::kStage;
+    const auto* dzs = reinterpret_cast<const __nv_bfloat16*>(st) + boff;
+#pragma unroll 1
+    for (int ks = 0; ks < kSteps; ++ks) {
+      // pixels 16*ks .. + 15: tile row ks / 2, columns 16 * (ks % 2) ..
+      uint32_t bf[Wg::kNT / 2][4];
+#pragma unroll
+      for (int p = 0; p < Wg::kNT / 2; ++p)
+        ldsm_x4_trans(bf[p], dzs + 16 * ks * kDs + 16 * p);
+      const uint8_t* ap =
+          st + aoff + (ks >> 1) * 2 * kPitch + (ks & 1) * 96;
+#pragma unroll
+      for (int i = 0; i < kWgMT; ++i) {
+        uint32_t a[4];
+        a[0] = u8s6_bf16x2(ap + toff[i][0]);
+        a[1] = u8s6_bf16x2(ap + toff[i][1]);
+        a[2] = u8s6_bf16x2(ap + 48 + toff[i][0]);
+        a[3] = u8s6_bf16x2(ap + 48 + toff[i][1]);
+#pragma unroll
+        for (int p = 0; p < Wg::kNT / 2; ++p) {
+          mma16816(acc[i][2 * p], a, bf[p][0], bf[p][1]);
+          mma16816(acc[i][2 * p + 1], a, bf[p][2], bf[p][3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is read before it is staged again
   }
+
+  // the CTA's dW block (rows: taps lane/4 and lane/4 + 8 of each m16 tile;
+  // columns 2*(lane%4), +1 of each n8 tile) into its partial
+  float* out = partial + (size_t)blockIdx.x * stem_mma::kTaps * g.c2;
+#pragma unroll
+  for (int i = 0; i < kWgMT; ++i)
+#pragma unroll
+    for (int j = 0; j < Wg::kNT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tap = 16 * (kWgMT * warp + i) + gq + 8 * h;
+        const int n = n0 + 8 * j + 2 * c4;
+        if (tap < stem_mma::kTaps && n < g.c2)
+          *reinterpret_cast<float2*>(out + tap * g.c2 + n) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
 }
 
+// CTAs along the pixel axis: as many as reside on the card at once (the
+// occupancy query: shared memory and registers) beside the column chunks,
+// at most one per tile.  Fixed for a card and a shape, so repeated runs add
+// the same partials in the same order.
 template <int CP>
-cudaError_t fwd_launch(const uint8_t* x, const float* w, void* z, int B,
-                       int H, int W, int c2, cudaStream_t stream) {
-  const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
-  const int tiles_x = (Ws + kCols - 1) / kCols;
-  const int per_image = tiles_x * ((Hs + kRows - 1) / kRows);
-  const int ntiles = B * per_image;
-  auto kern = stem_fwd_kernel<CP>;
-  cudaError_t err = allow_smem(kern, Fwd<CP>::kSmem);
-  if (err != cudaSuccess) return err;
-  // persistent CTAs: as many as are resident at once
+cudaError_t wgrad_parts(const RectGrid& g, int* parts) {
+  auto kern = stem_wgrad_kernel<CP>;
   int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kern, kFwdThreads, Fwd<CP>::kSmem);
-  if (err != cudaSuccess) return err;
-  const int grid = min(ntiles, (per_sm > 0 ? per_sm : 1) * sms);
-  // 4-byte image loads: every staged row starts on a 4-byte boundary
-  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  kern<<<dim3(grid, (c2 + CP - 1) / CP), kFwdThreads, Fwd<CP>::kSmem,
-         stream>>>(x, w, reinterpret_cast<__nv_bfloat16*>(z), H, W, c2, Hs,
-                   Ws, tiles_x, per_image, ntiles, vec);
-  return cudaGetLastError();
-}
-
-// Stage 1 of the weight gradient; blockDim.x >= 36 * c2/8 (one thread per
-// (tap, k-group)), dynamic shared memory = patch + TY*TX*c2 floats of dz.
-__global__ void stem_wgrad_kernel(const uint8_t* __restrict__ x,
-                                  const __nv_bfloat16* __restrict__ dz,
-                                  float* __restrict__ partial, int H, int W,
-                                  int c2, int Hs, int Ws, int tiles_x,
-                                  int tiles_y, int ntiles) {
-  extern __shared__ float4 smem4[];
-  float* img = reinterpret_cast<float*>(smem4);
-  float* dzs = img + kImg;  // kImg * 4 bytes is a multiple of 16
-  const int groups = c2 / 8;
-  const int tid = threadIdx.x;
-  const bool active = tid < 36 * groups;
-  const int kg = tid / 36, tap = tid - kg * 36;
-  const int dy = tap / 6, dx = tap - dy * 6;
-
-  float acc[3][8];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[c][j] = 0.f;
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int b = tile / (tiles_y * tiles_x);
-    const int rem = tile - b * tiles_y * tiles_x;
-    const int oy0 = (rem / tiles_x) * TY, ox0 = (rem % tiles_x) * TX;
-    __syncthreads();  // the previous tile's reads are done
-    stage_patch(x + (size_t)b * H * W * 3, img, H, W, oy0, ox0);
-    for (int idx = tid; idx < TY * TX * groups; idx += blockDim.x) {
-      int p = idx / groups, g = idx - p * groups;
-      int oy = oy0 + p / TX, ox = ox0 + p % TX;
-      float f[8];
-      if (oy < Hs && ox < Ws) {
-        load8_bf16(dz + (((size_t)b * Hs + oy) * Ws + ox) * c2 + g * 8, f);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) f[j] = 0.f;
-      }
-      float4* d = reinterpret_cast<float4*>(dzs + p * c2 + g * 8);
-      d[0] = make_float4(f[0], f[1], f[2], f[3]);
-      d[1] = make_float4(f[4], f[5], f[6], f[7]);
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int p = 0; p < TY * TX; ++p) {
-      const int r = p / TX, q = p - r * TX;
-      const float* ip = img + (2 * r + dy) * IX * 3 + (2 * q + dx) * 3;
-      const float v[3] = {ip[0], ip[1], ip[2]};
-      const float4 d0 = *reinterpret_cast<const float4*>(dzs + p * c2 + kg * 8);
-      const float4 d1 =
-          *reinterpret_cast<const float4*>(dzs + p * c2 + kg * 8 + 4);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        acc[c][0] = fmaf(v[c], d0.x, acc[c][0]);
-        acc[c][1] = fmaf(v[c], d0.y, acc[c][1]);
-        acc[c][2] = fmaf(v[c], d0.z, acc[c][2]);
-        acc[c][3] = fmaf(v[c], d0.w, acc[c][3]);
-        acc[c][4] = fmaf(v[c], d1.x, acc[c][4]);
-        acc[c][5] = fmaf(v[c], d1.y, acc[c][5]);
-        acc[c][6] = fmaf(v[c], d1.z, acc[c][6]);
-        acc[c][7] = fmaf(v[c], d1.w, acc[c][7]);
-      }
-    }
-  }
-  if (!active) return;
-  float* out = partial + (size_t)blockIdx.x * 108 * c2;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float4* o = reinterpret_cast<float4*>(out + (tap * 3 + c) * c2 + kg * 8);
-    o[0] = make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
-    o[1] = make_float4(acc[c][4], acc[c][5], acc[c][6], acc[c][7]);
-  }
+  cudaError_t err;
+  if ((err = allow_smem(kern, Wgrad<CP>::kSmem)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kWgThreads, Wgrad<CP>::kSmem)) != cudaSuccess)
+    return err;
+  const int chunks = (g.c2 + CP - 1) / CP;
+  const int fit = (sms * per_sm + chunks - 1) / chunks;
+  *parts = fit < g.ntiles ? fit : g.ntiles;
+  if (*parts < 1) *parts = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -227,36 +233,45 @@ __global__ void stem_wgrad_kernel(const uint8_t* __restrict__ x,
 extern "C" int stem_train_fwd_launch(const uint8_t* x, const float* w, void* z,
                                      int B, int H, int W, int c2,
                                      void* stream) {
-  const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
-  if (B == 0 || Hs <= 0 || Ws <= 0) return 0;
-  auto st = (cudaStream_t)stream;
-  cudaError_t err;
-  switch ((c2 + 15) / 16 * 16) {
-    case 16: err = fwd_launch<16>(x, w, z, B, H, W, c2, st); break;
-    case 32: err = fwd_launch<32>(x, w, z, B, H, W, c2, st); break;
-    case 48: err = fwd_launch<48>(x, w, z, B, H, W, c2, st); break;
-    case 64: err = fwd_launch<64>(x, w, z, B, H, W, c2, st); break;
-    default: err = fwd_launch<80>(x, w, z, B, H, W, c2, st);  // chunks of 80
-  }
-  return (int)err;
+  const RectGrid g = stem_mma::rect_grid(x, B, H, W, c2);
+  if (B == 0 || g.Hs <= 0 || g.Ws <= 0) return 0;
+  auto zb = reinterpret_cast<__nv_bfloat16*>(z);
+  return (int)stem_mma::by_width(c2, [&](auto cp) {
+    constexpr int CP = decltype(cp)::value;
+    return stem_mma::launch_rects<CP>(stem_fwd_kernel<CP>, g,
+                                      (cudaStream_t)stream, x, w, zb);
+  });
 }
 
-// partial: parts * 108 * c2 floats of scratch; dw: 108 * c2 floats.
+// The rows of the weight gradient's partial for a shape (its `parts`), or
+// minus a CUDA error.  Launches nothing.
+extern "C" int stem_train_wgrad_parts(int B, int H, int W, int c2) {
+  const RectGrid g = stem_mma::rect_grid(nullptr, B, H, W, c2);
+  int parts = 0;
+  const cudaError_t err = stem_mma::by_width(
+      c2, [&](auto cp) { return wgrad_parts<decltype(cp)::value>(g, &parts); });
+  return err != cudaSuccess ? -(int)err : parts;
+}
+
+// partial: parts * 108 * c2 floats of scratch, parts from
+// stem_train_wgrad_parts; dw: 108 * c2 floats.  Requires c2 % 8 == 0 and a
+// 16-byte aligned dz.
 extern "C" int stem_train_wgrad_launch(const uint8_t* x, const void* dz,
                                        float* partial, float* dw, int B, int H,
                                        int W, int c2, int parts,
                                        void* stream) {
-  const int Hs = (H - 2) / 2 + 1, Ws = (W - 2) / 2 + 1;
-  const int tiles_x = (Ws + TX - 1) / TX, tiles_y = (Hs + TY - 1) / TY;
-  const int threads = (36 * (c2 / 8) + 31) / 32 * 32;
-  const size_t smem = (size_t)(kImg + TY * TX * c2) * sizeof(float);
-  cudaError_t err = allow_smem(stem_wgrad_kernel, smem);
+  const RectGrid g = stem_mma::rect_grid(x, B, H, W, c2);
+  auto st = (cudaStream_t)stream;
+  const cudaError_t err = stem_mma::by_width(c2, [&](auto cp) {
+    constexpr int CP = decltype(cp)::value;
+    auto kern = stem_wgrad_kernel<CP>;
+    cudaError_t e = allow_smem(kern, Wgrad<CP>::kSmem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(parts, (c2 + CP - 1) / CP), kWgThreads, Wgrad<CP>::kSmem,
+           st>>>(x, reinterpret_cast<const __nv_bfloat16*>(dz), partial, g);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return (int)err;
-  stem_wgrad_kernel<<<parts, threads, smem, (cudaStream_t)stream>>>(
-      x, reinterpret_cast<const __nv_bfloat16*>(dz), partial, H, W, c2, Hs, Ws,
-      tiles_x, tiles_y, B * tiles_x * tiles_y);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_sum_partials(partial, dw, 108 * c2, parts,
-                                  (cudaStream_t)stream);
+  return (int)launch_sum_partials(partial, dw, stem_mma::kTaps * c2, parts,
+                                  st);
 }

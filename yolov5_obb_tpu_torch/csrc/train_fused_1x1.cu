@@ -382,7 +382,7 @@ p1x1_fwd_kernel(const __grid_constant__ Pass1x1Desc d,
         __syncthreads();  // the products have read the group values, and
                           // the last stores have read ot and red
         stage_outputs<kMTiles, kNTiles, N, kOs, true>(
-            acc, conv3x3_mma::Raw{}, in_tile, ot, red, warp, 0, lane, n0,
+            acc, Raw{}, in_tile, ot, red, warp, 0, lane, n0,
             co);
         __syncthreads();
         __nv_bfloat16* out = d.out[o] + p0 * co;

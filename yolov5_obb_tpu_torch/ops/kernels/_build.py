@@ -175,13 +175,3 @@ def check_aligned(**tensors) -> None:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
-
-def partial_count(device, tiles: int, chunks: int = 1, per_sm: int = 3) -> int:
-    """CTAs along the pixel axis of a two-stage reduction (each writes one
-    partial sum: a weight gradient, per-channel statistics): with the
-    ``chunks`` CTAs of the other grid axis, ``per_sm`` for every SM of the
-    card (as many as the kernel's shared memory and registers let reside at
-    once), and at most one per tile.  Fixed for a card and a shape, so
-    repeated runs add the same partials in the same order."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(tiles, -(-sms * per_sm // chunks)))

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._build import I, Kernel, P, check_aligned, check_cuda, partial_count
+from ._build import I, Kernel, P, check_aligned, check_cuda, query
 
 KERNEL = Kernel(
     "stem_l1", "stem_l1_launch", [P, P, P, P, P, P, I, I, I, I, I],
@@ -163,8 +163,6 @@ def fused_stem_l1(x_packed, w0, b0, w1, b1, dtype=torch.bfloat16):
 # training: the raw stem conv and its weight gradient
 # ---------------------------------------------------------------------------
 
-_TRAIN_TILE = (8, 32)  # stem outputs per tile of the weight-grad kernel
-
 
 def stem_train_fwd_plain(x_packed, w, dtype=torch.bfloat16):
     """Plain version of the forward: the float32 conv (stride 2, pad 2) of
@@ -207,10 +205,16 @@ def stem_train_wgrad_plain(x_packed, dz):
         dz.permute(0, 3, 1, 2).float(), stride=2, padding=2)
 
 
+def wgrad_parts(B: int, H: int, W: int, c2: int) -> int:
+    """Rows of the weight-gradient kernel's partial dW (its CTAs along the
+    pixel axis), as ``csrc/stem_train.cu`` plans them for this card."""
+    return query("stem_train", "stem_train_wgrad_parts", B, H, W, c2)
+
+
 def stem_train_wgrad(x_packed, dz):
     """Weight gradient of :func:`stem_train_fwd`: ``dz (B, Hs, Ws, c2)`` →
     ``(c2, 3, 6, 6)`` float32.  CPU tensors take the plain version; CUDA
-    tensors take the kernel (bf16 ``dz``)."""
+    tensors take the kernel (bf16 ``dz``, 16-byte aligned)."""
     if x_packed.device.type == "cpu":
         return stem_train_wgrad_plain(x_packed, dz)
     check_cuda("x_packed", x_packed, torch.uint8, 3)
@@ -222,9 +226,8 @@ def stem_train_wgrad(x_packed, dz):
         raise ValueError(f"stem wgrad kernel: bad shapes x "
                          f"{tuple(x_packed.shape)}, dz {tuple(dz.shape)} "
                          f"(c2 % 8 == 0, c2 <= 200)")
-    ty, tx = _TRAIN_TILE
-    tiles = B * -(-Hs // ty) * -(-Ws // tx)
-    parts = partial_count(x_packed.device, tiles)
+    check_aligned(dz=dz)
+    parts = wgrad_parts(B, H, W, c2)
     partial = torch.empty(parts, 108, c2, device=x_packed.device)
     dw = torch.empty(108, c2, device=x_packed.device)
     TRAIN_WGRAD_KERNEL.launch(x_packed, dz, partial, dw, B, H, W, c2, parts)
