@@ -13,14 +13,22 @@ Phases, each fatal on failure:
       forward and backward) their
       registers and spill bytes from ptxas,
       which must be 0, and their tensor-core and global-load instructions
-      from ``cuobjdump -sass``, which must hold HMMA;
+      from ``cuobjdump -sass``, which must hold HMMA; for the rotated-IoU
+      kernels (the per-box records, the neighbour scan and pair stage, the
+      pair IoU) their registers, stack frame and spills, which must be 0
+      (the records keep sinf/cosf's stack frame; a library built before
+      this run is compiled again for its ptxas lines);
   (b) each inference kernel against its plain PyTorch version on the card at
       the main path's shapes (bf16 convs; the stem+L1 kernel and the
       stem-only kernel at yolov5m b16 1024²; neighbour kernel at n =
-      512/1024/2048 and on a clustered input that overflows M=64; the
-      pair-IoU kernel on the clustered input at n = 4096), with kernel /
-      plain / library times and the bound from the bytes and operations of
-      the shape; the stem+L1, stem-only and C3 kernels also bit for bit on
+      512/1024/2048 and on a clustered input that overflows M=64, its
+      records' cover and area equal to the plain edge inputs bit for bit,
+      the call's time beside the kernel's alone; the per-box records
+      against their plain version; the pair-IoU kernel on the clustered
+      input at n = 4096, bit for bit on repeat), with kernel / plain /
+      library times and the bound from the bytes and operations of the
+      shape (the rotated IoU's operations what this input needs, beside
+      the design's count); the stem+L1, stem-only and C3 kernels also bit for bit on
       repeat, and beside the stem+L1 and stem-only kernels' bf16 library
       calls the same function with the stem in float32;
   (b') each train kernel (stem forward and weight gradient, downsample
@@ -35,8 +43,10 @@ Phases, each fatal on failure:
       with the detection density tuned to ~300 dets/img; every inference
       kernel's launch count must move; the same path with the plain versions
       is the reference (keep masks on the same candidates, detections per
-      image); the forward with FUSED_C3_MIN_SPATIAL at its default (256²)
-      and at 128² (layer 4's C3(192, n = 4) on the kernel too), in turns;
+      image; the neighbour kernel on the same candidates, exact, and its
+      call and kernel-alone times at the path's own tier and live rows);
+      the forward with FUSED_C3_MIN_SPATIAL at its default (256²) and at
+      128² (layer 4's C3(192, n = 4) on the kernel too), in turns;
   (d) the train path: yolov5m, batch 16, 1024², bf16, packed stem, random
       weights from a seed, SGD at nominal batch 16, two seeded batches of 64
       label slots with 8 live targets (tools/bench_train.py's recipe, CSL
@@ -86,10 +96,38 @@ import numpy as np
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
-# scalar float32 operations per neighbour-kernel step (edge test of one
-# pair; exact IoU of one selected pair), counted from csrc/rotated_iou.cuh
-EDGE_OPS = 10
-IOU_OPS = 750
+# Hopper: 128 float32 lanes per SM, each one scalar operation a cycle; the
+# rotated IoU (-fmad=false, divisions, compares and selects) has no
+# multiply-add to pair, so its rate is this, not PEAK_FP32's FMA count
+LANES_PER_SM = 128
+# scalar operations of the rotated IoU that the function needs, counted
+# from ops/rotated_iou.pairs_iou_records: an IEEE division as DIV_OPS and
+# cosf + sinf of one angle as TRIG_OPS, their fast paths in SASS
+# (tools/riou_sass_ops.py on the card: 10 and 52)
+DIV_OPS, TRIG_OPS = 10, 52
+# one pair from two records, whatever its ring: midpoint and corners 40, the
+# 16 crossings and their two-per-edge selection 560 + 32 divisions, the
+# inside tests 264, the centroid 51 + 1, the IoU 3 + 1 ...
+IOU_FIXED_OPS = 918 + 34 * DIV_OPS
+# ... and, for a ring of m >= 3 points only (ring_ops), each point's
+# pseudo-angle 8 + 1 division and shoelace term 3, and the m keys' order by
+# the fewest comparators known for m keys, a min and a max each (the points
+# follow their index: no payload moved)
+RING_POINT_OPS = 8 + DIV_OPS + 3
+SORT_COMPARATORS = (0, 0, 1, 3, 5, 9, 12, 16, 19, 25, 29, 35, 39, 45, 51, 56,
+                    60)
+# what csrc/rotated_iou.cuh executes a pair, for comparison (not a bound):
+# the fixed work, then all 16 slots' pseudo-angles 128 + 16 divisions, the
+# 63 compare-exchanges of its Batcher network moving key, index, x and y
+# (12 each) 756, the shoelace over 16 slots with selects 130
+IOU_DESIGN_OPS = 1932 + 50 * DIV_OPS
+# one box's record: the trig, the half vectors 9 and the area 1 (what the
+# pair IoU needs of a box), then the cover 14 (the neighbour scan's)
+PAIR_BOX_OPS = 10 + TRIG_OPS
+BOX_OPS = PAIR_BOX_OPS + 14
+# one edge test of the neighbour scan: flag and class 2, the covers'
+# intersection 9, the capped area 3
+EDGE_OPS = 14
 
 BATCH, IMGSZ, MAXC, MAX_DET = 16, 1024, 2048, 1500
 CONF, IOU = 0.25, 0.45
@@ -145,19 +183,20 @@ def card_line() -> str:
 
 
 def ptxas_entries(text: str) -> dict:
-    """Kernel name → (registers, spill store bytes, spill load bytes) from
-    an ``nvcc -Xptxas -v`` log."""
-    out, name, spill = {}, None, (None, None)
+    """Kernel name → (registers, stack frame bytes, spill store bytes, spill
+    load bytes) from an ``nvcc -Xptxas -v`` log."""
+    out, name, frame = {}, None, (None, None, None)
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name, spill = m.group(1), (None, None)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            name, frame = m.group(1), (None, None, None)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            frame = tuple(int(g) for g in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out[name] = (int(m.group(1)), *spill)
+            out[name] = (int(m.group(1)), *frame)
             name = None
     return out
 
@@ -198,11 +237,61 @@ def mma_report(build) -> dict:
         regs = {k: v for k, v in ptxas_entries(build.PTXAS_LOG[src]).items()
                 if any(n in k for n in names)}
         sass = sass_counts(str(build.so_path(src)), names)
-        rep[src] = {k: {"registers": r, "spill_stores": ss, "spill_loads": sl,
+        rep[src] = {k: {"registers": r, "stack_frame": sf, "spill_stores": ss,
+                        "spill_loads": sl,
                         "sass": "not available" if sass is None
                         else sass.get(k, "not found")}
-                    for k, (r, ss, sl) in regs.items()}
+                    for k, (r, sf, ss, sl) in regs.items()}
     return rep
+
+
+# the rotated-IoU libraries → their kernels: scalar float32 code whose
+# candidate ring must live in registers (no stack frame, no spills); the
+# records' only stack frame is sinf/cosf's range reduction for |angle| >=
+# 105615, which no box angle reaches (tools/riou_sass_ops.py)
+RIOU_SOURCES = {"riou_boxes": ("riou_boxes_kernel",),
+                "neighbor": ("neighbor_scan_kernel", "neighbor_iou_kernel"),
+                "pairs_iou": ("riou_pairs_kernel",)}
+RIOU_STACK_FREE = ("neighbor", "pairs_iou")
+
+
+def riou_report(build) -> dict:
+    """Registers, stack frame and spills of the rotated-IoU kernels, from
+    this run's ptxas log; a library built before this run is compiled again
+    (into a temporary directory of the build directory) for its log."""
+    import tempfile
+
+    logs = {src: build.PTXAS_LOG[src] for src in RIOU_SOURCES
+            if src in build.PTXAS_LOG}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        procs = {src: subprocess.Popen(
+            [build._nvcc(), *build._flags(src), "-I", str(build.CSRC_DIR),
+             "-o", f"{d}/{src}.so", str(build.CSRC_DIR / f"{src}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in RIOU_SOURCES if src not in logs}
+        for src, proc in procs.items():
+            logs[src] = proc.communicate()[0]
+            require(proc.returncode == 0,
+                    f"nvcc {src}.cu for its ptxas lines failed:\n{logs[src]}")
+    return {src: {k: dict(zip(("registers", "stack_frame", "spill_stores",
+                               "spill_loads"), v))
+                  for k, v in ptxas_entries(logs[src]).items()
+                  if any(n in k for n in names)}
+            for src, names in RIOU_SOURCES.items()}
+
+
+def lane_rate() -> float:
+    """Scalar float32 operations per second of this card: one per lane per
+    cycle at its maximum SM clock."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * LANES_PER_SM * mhz * 1e6
 
 
 def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -220,6 +309,23 @@ def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_ms(fn, iters: int = 10) -> float:
+    """Mean device ms per call of the kernels ``fn`` launches, from the
+    profiler: for a call shorter than its own enqueue, where CUDA events
+    around back-to-back calls time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
 
 
 def bound(nbytes: float, *work):
@@ -851,36 +957,87 @@ def synthetic_candidates(gen, n, clustered, dev):
     return rb, cls, valid.expand(BATCH, n).contiguous()
 
 
-def neighbor_ops(rb, cls, valid, M) -> float:
-    """Scalar operations this input needs: each valid row tests its
-    higher-scored columns until its M-th edge, then computes the exact IoU
-    of its selected pairs."""
+def iou_ops(ra, rb, chunk: int = 1 << 20):
+    """(needed, design) scalar operations of the exact IoU of the pairs of
+    records ``ra``, ``rb`` (``(P, 16)`` each): IOU_FIXED_OPS a pair plus its
+    ring's (its size m from the plain candidate points), and the
+    design's IOU_DESIGN_OPS a pair."""
     import torch
 
+    from yolov5_obb_tpu_torch.ops.rotated_iou import candidate_points
+
+    sort = torch.tensor(SORT_COMPARATORS, device=ra.device)
+    ring = 0.0
+    for a, b in zip(ra.split(chunk), rb.split(chunk)):
+        m = candidate_points(a, b)[2].sum(-1)
+        ring += float(torch.where(m >= 3, m * RING_POINT_OPS + 2 * sort[m],
+                                  0).sum())
+    return ra.shape[0] * IOU_FIXED_OPS + ring, ra.shape[0] * IOU_DESIGN_OPS
+
+
+def neighbor_ops(rb, cls, valid, M):
+    """(needed, design) scalar operations of the neighbour function on this
+    input: each box's record, the edge tests each valid row makes until its
+    M-th edge, and the exact IoU of its selected pairs (iou_ops; the design
+    differs only there)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels import iou as K
     from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
 
     edge = N.edge_matrix(rb, cls, valid, IOU)
     pos = torch.cumsum(edge.to(torch.int32), -1)
-    nsel = pos[..., -1].clamp(max=M)
-    rows = torch.arange(rb.shape[1], device=rb.device)[None].expand_as(nsel)
+    rows = torch.arange(rb.shape[1], device=rb.device)[None].expand_as(
+        pos[..., -1])
     full = pos[..., -1] >= M
     mth = torch.argmax((pos >= M).to(torch.uint8), -1)  # column of M-th edge
     scanned = torch.where(full, mth + 1, rows) * valid
-    return float(scanned.sum()) * EDGE_OPS + float(nsel.sum()) * IOU_OPS
+    del pos
+    idx, sel = N.first_m_neighbors(edge, M)
+    del edge
+    rec = K.box_records(rb)
+    b, i, s = sel.nonzero(as_tuple=True)
+    need, design = iou_ops(rec[b, i], rec[b, idx[b, i, s].long()])
+    rest = rb.shape[0] * rb.shape[1] * BOX_OPS \
+        + float(scanned.sum()) * EDGE_OPS
+    return rest + need, rest + design
+
+
+def neighbor_bare(rb, cls, valid, M=64):
+    """The neighbour kernel's launch alone, on records and outputs prepared
+    once (no wrapper, no records launch)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels import iou as K
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+
+    B, n, _ = rb.shape
+    rec = K.box_records(rb, cls, valid)
+    idx = torch.empty(B, n, M, dtype=torch.int32, device=rb.device)
+    sup = torch.empty(B, n, M, dtype=torch.bool, device=rb.device)
+    pairs = torch.empty(B * n * M + 1, dtype=torch.int32, device=rb.device)
+    return lambda: N.KERNEL.launch(rec, B, n, M, float(IOU * N.EDGE_SLACK),
+                                   float(IOU), idx, sup, pairs)
 
 
 def compare_neighbors(rb, cls, valid, M=64):
-    """Kernel vs plain on the same candidates: mismatch counts + timings."""
+    """Kernel vs plain on the same candidates: mismatch counts, and the
+    records' cover and area against the plain edge inputs, bit for bit."""
     import torch
 
+    from yolov5_obb_tpu_torch.ops.kernels import iou as K
     from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+    from yolov5_obb_tpu_torch.ops.rotated_iou import record_cover_area
 
     idx, sup = N.fused_neighbor_iou(rb, cls, valid, IOU, M)
     pidx, psup = N.fused_neighbor_iou_plain(rb, cls, valid, IOU, M)
+    rec = K.box_records(rb, cls, valid)
     torch.cuda.synchronize()
     return {
         "nbr_idx_mismatches": int((idx != pidx).sum()),
         "sup_in_mismatches": int((sup != psup).sum()),
+        "cover_mismatches": int((record_cover_area(rec)
+                                 != N._edge_inputs(rb)).sum()),
         "rows_over_M": int((pidx[..., -1] > 0).sum()),
         "sup_edges": int(psup.sum()),
     }, pidx, psup
@@ -898,25 +1055,65 @@ def check_neighbor(gen, dev):
         rb, cls, valid = synthetic_candidates(gen, n, clustered, dev)
         res, pidx, psup = compare_neighbors(rb, cls, valid, M)
         res["ms"] = cuda_time(lambda: N.fused_neighbor_iou(rb, cls, valid,
-                                                           IOU, M), 10)
+                                                           IOU, M), 20)
+        res["kernel_ms"] = profiled_ms(neighbor_bare(rb, cls, valid, M))
         res["plain_ms"] = cuda_time(
             lambda: N.fused_neighbor_iou_plain(rb, cls, valid, IOU, M), 2, 1)
         cases[f"n{n}{'_clustered' if clustered else ''}"] = res
         if n == 2048 and not clustered:
-            ops = neighbor_ops(rb, cls, valid, M)
+            ops, design_ops = neighbor_ops(rb, cls, valid, M)
     n = 2048
-    nbytes = BATCH * n * (5 * 4 + 4 + 1) + BATCH * n * M * 5
+    # boxes, class and valid in (25 bytes a box), indices and flags out
+    nbytes = BATCH * n * 25 + BATCH * n * M * 5
     mism = sum(c["nbr_idx_mismatches"] + c["sup_in_mismatches"]
-               for c in cases.values())
+               + c["cover_mismatches"] for c in cases.values())
     return "neighbor", N.KERNEL, {
         "max_abs_err": float(mism),
-        "tolerance": "exact: 0 nbr_idx and 0 sup_in mismatches",
+        "tolerance": "exact: 0 nbr_idx, sup_in and cover mismatches",
         "ok": mism == 0,
-        "ms": cases["n2048"]["ms"], "plain_ms": cases["n2048"]["plain_ms"],
+        "ms": cases["n2048"]["ms"], "kernel_ms": cases["n2048"]["kernel_ms"],
+        "plain_ms": cases["n2048"]["plain_ms"],
         "library_ms": None,
-        "bound": bound(nbytes, (ops, PEAK_FP32)), "flops": ops,
-        "bytes": nbytes,
+        "bound": bound(nbytes, (ops, lane_rate())), "ops": ops,
+        "design_ops": design_ops, "bytes": nbytes,
         "cases": cases,
+    }
+
+
+def check_riou_boxes(gen, dev):
+    """The per-box records (the prologue of both rotated-IoU kernels) on
+    phase (b)'s n = 2048 candidates: the half vectors within the pair IoU's
+    1e-5, every other field (centre, area, cover, class and valid bits)
+    exact."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels import iou as K
+    from yolov5_obb_tpu_torch.ops.rotated_iou import REC_HALVES
+
+    n = 2048
+    rb, cls, valid = synthetic_candidates(gen, n, False, dev)
+    got = K.box_records(rb, cls, valid)
+    want = K.box_records_plain(rb, cls, valid)
+    torch.cuda.synchronize()
+    err = float((got[..., REC_HALVES] - want[..., REC_HALVES]).abs().max())
+    rest = torch.ones(got.shape[-1], dtype=torch.bool, device=dev)
+    rest[REC_HALVES] = False
+    exact = torch.equal(got[..., rest], want[..., rest])
+    rec = torch.empty_like(got)
+    N_ = BATCH * n
+    nbytes = N_ * (5 * 4 + 4 + 1 + 64)
+    return "riou_boxes", K.BOXES_KERNEL, {
+        "max_abs_err": err, "other_fields_exact": exact,
+        "bit_for_bit": torch.equal(got, want),
+        "tolerance": "half vectors <= 1e-5; centre, area, cover, class, "
+                     "valid exact",
+        "ok": exact and err <= 1e-5,
+        "ms": profiled_ms(lambda: K.BOXES_KERNEL.launch(rb, cls, valid, N_,
+                                                       rec)),
+        "plain_ms": cuda_time(lambda: K.box_records_plain(rb, cls, valid), 5),
+        "library_ms": None,
+        "bound": bound(nbytes, (N_ * BOX_OPS, lane_rate())),
+        "ops": N_ * BOX_OPS, "bytes": nbytes,
     }
 
 
@@ -924,7 +1121,7 @@ def check_pairs_iou(gen, dev):
     """The pair-IoU kernel (sparse form) on the clustered candidates of
     check_neighbor at n = 4096, every row's first M = 64 admissible
     neighbours (rows overflow M): IoU values and the suppression decisions
-    iou > thr against the plain version."""
+    iou > thr against the plain version, bit for bit on repeat."""
     import torch
 
     from yolov5_obb_tpu_torch.ops.kernels import iou as K
@@ -936,25 +1133,40 @@ def check_pairs_iou(gen, dev):
     _, sup = N.fused_neighbor_iou(rb, cls, valid, IOU, M)
     got = K.sparse_rotated_iou(rb, idx)
     want = K.sparse_rotated_iou_plain(rb, idx)
+    again = K.sparse_rotated_iou(rb, idx)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     decisions = int(((got > IOU) != (want > IOU)).sum())
+    repeat = torch.equal(got, again)
     pairs = idx.numel()
-    nbytes = rb.numel() * 4 + pairs * 8
+    rec = K.box_records(rb)
+    out = torch.empty_like(got)
+    ra = rec[:, :, None].expand(-1, -1, M, -1).reshape(pairs, -1)
+    rp = torch.gather(rec, 1, idx.reshape(rb.shape[0], -1, 1).long()
+                      .expand(-1, -1, rec.shape[-1])).reshape(pairs, -1)
+    need, design = iou_ops(ra, rp)
+    del ra, rp
+    boxes = rb.shape[0] * n * PAIR_BOX_OPS
+    # boxes in (20 bytes each), indices in and IoU out
+    nbytes = rb.shape[0] * n * 20 + pairs * 8
     return "pairs_iou", K.KERNEL, {
         "max_abs_err": err, "decision_mismatches": decisions,
+        "repeat_bitwise": repeat,
         "rows_over_M": int(nbr_valid[..., -1].sum()),
         # the neighbour kernel's decisions on the same slots
         "sup_in_vs_neighbor_kernel_mismatches": int(
             (((got > IOU) & nbr_valid) != sup).sum()),
-        "tolerance": "IoU |Δ| <= 1e-5 and 0 decision mismatches",
-        "ok": err <= 1e-5 and decisions == 0,
+        "tolerance": "IoU |Δ| <= 1e-5, 0 decision mismatches; repeats bit "
+                     "for bit",
+        "ok": err <= 1e-5 and decisions == 0 and repeat,
         "ms": cuda_time(lambda: K.sparse_rotated_iou(rb, idx), 10),
+        "kernel_ms": profiled_ms(lambda: K.KERNEL.launch(
+            rec, None, idx, out, rb.shape[0], n, M)),
         "plain_ms": cuda_time(lambda: K.sparse_rotated_iou_plain(rb, idx), 2,
                               1),
         "library_ms": None,
-        "bound": bound(nbytes, (pairs * IOU_OPS, PEAK_FP32)),
-        "flops": pairs * IOU_OPS, "bytes": nbytes,
+        "bound": bound(nbytes, (boxes + need, lane_rate())),
+        "ops": boxes + need, "design_ops": boxes + design, "bytes": nbytes,
     }
 
 
@@ -1012,6 +1224,7 @@ def main_path(dev, report):
 
     from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
     from yolov5_obb_tpu_torch.ops import rotated_nms as R
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
 
     t0 = time.perf_counter()
     model, meta, set_obj = density_model(dev)
@@ -1049,6 +1262,7 @@ def main_path(dev, report):
                                     plain=True)
     img_mismatch, det_diff, cls_mismatch, map_err = 0, 0, 0, 0.0
     keep_mismatch, idx_mismatch, sup_mismatch, cand = 0, 0, 0, 0
+    cover_mismatch, live, nbr_case = 0, [], None
     with torch.inference_mode():
         for x, (d_k, n_k) in zip(xs, outs):
             maps_k = model(x)
@@ -1080,13 +1294,24 @@ def main_path(dev, report):
             res, _, _ = compare_neighbors(rb, cid, sc > 0)
             idx_mismatch += res["nbr_idx_mismatches"]
             sup_mismatch += res["sup_in_mismatches"]
+            cover_mismatch += res["cover_mismatches"]
             cand = max(cand, int((sc > 0).sum(1).max()))
+            live += (sc > 0).sum(1).tolist()
+            if nbr_case is None:  # row 4 at the path's own tier and rows
+                valid = (sc > 0).contiguous()
+                nbr_case = {**res, "tier": kk,
+                            "live_rows_per_img": (sc > 0).sum(1).tolist(),
+                            "ms": cuda_time(lambda: N.fused_neighbor_iou(
+                                rb, cid, valid, IOU, 64), 20),
+                            "kernel_ms": profiled_ms(
+                                neighbor_bare(rb, cid, valid))}
     log(f"plain reference: maps max|Δ| {map_err:.4g}, images differing "
         f"{img_mismatch}/{3 * BATCH}, Σ|Δdets| {det_diff}, cls mismatches "
         f"{cls_mismatch}; same candidates (≤{cand}/img, tier {kk}): keep "
         f"mismatches {keep_mismatch}, nbr_idx {idx_mismatch}, sup_in "
-        f"{sup_mismatch}")
-    require(keep_mismatch == 0 and idx_mismatch == 0 and sup_mismatch == 0,
+        f"{sup_mismatch}, cover {cover_mismatch}; row 4 there {nbr_case}")
+    require(keep_mismatch == 0 and idx_mismatch == 0 and sup_mismatch == 0
+            and cover_mismatch == 0,
             "neighbour kernel disagrees with its plain version on the main path")
     # bf16 conv rounding differs between the kernels and their plain
     # versions, so a few scores near 0.25 may cross; bound the effect
@@ -1121,6 +1346,8 @@ def main_path(dev, report):
         "images_differing_vs_plain": img_mismatch,
         "dets_abs_diff_vs_plain": det_diff,
         "keep_mask_mismatches": keep_mismatch,
+        "candidates_per_img": [min(live), float(np.mean(live)), max(live)],
+        "neighbor_main_path_case": nbr_case,
         "launches_per_3_predicts": dict(launches),
         "c3_gate_ab": gate,
     })
@@ -1954,7 +2181,7 @@ def val_path(dev, report, delta):
     return {"pairs_iou": iou_launches, "stem": stem_a + stem_b}
 
 
-INFER = ("stem_l1", "c3", "down", "neighbor")
+INFER = ("stem_l1", "c3", "down", "riou_boxes", "neighbor")
 
 
 def _named_kernels():
@@ -1975,7 +2202,8 @@ def _named_kernels():
             "down_train_wgrad": down_kernel.TRAIN_WGRAD_KERNEL,
             "pass_1x1_fwd": TF.KERNEL_1X1, "pass_1x1_bwd": TF.KERNEL_1X1_BWD,
             "pass_3x3s1": TF.KERNEL_3X3S1, "pass_3x3s2": TF.KERNEL_3X3S2,
-            "stem": stem_kernel.STEM_KERNEL, "pairs_iou": iou.KERNEL}
+            "stem": stem_kernel.STEM_KERNEL, "pairs_iou": iou.KERNEL,
+            "riou_boxes": iou.BOXES_KERNEL}
 
 
 def main() -> int:
@@ -2021,12 +2249,22 @@ def main() -> int:
             require(r["sass"] == "not available"
                     or isinstance(r["sass"], dict) and r["sass"]["HMMA"] > 0,
                     f"{src}.cu {k} has no HMMA in its SASS: {r}")
+    riou = riou_report(_build)
+    print("rotated-IoU kernels: " + json.dumps(riou), flush=True)
+    for src, rep in riou.items():
+        for name in RIOU_SOURCES[src]:
+            require(any(name in k for k in rep),
+                    f"ptxas reported no {name} kernel in {src}.cu")
+        for k, r in rep.items():
+            require((r["stack_frame"] == 0 or src not in RIOU_STACK_FREE)
+                    and r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                    f"{src}.cu {k} keeps a stack frame or spills: {r}")
 
     # (b) inference kernels against their plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for check in (check_stem, check_stem_only, check_c3, check_down,
-                  check_neighbor, check_pairs_iou):
+                  check_riou_boxes, check_neighbor, check_pairs_iou):
         name, kern, res = check(gen, dev)
         results[name] = (kern, res)
         torch.cuda.empty_cache()
@@ -2044,6 +2282,8 @@ def main() -> int:
     # (c) the inference path
     report = {}
     launches = main_path(dev, report)
+    results["neighbor"][1]["cases"]["main_path"] = \
+        report["neighbor_main_path_case"]
     torch.cuda.empty_cache()
     # (d) the train path
     launches.update(train_path(dev, report))
@@ -2069,11 +2309,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": kern.path,
             "replaces": kern.replaces, "launches": launches[name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "kernel_ms": res["ms"], "plain_ms": res["plain_ms"],
+            "kernel_ms": res.get("kernel_ms", res["ms"]),
+            "plain_ms": res["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": res["library_ms"],
-            **({"library_f32_ms": res["library_f32_ms"]}
-               if "library_f32_ms" in res else {}),
+            **{k: res[k] for k in ("library_f32_ms", "ops", "design_ops")
+               if k in res},
         })
     print(json.dumps({"kernels": kernels, "main_path": report,
                       "tensor_core_kernels": mma, "card": card}), flush=True)

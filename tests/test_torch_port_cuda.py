@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from riou_cases import CASES as RIOU_CASES
+from riou_cases import hard_pairs
 from yolov5_obb_tpu_torch.models import layers
 from yolov5_obb_tpu_torch.models.layers import C3
 from yolov5_obb_tpu_torch.ops.kernels import (
@@ -126,6 +128,44 @@ def test_pairs_iou_kernel(dev, B, K, M):
     assert got.shape == (B, K, M)
     assert (got - want).abs().max() <= 1e-5
     assert torch.equal(got > 0.45, want > 0.45)
+
+
+@pytest.mark.parametrize("case", RIOU_CASES)
+def test_hard_pairs_kernel(dev, case):
+    """The pair-IoU kernel on tests/riou_cases.py's hard pairs, both forms,
+    against the plain version; bit for bit on repeat and between forms."""
+    a, b = (torch.from_numpy(x).to(dev) for x in hard_pairs(case))
+    P = a.shape[0]
+    got = _counted(iou.KERNEL, lambda: iou.pairs_rotated_iou(a, b))
+    want = iou.pairs_rotated_iou_plain(a, b)
+    assert (got - want).abs().max() <= 1e-5
+    for thr in (0.1, 0.45, 0.9):
+        assert torch.equal(got > thr, want > thr)
+    assert torch.equal(got, iou.pairs_rotated_iou(a, b))
+    # the sparse form: one image holding both sides, row k paired with P + k
+    boxes = torch.cat([a, b])[None].contiguous()
+    idx = (P + torch.arange(P, device=dev, dtype=torch.int32)).view(1, P, 1)
+    idx = torch.cat([idx, torch.zeros(1, P, dtype=torch.int32, device=dev)
+                     .view(1, P, 1)], 1).contiguous()
+    sparse = iou.sparse_rotated_iou(boxes, idx)[0, :P, 0]
+    assert torch.equal(sparse, got)
+
+
+def test_box_records_kernel(dev):
+    """The per-box records on the card against their plain version, bit for
+    bit (the cover and area the neighbour kernel's plain edge test sees)."""
+    from yolov5_obb_tpu_torch.ops.kernels.neighbor_kernel import _edge_inputs
+    from yolov5_obb_tpu_torch.ops.rotated_iou import record_cover_area
+
+    rng = np.random.default_rng(12)
+    boxes = torch.from_numpy(_rboxes(rng, (3, 333), 300.0)).to(dev)
+    cls = torch.from_numpy(rng.integers(0, 15, (3, 333)).astype(np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random((3, 333)) < 0.8).to(dev)
+    rec = _counted(iou.BOXES_KERNEL, lambda: iou.box_records(boxes, cls, valid))
+    assert rec.shape == (3, 333, 16)
+    assert torch.equal(rec, iou.box_records_plain(boxes, cls, valid))
+    assert torch.equal(record_cover_area(rec), _edge_inputs(boxes))
+    assert torch.equal(iou.box_records(boxes), iou.box_records_plain(boxes))
 
 
 @pytest.mark.parametrize("n,clustered", [(100, False), (300, True)])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B variants of the port's tensor-core kernels on one NVIDIA card.
+"""A/B variants of the port's hand-written kernels on one NVIDIA card.
 
     python3 tools/torch_conv3x3_ab.py [--csrc NAME=DIR ...] [variants.json [case ...]]
 
@@ -35,6 +35,17 @@ of the main build's call into its kernels.  Prints the card line and one
 JSON line per case.  Case names after the variants file (``{}`` for none)
 keep only the cases named so or starting with one of them and "_", e.g.
 ``row1 row9b``.
+
+The rotated-IoU kernels (``neighbor.cu``, row 4, and ``pairs_iou.cu``, row
+5, built with ``-fmad=false``) run at chip_smoke.py's phase (b) inputs
+(``row4_*``: its seeded candidates at n = 1024 and 2048, uniform and
+clustered; ``row5``: the sparse form on the clustered n = 4096 candidates,
+each row's first 64 admissible neighbours).  Each build's outputs are held
+to the plain version (mismatch counts; max |IoU Δ|) and to the first
+build's (``same_as_main``, bit for bit), timed as whole calls (``ms``) and
+as the bare launches on prepared operands (``bare_ms``: the kernels alone,
+CUDA events), with the host's enqueue time of a call (``host_ms``) and a
+profiler split of every build's call into its kernels.
 """
 
 from __future__ import annotations
@@ -51,7 +62,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 SOURCES = ("stem_l1", "stem", "c3", "stem_train", "down", "down_train",
-           "train_fused_3x3", "train_fused_1x1")
+           "train_fused_3x3", "train_fused_1x1", "neighbor", "pairs_iou",
+           "riou_boxes")
 # case → (kind, ci, co or 1x1 structure or C3 depth, input side, stride)
 CASES = (("row1", "stem_l1", 48, 96, 1024, 2),
          ("row2", "c3", 96, 2, 256, 1),
@@ -79,6 +91,11 @@ CASES = (("row1", "stem_l1", 48, 96, 1024, 2),
          ("row10_bottleneck", "pass", 48, 48, 256, 1),
          ("row11_L1", "pass", 48, 96, 512, 2),
          ("row11_L3", "pass", 96, 192, 256, 2))
+# the rotated-IoU cases: (case, kernel, candidates per image, clustered)
+RIOU_CASES = (("row4_n1024", "neighbor", 1024, False),
+              ("row4_n2048", "neighbor", 2048, False),
+              ("row4_n2048_clustered", "neighbor", 2048, True),
+              ("row5", "pairs_iou", 4096, True))
 BATCH = 16
 # 1x1 structures beside chip_smoke's (ns, groups, outs, ci, output widths)
 X_1X1 = {"cv3_x": ((True,) * 6, ((0, 1, 2, 3, 4), (5,)),
@@ -102,16 +119,19 @@ def cuda_time(fn, iters=10, warmup=2):
 
 
 def _kernels():
-    """The tensor-core kernels' Kernel objects (their wrappers launch)."""
+    """The hand-written kernels' Kernel objects (their wrappers launch)."""
     from yolov5_obb_tpu_torch.ops.kernels import c3_kernel as C
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel as D
+    from yolov5_obb_tpu_torch.ops.kernels import iou
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
     from yolov5_obb_tpu_torch.ops.kernels import stem_kernel as S
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
     return [S.KERNEL, S.STEM_KERNEL, C.KERNEL, S.TRAIN_FWD_KERNEL,
             S.TRAIN_WGRAD_KERNEL, D.KERNEL,
             D.TRAIN_FWD_KERNEL, D.TRAIN_WGRAD_KERNEL, TF.KERNEL_1X1,
-            TF.KERNEL_1X1_BWD, TF.KERNEL_3X3S1, TF.KERNEL_3X3S2]
+            TF.KERNEL_1X1_BWD, TF.KERNEL_3X3S1, TF.KERNEL_3X3S2,
+            N.KERNEL, iou.KERNEL, iou.BOXES_KERNEL]
 
 
 def _includes(d, name):
@@ -162,6 +182,15 @@ def start_variant(name, subs):
         if changed & ({f"{src}.cu"} | _includes(d, f"{src}.cu"))}
 
 
+def _ptxas_summary(log):
+    regs = re.findall(r"Used (\d+) registers", log)
+    stack = sorted({int(b) for b in re.findall(r"(\d+) bytes stack frame",
+                                                log)})
+    spills = sorted({int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                 log)})
+    return f"registers {regs}, stack frame {stack}, spill stores {spills}"
+
+
 def finish_variant(name, started):
     """The variant's ``(entry points, libraries)``: ``(source, symbol) →
     ctypes function`` and ``source → CDLL`` (the main build's where the
@@ -172,11 +201,8 @@ def finish_variant(name, started):
     libs = {src: _build.library(src) for src in SOURCES if src not in procs}
     for src, proc in procs.items():
         log = proc.communicate()[0]
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = sorted({int(b) for b in re.findall(
-            r"(\d+) bytes spill stores", log)})
-        print(f"{name} {src}: nvcc {proc.returncode}, registers {regs}, "
-              f"spill stores {spills}", flush=True)
+        print(f"{name} {src}: nvcc {proc.returncode}, {_ptxas_summary(log)}",
+              flush=True)
         if proc.returncode:
             print(log, flush=True)
             return None
@@ -328,6 +354,127 @@ def _case(kind, ci, co, H, stride, gen, dev):
             lambda: TF.pass_3x3_fwd_plain(x, gb, wf, stride), conv)
 
 
+def _riou_inputs(kind, n, clustered, gen, dev):
+    """chip_smoke.py's phase (b) inputs: the seeded candidates, and for
+    row 5 each row's first 64 admissible neighbours."""
+    from chip_smoke import IOU, synthetic_candidates
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+
+    rb, cls, valid = synthetic_candidates(gen, n, clustered, dev)
+    if kind == "neighbor":
+        return rb, cls, valid
+    idx, _ = N.first_m_neighbors(N.edge_matrix(rb, cls, valid, IOU), 64)
+    return rb, idx
+
+
+def _riou_plain(kind, inp):
+    from chip_smoke import IOU
+    from yolov5_obb_tpu_torch.ops.kernels import iou
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+
+    if kind == "neighbor":
+        return lambda: N.fused_neighbor_iou_plain(*inp, IOU, 64)
+    return lambda: iou.sparse_rotated_iou_plain(*inp)
+
+
+def _riou_calls(kind, inp):
+    """``(call, bare)`` through the port's wrapper: ``call`` the wrapper,
+    ``bare`` its launches alone (the records, then the kernel) on operands
+    prepared once."""
+    import torch
+
+    from chip_smoke import IOU
+    from yolov5_obb_tpu_torch.ops.kernels import iou
+    from yolov5_obb_tpu_torch.ops.kernels import neighbor_kernel as N
+
+    rb = inp[0]
+    B, n, _ = rb.shape
+    rec = iou.box_records(rb, *inp[1:] if kind == "neighbor" else ())
+    if kind == "neighbor":
+        cls, valid = inp[1], inp[2]
+        idx = torch.empty(B, n, 64, dtype=torch.int32, device=rb.device)
+        sup = torch.empty(B, n, 64, dtype=torch.bool, device=rb.device)
+        pairs = torch.empty(B * n * 64 + 1, dtype=torch.int32, device=rb.device)
+
+        def bare():
+            iou.BOXES_KERNEL.launch(rb, cls, valid, B * n, rec)
+            N.KERNEL.launch(rec, B, n, 64, float(IOU * N.EDGE_SLACK),
+                            float(IOU), idx, sup, pairs)
+
+        return lambda: N.fused_neighbor_iou(*inp, IOU, 64), bare
+    out = torch.empty(inp[1].shape, device=rb.device)
+
+    def bare():
+        iou.BOXES_KERNEL.launch(rb, None, None, B * n, rec)
+        iou.KERNEL.launch(rec, None, inp[1], out, B, n, inp[1].shape[2])
+
+    return lambda: iou.sparse_rotated_iou(*inp), bare
+
+
+def run_riou_case(case, kind, n, clustered, builds, gen, dev):
+    """One rotated-IoU case over every build, in turns; returns its
+    result dict."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    inp = _riou_inputs(kind, n, clustered, gen, dev)
+    plain = _riou_plain(kind, inp)
+    want = plain()
+    calls = {}
+    for name, build in builds.items():
+        with bound_to(build):
+            calls[name] = _riou_calls(kind, inp)
+    res, first = {}, None
+    order = list(builds)
+    for name in order + order[::-1]:
+        call, bare = calls[name]
+        with bound_to(builds[name]):
+            got = call()
+            torch.cuda.synchronize()
+            first = got if first is None else first
+            r = res.setdefault(name, {
+                **_riou_errors(got, want), "same_as_main": _same(got, first),
+                "ms": [], "bare_ms": [], "host_ms": []})
+            r["ms"].append(cuda_time(call))
+            r["bare_ms"].append(cuda_time(bare))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(20):
+                call()
+            r["host_ms"].append((time.perf_counter() - t) / 20 * 1e3)
+            torch.cuda.synchronize()
+    for name in order:
+        call, _ = calls[name]
+        with bound_to(builds[name]):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+        res[name]["kernels_ms"] = {
+            e.key[:60]: e.self_device_time_total / 1e3 / 5
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+    res["plain_ms"] = cuda_time(plain, 2, 1)
+    return res
+
+
+def _riou_errors(got, want):
+    """Mismatch counts of the index and flag outputs, max |Δ| of the IoU."""
+    import torch
+
+    out = {}
+    for k, (g, w) in enumerate(zip(_flat(got), _flat(want))):
+        if g.dtype == torch.float32:
+            out["max_abs_err"] = float((g - w).abs().max())
+            out["decision_mismatches"] = int(((g > 0.45) != (w > 0.45)).sum())
+        else:
+            out[("nbr_idx", "sup_in")[k] + "_mismatches"] = int((g != w).sum())
+    return out
+
+
 def _flat(t):
     import torch
 
@@ -389,6 +536,10 @@ def main() -> int:
     from yolov5_obb_tpu_torch.ops.kernels import _build
 
     _build.build()  # the main build, then every variant's compiles at once
+    for src in ("riou_boxes", "neighbor", "pairs_iou"):
+        if src in _build.PTXAS_LOG:
+            print(f"main {src}: {_ptxas_summary(_build.PTXAS_LOG[src])}",
+                  flush=True)
     started = {name: start_variant(name, subs)
                for name, subs in variants.items()}
     builds = {"main": None}
@@ -434,6 +585,13 @@ def main() -> int:
             and e.self_device_time_total > 0}
         print(case, json.dumps(res), flush=True)
         del call, plain, library, want, got
+        torch.cuda.empty_cache()
+    for case, kind, n, clustered in RIOU_CASES:
+        if only and not any(case == o or case.startswith(o + "_")
+                            for o in only):
+            continue
+        print(case, json.dumps(run_riou_case(case, kind, n, clustered, builds,
+                                             gen, dev)), flush=True)
         torch.cuda.empty_cache()
     return 0
 

@@ -31,14 +31,16 @@ BUILD_DIR = PKG_DIR / "build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
           "-Xptxas", "-v"]
-# the rotated-IoU kernels (the neighbour kernel's edge test and IoU, the
-# pair IoU) keep the plain version's operation-by-operation rounding (no
-# fused multiply-adds), so their results match the plain PyTorch version bit
-# for bit on all but borderline pairs
-_EXTRA_FLAGS = {"neighbor": ["-fmad=false"], "pairs_iou": ["-fmad=false"]}
+# the rotated-IoU kernels (the per-box records, the neighbour kernel's edge
+# test and IoU, the pair IoU) keep the plain version's operation-by-operation
+# rounding (no fused multiply-adds), so their results match the plain
+# PyTorch version bit for bit on all but borderline pairs
+_EXTRA_FLAGS = {"neighbor": ["-fmad=false"], "pairs_iou": ["-fmad=false"],
+                "riou_boxes": ["-fmad=false"]}
 
 SOURCES = ("neighbor", "stem_l1", "down", "c3", "stem_train", "down_train",
-           "train_fused_1x1", "train_fused_3x3", "stem", "pairs_iou")
+           "train_fused_1x1", "train_fused_3x3", "stem", "pairs_iou",
+           "riou_boxes")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: dict[str, str] = {}

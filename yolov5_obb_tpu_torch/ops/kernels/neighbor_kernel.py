@@ -1,11 +1,15 @@
 """Rotated-NMS neighbour selection + exact pair IoU (kernel 1 of the path).
 
 Counterpart of ``yolov5_obb_tpu/ops/pallas/neighbor_kernel.fused_neighbor_iou``
-(neighbor_kernel.py:199).  On CUDA tensors :func:`fused_neighbor_iou` launches
-``csrc/neighbor.cu`` once for the whole batch; on CPU tensors it runs
+(neighbor_kernel.py:199).  On CUDA tensors :func:`fused_neighbor_iou`
+launches ``csrc/riou_boxes.cu`` (the per-box records: cover, area, class and
+valid bits for the scan, the half vectors for the IoU) and ``csrc/neighbor.cu``,
+once each for the whole batch; on CPU tensors it runs
 :func:`fused_neighbor_iou_plain`, the same function in plain PyTorch
 (the dense edge matrix, a first-M compaction and the pair IoU's plain
 version, :func:`~yolov5_obb_tpu_torch.ops.kernels.iou.sparse_rotated_iou_plain`).
+The records' cover and area are :func:`_edge_inputs`' bit for bit on the
+card (both round every operation; ``chip_smoke.py`` holds them equal).
 """
 
 from __future__ import annotations
@@ -14,10 +18,10 @@ import torch
 
 from ..geometry import hbb_cover
 from ._build import F, I, Kernel, P, check_cuda
-from .iou import sparse_rotated_iou_plain
+from .iou import box_records, check_int32, sparse_rotated_iou_plain
 
 KERNEL = Kernel(
-    "neighbor", "neighbor_iou_launch", [P, P, P, P, I, I, I, F, F, P, P],
+    "neighbor", "riou_neighbor_launch", [P, I, I, I, F, F, P, P, P],
     replaces="yolov5_obb_tpu/ops/pallas/neighbor_kernel.py:199")
 
 # the edge test's slack on the threshold: float rounding must never mask a
@@ -26,8 +30,9 @@ EDGE_SLACK = 0.98
 
 
 def _edge_inputs(boxes: torch.Tensor) -> torch.Tensor:
-    """``(B, n, 5)`` = cover x1 y1 x2 y2 and exact area ``l*s`` — computed
-    once here for both versions, so their edge tests see identical values."""
+    """``(B, n, 5)`` = cover x1 y1 x2 y2 and exact area ``l*s`` — the plain
+    version's, equal on the card to the records' (``rotated_iou.
+    record_cover_area``)."""
     return torch.cat([hbb_cover(boxes), (boxes[..., 2] * boxes[..., 3])[..., None]],
                      -1).contiguous()
 
@@ -97,18 +102,13 @@ def fused_neighbor_iou(boxes, class_ids, valid, iou_thr: float,
     B, n, five = boxes.shape
     if five != 5:
         raise ValueError(f"boxes: expected (B, n, 5), got {tuple(boxes.shape)}")
-    if class_ids is None:
-        class_ids = torch.zeros(B, n, dtype=torch.int32, device=boxes.device)
-    class_ids = class_ids.to(torch.int32).contiguous()
-    valid = valid.contiguous()
-    check_cuda("class_ids", class_ids, torch.int32, 2)
-    check_cuda("valid", valid, torch.bool, 2)
-    if class_ids.shape != (B, n) or valid.shape != (B, n):
-        raise ValueError("class_ids and valid must be (B, n)")
     M = max_neighbors
-    cov = _edge_inputs(boxes)
+    check_int32("neighbour slots", B * n * M + 1)
+    rec = box_records(boxes, class_ids, valid)
     nbr_idx = torch.empty(B, n, M, dtype=torch.int32, device=boxes.device)
     sup_in = torch.empty(B, n, M, dtype=torch.bool, device=boxes.device)
-    KERNEL.launch(boxes, cov, class_ids, valid, B, n, M,
-                  float(iou_thr * EDGE_SLACK), float(iou_thr), nbr_idx, sup_in)
+    # the scan's list of filled slots for the pair stage: a count, then slots
+    pairs = torch.empty(B * n * M + 1, dtype=torch.int32, device=boxes.device)
+    KERNEL.launch(rec, B, n, M, float(iou_thr * EDGE_SLACK), float(iou_thr),
+                  nbr_idx, sup_in, pairs)
     return nbr_idx, sup_in
