@@ -75,7 +75,21 @@ Phases, each fatal on failure:
       rows overflow M, kernel against plain; the stem-only kernel on yolov5m
       with PACKED_L1=0 (the PACKED_L1 A/B) and on yolov5s-ghost, layer 0
       held to one bf16 ulp of its plain version on every batch and the
-      detections to the plain path's.
+      detections to the plain path's;
+  (g) the train CLI (``yolov5_obb_tpu_torch.train.main`` with real argv) at
+      yolov5m, 1024², batch 16, bf16, nc 15, on a seeded mini-DOTA set of
+      48 images written to a temporary directory (PNGs through zlib and
+      struct, DOTA label files, a data.yaml) and replayed from the
+      ``--cache shards`` cache, which the port's ``write_shards`` builds
+      from an in-memory copy of the set (no OpenCV on the card): 2 stock
+      epochs (the train kernels' launches per step, finite loss items,
+      ``last/`` and ``best/`` with the model's anchors), ``--resume`` of
+      ``last/`` for a third epoch (the saved step, EMA count and learning
+      rate continue), one ``--fused-train`` epoch (its launches per
+      step), then ``best/`` through ``load_weights`` and ``evaluate`` on
+      phase (f)'s val set on the kernel path; img/s per epoch, the share
+      of wall time waiting on the loader, checkpoint save and load ms and
+      peak memory, measured through the CLI's callbacks.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -87,9 +101,13 @@ from __future__ import annotations
 import json
 import re
 import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -144,6 +162,9 @@ TRAIN_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
 FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s2": 2, "pass_1x1_fwd": 4, "pass_1x1_bwd": 4,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
+# the train CLI (phase g): seeded images, pre-augmented variants each, stock
+# epochs, the resumed epoch
+CLI_IMAGES, CLI_AUG_EPOCHS, CLI_EPOCHS = 48, 2, 2
 # the libraries holding tensor-core kernels → the substrings of those
 # kernels' names: the 3x3 conv body (csrc/conv3x3_mma.cuh), the stem+L1
 # kernel, the stem-only kernel and the train stem's forward
@@ -2178,7 +2199,378 @@ def val_path(dev, report, delta):
         "val_launches_per_evaluate": launches,
         "packed_l1_off": l1_off, "yolov5s_ghost": ghost,
     })
-    return {"pairs_iou": iou_launches, "stem": stem_a + stem_b}
+    return {"pairs_iou": iou_launches, "stem": stem_a + stem_b}, ds
+
+
+# ---------------------------------------------------------------------------
+# (g) the train CLI
+# ---------------------------------------------------------------------------
+
+
+def write_png(path, rgb) -> None:
+    """An RGB uint8 (H, W, 3) image as an 8-bit PNG, with the standard
+    library only (zlib + struct)."""
+    h, w, _ = rgb.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          np.ascontiguousarray(rgb).reshape(h, -1)], 1)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                  0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                     + chunk(b"IEND", b""))
+
+
+def write_seeded_dota(root, n, size, seed, names, max_boxes=40):
+    """A seeded DOTA-format set under ``root``: ``images/imNNN.png`` (a
+    blocky background with each box's cover filled), ``labelTxt/imNNN.txt``
+    (8 to ``max_boxes`` rotated boxes a tile, ``x1 y1 .. x4 y4 class 0``)
+    and ``data.yaml`` (train = val = images).  Returns the yaml's path and
+    the images, BGR as a decoder gives them."""
+    from yolov5_obb_tpu_torch.ops.geometry import rbox2poly
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "labelTxt").mkdir(exist_ok=True)
+    images = []
+    for k in range(n):
+        img = np.repeat(np.repeat(rng.integers(
+            40, 120, (size // 64, size // 64, 3), dtype=np.uint8), 64, 0),
+            64, 1)
+        m = int(rng.integers(8, max_boxes + 1))
+        rb = np.stack([rng.uniform(64, size - 64, m),
+                       rng.uniform(64, size - 64, m),
+                       rng.uniform(24, 160, m), rng.uniform(12, 60, m),
+                       rng.uniform(-np.pi / 2, np.pi / 2, m)], 1)
+        polys = rbox2poly(rb)
+        lines = []
+        for poly, c in zip(polys, rng.integers(0, len(names), m)):
+            x0, y0 = np.floor(poly.reshape(4, 2).min(0)).astype(int)
+            x1, y1 = np.ceil(poly.reshape(4, 2).max(0)).astype(int)
+            img[max(y0, 0):y1, max(x0, 0):x1] = rng.integers(140, 255, 3)
+            lines.append(" ".join(f"{v:.1f}" for v in poly)
+                         + f" {names[c]} 0")
+        write_png(root / "images" / f"im{k:03d}.png", img)
+        (root / "labelTxt" / f"im{k:03d}.txt").write_text("\n".join(lines))
+        images.append(np.ascontiguousarray(img[:, :, ::-1]))
+    data = root / "data.yaml"
+    data.write_text(f"path: {root}\ntrain: images\nval: images\n"
+                    f"nc: {len(names)}\nnames: {json.dumps(list(names))}\n")
+    return data, images
+
+
+def seeded_train_set(data, images, max_labels, hyp):
+    """The set of ``write_seeded_dota`` as the port's ``DotaDataset`` reads
+    it (label files parsed, ``_encode`` with ``hyp``'s CSL radius), its
+    images from memory instead of a decoder: un-augmented (``augment=False``:
+    the letterbox of an image already at ``img_size``), so its
+    ``get_train_sample`` runs on numpy alone."""
+    from yolov5_obb_tpu_torch.data.dota import DotaDataset
+    from yolov5_obb_tpu_torch.utils.general import load_dataset_config
+
+    d = load_dataset_config(data)
+
+    class SeededTrainSet(DotaDataset):
+        def load_image(self, i):
+            img = images[i]
+            return (img.copy(), self.polys[i].copy(), self.cls[i].copy(),
+                    img.shape[:2])
+
+    return SeededTrainSet(d["train"], d["names"], img_size=images[0].shape[0],
+                          hyp=hyp, augment=False, max_labels=max_labels)
+
+
+def cli_callbacks(log_epochs: list, profile_epochs: bool = False):
+    """Callbacks that time the CLI on the host's clock: per epoch the wall
+    time, the batches, the time spent waiting for each batch (from the
+    previous batch's end, or the epoch's start, to the next batch's
+    arrival; the first batch's wait apart: the loader's workers start),
+    the time in the train step (batch arrival to its end), the tail (the
+    last step's end to the epoch's end: the loss items' read syncs), the
+    ``last/`` and ``best/`` saves (from the fitness to ``on_model_save``,
+    from there to the next event), and the epoch's whole time, saves and
+    logging included (``total_s``: to the next epoch's start or the run's
+    end).  With ``profile_epochs`` each epoch's loop runs under
+    ``torch.profiler``: its device time by group (``_GROUPS``) and the
+    device's idle share of that loop's own wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolov5_obb_tpu_torch.utils.callbacks import Callbacks
+
+    cb, t = Callbacks(), {}
+
+    def now():
+        return time.perf_counter()
+
+    def close_save():
+        if "after_save" in t:
+            log_epochs[-1]["best_save_ms"] = (now() - t.pop("after_save")) * 1e3
+        if "epoch" in t:
+            e = log_epochs[-1]
+            e["total_s"] = (now() - t.pop("epoch")
+                            - e.get("profile", {}).get("host_s", 0.0))
+
+    def epoch_start(*a, **k):
+        close_save()
+        if profile_epochs:
+            t["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            t["prof"].start()
+        t["mark"] = t["epoch"] = now()
+        t.update(wait=0.0, first=None, step=0.0, n=0)
+
+    def batch_start(*a, **k):
+        t["arrived"] = now()
+        w = t["arrived"] - t["mark"]
+        t["wait"] += w
+        t["first"] = w if t["first"] is None else t["first"]
+
+    def batch_end(*a, **k):
+        t["n"] += 1
+        t["mark"] = now()
+        t["step"] += t["mark"] - t["arrived"]
+
+    def epoch_end(epoch=None, **k):
+        torch.cuda.synchronize()
+        end = now()
+        wall = end - t["epoch"]
+        e = {"epoch": epoch, "batches": t["n"], "wall_s": wall,
+             "loader_wait_s": t["wait"], "loader_wait_share": t["wait"] / wall,
+             "first_batch_wait_s": t["first"], "step_host_s": t["step"],
+             "tail_s": end - t["mark"]}
+        if profile_epochs:
+            t["prof"].stop()
+            rows = [(ev.key, ev.self_device_time_total / 1e3)
+                    for ev in t.pop("prof").key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and ev.self_device_time_total > 0]
+            groups = {g: 0.0 for g, _ in _GROUPS}
+            groups["other"] = 0.0
+            for name, ms in rows:
+                groups[_group(name)] += ms
+            device_ms = sum(ms for _, ms in rows)
+            e["profile"] = {"device_ms": device_ms, "by_group_ms": groups,
+                            "idle_share": 1.0 - device_ms / 1e3 / wall,
+                            "idle_share_after_first_batch":
+                                1.0 - device_ms / 1e3 / (wall - t["first"]),
+                            # the trace's own processing, left out of the
+                            # epoch's and the run's times
+                            "host_s": now() - end}
+        log_epochs.append(e)
+
+    def fit_end(*a, **k):
+        t["fit"] = now()
+
+    def model_save(*a, **k):
+        log_epochs[-1]["last_save_ms"] = (now() - t.pop("fit")) * 1e3
+        t["after_save"] = now()
+
+    for hook, fn in (("on_train_epoch_start", epoch_start),
+                     ("on_train_batch_start", batch_start),
+                     ("on_train_batch_end", batch_end),
+                     ("on_train_epoch_end", epoch_end),
+                     ("on_fit_epoch_end", fit_end),
+                     ("on_model_save", model_save),
+                     ("on_train_end", lambda *a, **k: close_save())):
+        cb.register_action(hook, "chip_smoke", fn)
+    return cb
+
+
+def cli_run(argv, expected, batch, profile_epochs=False):
+    """One ``train.run`` of ``argv`` on the card: its save directory, the
+    run's img/s (every image over the whole call's wall time, less the
+    profiler's processing of its traces), the
+    per-epoch timings (``cli_callbacks``; an epoch's img/s over its whole
+    time, saves included, and its loop's img/s over the batches alone),
+    peak memory, and the train kernels' launches (every count set to 0
+    just before), which must be ``expected`` per step."""
+    import torch
+
+    from yolov5_obb_tpu_torch import train
+
+    kernels = {n: k for n, k in _named_kernels().items() if n in expected}
+    epochs = []
+    cb = cli_callbacks(epochs, profile_epochs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in _named_kernels().values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    save_dir, _, _ = train.run(train.parse_opt(argv), callbacks=cb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - sum(
+        e.get("profile", {}).get("host_s", 0.0) for e in epochs)
+    launches = {n: k.launches for n, k in kernels.items()}
+    steps = sum(e["batches"] for e in epochs)
+    for e in epochs:
+        e["imgs_per_s"] = e["batches"] * batch / e["total_s"]
+        e["loop_imgs_per_s"] = e["batches"] * batch / e["wall_s"]
+    require(steps > 0 and all(launches[n] == steps * per
+                              for n, per in expected.items()),
+            f"train CLI launches {launches} over {steps} steps, expected per "
+            f"step {expected}")
+    return save_dir, {"epochs": epochs, "steps": steps, "run_s": wall,
+                      "imgs_per_s": steps * batch / wall,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": launches}
+
+
+def _csv_rows(path):
+    lines = path.read_text().splitlines()
+    keys = lines[0].split(",")
+    return [dict(zip(keys, map(float, ln.split(",")))) for ln in lines[1:]]
+
+
+def train_cli_path(dev, report, val_set):
+    """Phase (g): the train CLI at yolov5m 1024² b16 bf16 on the card."""
+    import torch
+
+    from yolov5_obb_tpu_torch.data.shards import write_shards
+    from yolov5_obb_tpu_torch.engine.evaluator import evaluate
+    from yolov5_obb_tpu_torch.engine.optim import make_schedules
+    from yolov5_obb_tpu_torch.models.yolo import build_model, create_model
+    from yolov5_obb_tpu_torch.utils.checkpoint import (
+        load_weights,
+        restore_model_meta,
+    )
+    from yolov5_obb_tpu_torch.utils.general import load_hyp
+
+    names = [f"c{i}" for i in range(15)]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        t0 = time.perf_counter()
+        data, images = write_seeded_dota(tmp / "dota", CLI_IMAGES, IMGSZ, 11,
+                                         names)
+        hyp = load_hyp()
+        shards = write_shards(seeded_train_set(data, images, MAX_LABELS, hyp),
+                              tmp / "shards", aug_epochs=CLI_AUG_EPOCHS,
+                              seed=0, verbose=False)
+        del images
+        proj = tmp / "runs"
+        for name in ("stock", "fused"):
+            (proj / name / "cache").mkdir(parents=True)
+            (proj / name / "cache" / "shards").symlink_to(shards)
+        setup_s = time.perf_counter() - t0
+        log(f"train CLI set-up (set written, shards packed) {setup_s:.1f}s")
+        argv = ["--cfg", "yolov5m.yaml", "--data", str(data), "--imgsz",
+                str(IMGSZ), "--batch-size", str(BATCH), "--nominal-batch",
+                str(BATCH), "--max-labels", str(MAX_LABELS), "--cache",
+                "shards", "--workers", "2", "--noval", "--noautoanchor",
+                "--device", "cuda", "--exist-ok", "--project", str(proj)]
+        total = {}
+
+        def add(launches):
+            for n, v in launches.items():
+                total[n] = total.get(n, 0) + v
+
+        # two stock epochs
+        run, stock = cli_run(argv + ["--epochs", str(CLI_EPOCHS), "--name",
+                                     "stock"], TRAIN_LAUNCHES, BATCH)
+        add(stock["launches"])
+        rows = _csv_rows(run / "results.csv")
+        losses = [[r[k] for k in r if k.startswith("train/")] for r in rows]
+        log(f"train CLI stock epochs: loss items {losses}; {stock}")
+        require(len(rows) == CLI_EPOCHS and np.isfinite(losses).all()
+                and np.asarray(losses).max() > 0,
+                f"train CLI loss items {losses}")
+        _, want_meta, _ = build_model("yolov5m.yaml", nc=15)
+        for sub in ("last", "best"):
+            m = json.loads((run / sub / "meta.json").read_text())
+            require((run / sub / "state.pt").is_file()
+                    and np.array_equal(m["anchors"], want_meta.anchors_px),
+                    f"{sub}/: missing or with other anchors than the model's")
+        saved = torch.load(run / "last" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        steps0 = stock["steps"]
+        require(saved["step"] == saved["ema_updates"] == steps0
+                and saved["opt_state"]["count"] == steps0,
+                f"last/ counters {saved['step']}, {saved['ema_updates']}, "
+                f"{saved['opt_state']['count']} after {steps0} steps")
+        del saved
+
+        # --resume of last/ for a third epoch, its loop under the profiler
+        run_r, resumed = cli_run(argv + [
+            "--epochs", str(CLI_EPOCHS + 1), "--name", "stock", "--resume",
+            str(run / "last")], TRAIN_LAUNCHES, BATCH, profile_epochs=True)
+        add(resumed["launches"])
+        rows = _csv_rows(run_r / "results.csv")
+        after = torch.load(run_r / "last" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        n = steps0 + resumed["steps"]
+        lr = make_schedules(hyp, CLI_EPOCHS + 1, CLI_IMAGES // BATCH)[0](n)
+        resume = {"epochs_run": [e["epoch"] for e in resumed["epochs"]],
+                  "csv_epochs": [int(r["epoch"]) for r in rows],
+                  "step": after["step"], "ema_updates": after["ema_updates"],
+                  "count": after["opt_state"]["count"],
+                  "lr_logged": rows[-1]["x/lr0"], "lr_at_step": lr}
+        log(f"train CLI resume: {resume}; {resumed}")
+        require(run_r == run and resume["epochs_run"] == [CLI_EPOCHS]
+                and resume["csv_epochs"] == list(range(CLI_EPOCHS + 1))
+                and after["step"] == after["ema_updates"] == n
+                and after["opt_state"]["count"] == n
+                and abs(rows[-1]["x/lr0"] - lr) <= 1e-6
+                and np.isfinite([rows[-1][k] for k in rows[-1]]).all(),
+                f"resume did not continue the saved run: {resume}")
+        del after
+
+        # one --fused-train epoch
+        _, fused = cli_run(argv + ["--epochs", "1", "--name", "fused",
+                                   "--fused-train"], FUSED_LAUNCHES, BATCH)
+        add(fused["launches"])
+        log(f"train CLI fused epoch: {fused}")
+
+        # best/ through load_weights, evaluate on phase (f)'s val set
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sd, ckpt_meta = load_weights(run / "best")
+        load_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        full = torch.load(run / "last" / "state.pt", map_location="cpu",
+                          weights_only=True)
+        load_full_ms = (time.perf_counter() - t) * 1e3
+        del full
+        model, meta = create_model("yolov5m.yaml", nc=15,
+                                   dtype=torch.bfloat16, device=dev,
+                                   packed_stem=True)
+        model.load_state_dict(sd)
+        restore_model_meta(meta, ckpt_meta)
+        kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+        for k in kernels.values():
+            k.launches = 0
+        res = evaluate(model, meta, val_set, batch_size=BATCH,
+                       conf_thres=VAL_CONF, iou_thres=VAL_IOU,
+                       max_det=MAX_DET)
+        torch.cuda.synchronize()
+        ev_launches = {n: k.launches for n, k in kernels.items()}
+        add(ev_launches)
+        dets = res["detections"]
+        finite = all(np.isfinite(d["polys"]).all()
+                     and np.isfinite(d["conf"]).all() for d in dets)
+        metrics = {k: res[k] for k in ("mp", "mr", "map50", "map")}
+        log(f"best/ evaluated: {metrics}, dets/img "
+            f"{np.mean([len(d['conf']) for d in dets]):.1f}, launches "
+            f"{ev_launches}")
+        require(all(v > 0 for v in ev_launches.values())
+                and len(dets) == len(val_set) and finite
+                and all(np.isfinite(v) for v in metrics.values()),
+                f"best/ evaluate: launches {ev_launches}, finite {finite}, "
+                f"metrics {metrics}")
+        del model
+        report["train_cli"] = {
+            "setup_s": setup_s, "stock": stock, "resume": resume,
+            "resumed": resumed, "fused": fused,
+            "best_load_ms": load_ms, "last_load_ms": load_full_ms,
+            "best_eval_metrics": metrics,
+            "best_eval_ms_per_img": res["speed_ms_per_img"],
+            "best_eval_launches": ev_launches}
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 INFER = ("stem_l1", "c3", "down", "riou_boxes", "neighbor")
@@ -2279,20 +2671,30 @@ def main() -> int:
                                       if k not in ("bound",)}))
         require(res["ok"], f"{name} disagrees with its plain version")
 
-    # (c) the inference path
+    # (c) the inference path; each phase's launches add to the count
     report = {}
-    launches = main_path(dev, report)
+    launches = {}
+
+    def add(phase):
+        for n, v in phase.items():
+            launches[n] = launches.get(n, 0) + v
+
+    add(main_path(dev, report))
     results["neighbor"][1]["cases"]["main_path"] = \
         report["neighbor_main_path_case"]
     torch.cuda.empty_cache()
     # (d) the train path
-    launches.update(train_path(dev, report))
+    add(train_path(dev, report))
     torch.cuda.empty_cache()
     # (e) the fused train path
-    launches.update(train_path(dev, report, fused=True))
+    add(train_path(dev, report, fused=True))
     torch.cuda.empty_cache()
     # (f) the val path
-    launches.update(val_path(dev, report, report["obj_delta"]))
+    val_launches, val_set = val_path(dev, report, report["obj_delta"])
+    add(val_launches)
+    torch.cuda.empty_cache()
+    # (g) the train CLI
+    add(train_cli_path(dev, report, val_set))
     log("main path: " + json.dumps(report))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "
@@ -2301,6 +2703,25 @@ def main() -> int:
             f"{report[pre + 'profile']['idle_share']:.3f}")
     log("fused / stock train img/s: "
         f"{report['fused_train_imgs_per_s'] / report['train_imgs_per_s']:.4f}")
+    cli = report["train_cli"]
+    log("train CLI resumed epoch under the profiler: "
+        + json.dumps(cli["resumed"]["epochs"][0]["profile"]))
+    for what in ("stock", "resumed", "fused"):
+        r = cli[what]
+        log(f"train CLI {what}: img/s over the run {r['imgs_per_s']:.2f} "
+            f"({r['run_s']:.2f} s); per epoch, saves included "
+            f"{[round(e['imgs_per_s'], 2) for e in r['epochs']]}, its loop "
+            f"alone {[round(e['loop_imgs_per_s'], 2) for e in r['epochs']]}"
+            f", first batch wait s "
+            f"{[round(e['first_batch_wait_s'], 3) for e in r['epochs']]}, loader "
+            f"wait share {[round(e['loader_wait_share'], 4) for e in r['epochs']]}"
+            f", last/best save ms "
+            f"{[(round(e.get('last_save_ms', 0), 1), round(e.get('best_save_ms', 0), 1)) for e in r['epochs']]}"
+            f", peak {r['peak_mem_gib']:.2f} GiB; step img/s "
+            f"{report['fused_train_imgs_per_s' if what == 'fused' else 'train_imgs_per_s']:.2f} "
+            f"(phase {'e' if what == 'fused' else 'd'}) on {card}")
+    log(f"train CLI checkpoint load ms: best/ {cli['best_load_ms']:.1f}, "
+        f"last/ {cli['last_load_ms']:.1f} on {card}")
 
     kernels = []
     for name, (kern, res) in results.items():

@@ -651,3 +651,36 @@ def test_pass_3x3_pads_after_the_activation(dev, stride, H, W, ci, co):
     zp, sp = TF.pass_3x3_fwd_plain(z, gb, w, stride)
     assert _ulp(zk, zp)
     assert (sk - sp).abs().max() <= 1e-4 * sp.abs().max()
+
+
+def test_train_cli_shards_epoch(dev, tmp_path):
+    """The train CLI on the card: one epoch of yolov5n at 256² from the
+    ``--cache shards`` cache (written by the port's ``write_shards`` from
+    chip_smoke's seeded set, no OpenCV), the stem train kernels launched
+    once a step, finite loss items, ``last/`` and ``best/`` written."""
+    import chip_smoke as C
+    from yolov5_obb_tpu_torch import train
+    from yolov5_obb_tpu_torch.data.shards import write_shards
+    from yolov5_obb_tpu_torch.utils.general import load_hyp
+
+    data, images = C.write_seeded_dota(tmp_path / "dota", 8, 256, 2,
+                                       [f"c{i}" for i in range(15)],
+                                       max_boxes=12)
+    write_shards(C.seeded_train_set(data, images, 32, load_hyp()),
+                 tmp_path / "runs" / "x" / "cache" / "shards", aug_epochs=1,
+                 verbose=False)
+    kernels = (stem_kernel.TRAIN_FWD_KERNEL, stem_kernel.TRAIN_WGRAD_KERNEL)
+    before = [k.launches for k in kernels]
+    run, _, _ = train.main([
+        "--cfg", "yolov5n.yaml", "--data", str(data), "--imgsz", "256",
+        "--batch-size", "4", "--nominal-batch", "4", "--epochs", "1",
+        "--max-labels", "32", "--cache", "shards", "--workers", "0",
+        "--noval", "--noautoanchor", "--device", "cuda", "--project",
+        str(tmp_path / "runs"), "--name", "x", "--exist-ok"])
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2]
+    rows = (run / "results.csv").read_text().splitlines()
+    assert len(rows) == 2
+    assert np.isfinite([float(v) for v in rows[1].split(",")]).all()
+    assert (run / "last" / "state.pt").is_file()
+    assert (run / "best" / "state.pt").is_file()

@@ -20,7 +20,7 @@ from yolov5_obb_tpu.utils.checkpoint import restore_model_meta
 from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
 from yolov5_obb_tpu_torch.models.yolo import create_model, load_config
 from yolov5_obb_tpu_torch.ops.rotated_nms import decode_planes
-from yolov5_obb_tpu_torch.val import load_state_dict
+from yolov5_obb_tpu_torch.utils.checkpoint import load_state_dict
 
 ROOT = Path(__file__).resolve().parents[1]
 

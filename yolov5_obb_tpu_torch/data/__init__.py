@@ -1,2 +1,4 @@
-"""The eval half of the DOTA data layer (``dota.py``, ``augment.py``) and
-the bundled hyperparameter set (``configs/``)."""
+"""The data layer: DOTA parsing and samples (``dota.py``), augmentations
+(``augment.py``), batching (``loader.py``), the pre-augmented shard cache
+(``shards.py``), sampling weights (``tools.py``) and the bundled
+hyperparameter set (``configs/``)."""

@@ -3,7 +3,8 @@
 Counterpart of ``yolov5_obb_tpu/engine/trainer.py`` (``TrainState`` :24,
 ``create_train_state`` :33, ``make_train_step`` :75).  The parameters and the
 BatchNorm statistics live in the model; the state holds the optimizer
-state, the EMA of the parameters and the counters.  The step runs eagerly
+state, the EMA of the parameters and the counters, and gives and takes its
+tensors for the checkpoint (``utils/checkpoint.py``).  The step runs eagerly
 on the model's device and updates everything in place.
 """
 
@@ -27,6 +28,44 @@ class TrainState:
     ema: dict
     ema_updates: int = 0
     step: int = 0
+
+    _LISTS = ("acc", "trace", "mu", "nu")
+
+    def state_dict(self) -> dict:
+        """The state as plain tensors, lists and ints (no copies)."""
+        o = self.opt_state
+        return {"ema": dict(self.ema), "ema_updates": int(self.ema_updates),
+                "step": int(self.step),
+                "opt_state": {"count": int(o.count),
+                              "mini_step": int(o.mini_step),
+                              **{k: list(getattr(o, k)) for k in self._LISTS}}}
+
+    def ema_state_dict(self, model) -> dict:
+        """``model``'s ``state_dict`` with the EMA in place of its
+        parameters: the BatchNorm buffers are the live ones, as the JAX
+        package evaluates and saves ``ema_params`` with ``batch_stats``."""
+        return {**model.state_dict(), **self.ema}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: dict) -> None:
+        """Copy a :meth:`state_dict` (of the same model and optimizer) into
+        this state's tensors, on their devices."""
+        if d["ema"].keys() != self.ema.keys():
+            raise KeyError("the checkpoint's EMA names differ from the "
+                           "model's")
+        for k, v in d["ema"].items():
+            self.ema[k].copy_(v)
+        o, so = self.opt_state, d["opt_state"]
+        for k in self._LISTS:
+            mine, theirs = getattr(o, k), so[k]
+            if len(mine) != len(theirs):
+                raise ValueError(f"optimizer state {k!r}: {len(theirs)} "
+                                 f"tensors saved, {len(mine)} expected "
+                                 "(another optimizer?)")
+            for a, b in zip(mine, theirs):
+                a.copy_(b)
+        o.count, o.mini_step = int(so["count"]), int(so["mini_step"])
+        self.step, self.ema_updates = int(d["step"]), int(d["ema_updates"])
 
 
 def create_train_state(optimizer: Optimizer) -> TrainState:

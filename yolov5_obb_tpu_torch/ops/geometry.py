@@ -119,10 +119,25 @@ def poly2hbb(polys):
                      x_max - x_min, y_max - y_min], axis=-1)
 
 
+def poly_filter(polys, h, w):
+    """Keep-mask of the polys whose HBB centre lies strictly inside
+    ``(0, w) x (0, h)`` (JAX geometry.py:162)."""
+    x, y = polys[..., 0::2], polys[..., 1::2]
+    xc = (x.min(axis=-1) + x.max(axis=-1)) / 2
+    yc = (y.min(axis=-1) + y.max(axis=-1)) / 2
+    return (xc > 0) & (xc < w) & (yc > 0) & (yc < h)
+
+
 def xywh2xyxy(x):
     x = np.asarray(x)
     half = x[..., 2:4] / 2
     return np.concatenate([x[..., 0:2] - half, x[..., 0:2] + half], axis=-1)
+
+
+def xyxy2xywh(x):
+    x = np.asarray(x)
+    return np.concatenate([(x[..., 0:2] + x[..., 2:4]) / 2,
+                           x[..., 2:4] - x[..., 0:2]], axis=-1)
 
 
 def clip_polys(polys, h, w):

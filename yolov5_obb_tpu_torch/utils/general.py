@@ -1,8 +1,8 @@
 """Config, hyperparameter and path helpers.
 
 Counterparts of ``yolov5_obb_tpu/utils/general.py`` ``load_yaml`` (:13),
-``load_hyp`` (:18), ``load_dataset_config`` (:26), ``increment_path`` (:43)
-and ``scale_hyp_gains`` (:76).  The default hyp file is the port's own copy
+``load_hyp`` (:18), ``load_dataset_config`` (:26), ``increment_path`` (:43),
+``init_seeds`` (:57), ``colorstr`` (:64) and ``scale_hyp_gains`` (:76).  The default hyp file is the port's own copy
 of the DOTA finetune set (``data/configs/hyp_finetune_dota.yaml``).
 """
 
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from pathlib import Path
 
+import numpy as np
+import torch
 import yaml
 
 DEFAULT_HYP_NAME = "hyp_finetune_dota.yaml"
@@ -58,6 +60,29 @@ def increment_path(path, exist_ok=False, mkdir=True) -> Path:
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+def init_seeds(seed: int = 0) -> None:
+    """Seed Python's ``random``, numpy's global generator and torch's (the
+    JAX package seeds the first two; its weights take an explicit key)."""
+    import random
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def colorstr(*args) -> str:
+    """ANSI colour helper (reference general.py:481-504): ``colorstr("red",
+    "bold", "text")``; one argument is blue and bold."""
+    *prefix, string = args if len(args) > 1 else ("blue", "bold", args[0])
+    colors = {
+        "black": "\033[30m", "red": "\033[31m", "green": "\033[32m",
+        "yellow": "\033[33m", "blue": "\033[34m", "magenta": "\033[35m",
+        "cyan": "\033[36m", "white": "\033[37m", "bold": "\033[1m",
+        "end": "\033[0m",
+    }
+    return "".join(colors[p] for p in prefix) + str(string) + colors["end"]
 
 
 def scale_hyp_gains(hyp: dict, nl: int, nc: int, imgsz: int) -> dict:

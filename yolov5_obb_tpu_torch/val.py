@@ -7,9 +7,11 @@
 Counterpart of the JAX package's ``val.py``.  Runs on the card unless
 ``--device cpu``; on the card in bfloat16 the model takes the packed uint8
 image and its stem kernels (as ``val.py`` builds packed-stem models in bf16 on
-the accelerator).  ``--weights`` is empty (random weights from ``--seed``) or
-a state-dict ``.pt`` in the reference model's names (the file
-``tools/import_torch_weights.py --sd`` reads).  The default IoU threshold is
+the accelerator).  ``--weights`` is empty (random weights from ``--seed``), a
+checkpoint directory of the port (``utils/checkpoint.py``: the train CLI's
+``best``/``last``, or ``tools/jax_ckpt_to_torch.py``'s output; its anchors
+come with it) or a state-dict ``.pt`` in the reference model's names (the
+file ``tools/import_torch_weights.py --sd`` reads).  The default IoU threshold is
 0.4, and 0.45 for ``--task speed`` (the reference's speed regime, with conf
 0.25).  Not ported yet: ``--task study``, TTA (``--augment``), ensembles and
 exported artifacts as ``--weights``, ``--mesh``, ``--coco-eval`` and the
@@ -21,13 +23,13 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from .data.dota import DotaDataset
 from .engine.evaluator import evaluate, save_dota_task1
 from .models.yolo import create_model
 from .ops.geometry import poly2hbb
+from .utils.checkpoint import STATE, load_model_weights
 from .utils.fuse import fuse_conv_bn
 from .utils.general import increment_path, load_dataset_config
 
@@ -35,8 +37,8 @@ from .utils.general import increment_path, load_dataset_config
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(prog="python -m yolov5_obb_tpu_torch.val")
     p.add_argument("--weights", type=str, default="",
-                   help="state-dict .pt (reference names); empty: random "
-                        "weights from --seed")
+                   help="checkpoint directory or state-dict .pt (reference "
+                        "names); empty: random weights from --seed")
     p.add_argument("--cfg", type=str, default="yolov5n.yaml")
     p.add_argument("--data", type=str, required=True)
     p.add_argument("--task", type=str, default="val",
@@ -77,37 +79,6 @@ def parse_opt(argv=None):
     return p.parse_args(argv)
 
 
-def load_state_dict(model, path, meta) -> None:
-    """A torch-saved state dict (or module) in the reference model's names
-    → ``model``; keys outside the port model are ignored, a missing one
-    raises.  The Detect ``anchors`` buffer (the reference keeps it divided
-    by the stride, so autoanchor's evolved anchors travel with the weights)
-    replaces ``meta.anchors_px`` where its shape matches, as the JAX
-    package's checkpoint restore does; without one the config's anchors
-    stay."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if hasattr(obj, "state_dict"):
-        obj = obj.state_dict()
-    sd = {}
-    for k, v in obj.items():
-        k = k[len("module."):] if k.startswith("module.") else k
-        sd[k if k.startswith("model.") else f"model.{k}"] = v
-    own = model.state_dict()
-    missing = [k for k in own if k not in sd
-               and not k.endswith("num_batches_tracked")]
-    if missing:
-        raise KeyError(f"{len(missing)} keys absent from {path}, e.g. "
-                       f"{missing[:5]}: wrong --cfg for these weights?")
-    model.load_state_dict({k: sd[k] if k in sd else own[k] for k in own})
-    det = next(i for i, s in enumerate(model.specs) if s.name == "Detect")
-    grid = sd.get(f"model.{det}.anchors")
-    if grid is not None:
-        stride = np.asarray(meta.strides, np.float32)[:, None, None]
-        px = grid.float().numpy() * stride
-        if px.shape == np.shape(meta.anchors_px):
-            meta.anchors_px = px
-
-
 def _refuse_unported(opt) -> None:
     if opt.task == "study":
         raise NotImplementedError("--task study is not ported "
@@ -119,11 +90,16 @@ def _refuse_unported(opt) -> None:
         if getattr(opt, flag):
             raise NotImplementedError(f"{what} is not ported "
                                       f"(ROADMAP.md queue 1 item {item})")
-    if opt.weights and ("," in opt.weights or not opt.weights.endswith(".pt")):
+    w = Path(opt.weights)
+    if opt.weights and "," not in opt.weights and not w.exists():
+        raise FileNotFoundError(f"--weights {opt.weights}: no such file or "
+                                "directory")
+    if opt.weights and ("," in opt.weights or not (
+            (w.suffix == ".pt" and w.is_file()) or (w / STATE).is_file())):
         raise NotImplementedError(
-            "--weights takes one state-dict .pt; ensembles and exported "
-            "artifacts are not ported (ROADMAP.md queue 1 items 6 and 9), "
-            "checkpoints wait for utils/checkpoint (item 7)")
+            "--weights takes one checkpoint directory or state-dict .pt; "
+            "ensembles and exported artifacts are not ported (ROADMAP.md "
+            "queue 1 items 6 and 9)")
 
 
 def run(opt):
@@ -148,7 +124,7 @@ def run(opt):
     model, meta = create_model(opt.cfg, nc=nc, dtype=dtype, device=device,
                                seed=opt.seed, packed_stem=packed)
     if opt.weights:
-        load_state_dict(model, opt.weights, meta)
+        load_model_weights(model, meta, opt.weights)
     if not opt.no_fuse:
         fuse_conv_bn(model)
 
