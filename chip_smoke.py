@@ -54,7 +54,11 @@ Phases, each fatal on failure:
       steps reading the loss every 4; train img/s, peak memory, a CUDA-event
       breakdown of one step, the train kernels' launches per step (stem 1+1,
       downsample 2+2), and loss and gradients against the same step on the
-      plain versions;
+      plain versions; then the bn-half A/B: all of that again from the
+      same weights under YOLO_BN_HALF=1 (``--bn-half``), its plain step
+      under the flag too, its img/s and device time by group beside the
+      float32 step's, its first step's loss items each within 5e-3 of the
+      float32 step's loss and not all equal to them;
   (b") the fused train passes (1x1 forward and backward at the four 1x1
       structures of the C3 region, 3x3 s1 at the bottleneck, 3x3 s2 at
       down1 and down2) against their plain versions at the region's shapes,
@@ -89,7 +93,24 @@ Phases, each fatal on failure:
       step), then ``best/`` through ``load_weights`` and ``evaluate`` on
       phase (f)'s val set on the kernel path; img/s per epoch, the share
       of wall time waiting on the loader, checkpoint save and load ms and
-      peak memory, measured through the CLI's callbacks.
+      peak memory, measured through the CLI's callbacks;
+  (h) the DOTA flow: four seeded raw images at DOTA-v1.0 sizes (4000²,
+      4000x3000, 3000x2000, 1900x1500; noise with filled boxes, ~40 objects
+      a megapixel over the 15 DOTA-v1.0 classes, boxes across tile corners
+      whose clips keep 6 points) split in memory into 63 tiles of 1024² at
+      gap 200 (devkit/img_split, no OpenCV; the NumPy minimum-area
+      rectangle must run); the oracle round trip (tile labels → Task1 →
+      polygon-NMS merge → OBB mAP > 0.95 and mAOE < 5° against the unsplit
+      labels); phase (c)'s density-tuned model through ``evaluate`` on the
+      tiles in the val regime with ``save_json``, then json_to_task1, the
+      8-worker merge, ``evaluate_task1`` and ``evaluate_maoe``, kernel run
+      against plain run (merged counts within 1%, at most 1% of the merged
+      detections without a same-class counterpart at polygon IoU > 0.99;
+      rows 1-4 launched); ``evaluate`` alone in turns (kernel, plain,
+      kernel, plain); the merge with 1 worker writing the same text, the
+      native and NumPy polygon NMS keeping the same rows on the largest
+      class file (the NumPy run capped to the top NUMPY_NMS_ROWS rows; the
+      native library must load); each step timed.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -1737,9 +1758,32 @@ def region_times(model, image, gen):
             for i, part in enumerate(("forward", "forward_backward"))}
 
 
-def train_path(dev, report, fused=False):
+def train_path(dev, report, fused=False, bn_half=False):
     """Phase (d), or with ``fused`` phase (e): the train step of a
-    ``fused_train`` model."""
+    ``fused_train`` model.  ``bn_half``: phase (d)'s A/B, the stock step
+    under YOLO_BN_HALF=1 (the train CLI's ``--bn-half``) from the same
+    seed-0 weights and batches, with every check of phase (d), its plain
+    step under the flag too; reported under ``bn_half_``.  The default
+    stays float32 whatever it shows."""
+    import os
+
+    if not bn_half:
+        return _train_path(dev, report, fused, "fused_train_" if fused
+                           else "train_")
+    old = os.environ.get("YOLO_BN_HALF")
+    os.environ["YOLO_BN_HALF"] = "1"
+    try:
+        launches = _train_path(dev, report, False, "bn_half_")
+    finally:
+        if old is None:
+            os.environ.pop("YOLO_BN_HALF", None)
+        else:
+            os.environ["YOLO_BN_HALF"] = old
+    bn_half_report(report)
+    return launches
+
+
+def _train_path(dev, report, fused, pre):
     import torch
 
     from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
@@ -1751,7 +1795,6 @@ def train_path(dev, report, fused=False):
     from yolov5_obb_tpu_torch.models.yolo import create_model
     from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
 
-    pre = "fused_train_" if fused else "train_"
     expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
     t0 = time.perf_counter()
     model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
@@ -1780,8 +1823,11 @@ def train_path(dev, report, fused=False):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(2):  # warm-up
-        float(step(state, *batches[i])["loss"])
+    for i in range(2):  # warm-up; the first step's items for the A/B
+        m = step(state, *batches[i])
+        if i == 0:
+            first_items = m["items"].float().tolist()
+        float(m["loss"])
     kernels = {n: k for n, k in _named_kernels().items() if n in expected}
     for k in kernels.values():
         k.launches = 0
@@ -1823,10 +1869,47 @@ def train_path(dev, report, fused=False):
         f"{pre}launches_per_step": {n: v / TRAIN_ITERS
                                     for n, v in launches.items()},
         f"{pre}vs_plain": cmp, f"{pre}profile": prof,
+        f"{pre}first_items": first_items,
         **({f"{pre}vs_stock": stock, "layers_0_3_ms": region}
            if fused else {}),
     })
     return {n: v for n, v in launches.items() if v}
+
+
+def bn_half_report(report):
+    """Phase (d)'s bn-half A/B from the two runs' reports: img/s over the
+    same timed steps, device time by group of one profiled step, and the
+    first step's loss items, each within 5e-3 of the float32 step's loss
+    (their sum; the small items' own relative noise is larger), as
+    tests/test_bn_half.py holds the JAX bn-half loss, and not all equal to
+    the float32 items (a flag read but without effect would give those)."""
+    f32, items = report["train_first_items"], report["bn_half_first_items"]
+    rel = [abs(a - b) / sum(f32) for a, b in zip(items, f32)]
+    prof, f32_prof = report["bn_half_profile"], report["train_profile"]
+    ab = {"imgs_per_s": report["bn_half_imgs_per_s"],
+          "f32_imgs_per_s": report["train_imgs_per_s"],
+          "step_ms": report["bn_half_step_ms"],
+          "peak_mem_gib": report["bn_half_peak_mem_gib"],
+          "first_items": items, "f32_first_items": f32, "items_rel": rel,
+          "device_ms": prof["device_ms"],
+          "elementwise_ms": prof["by_group_ms"]["elementwise"],
+          "f32_device_ms": f32_prof["device_ms"],
+          "f32_elementwise_ms": f32_prof["by_group_ms"]["elementwise"],
+          "by_group_ms": prof["by_group_ms"], "idle_share": prof["idle_share"]}
+    log(f"bn-half A/B (stock step, yolov5m b16 1024²): {ab['imgs_per_s']:.2f} "
+        f"img/s against float32 BN {ab['f32_imgs_per_s']:.2f}; device "
+        f"{ab['device_ms']:.2f} ms a step (elementwise "
+        f"{ab['elementwise_ms']:.2f}) against {ab['f32_device_ms']:.2f} "
+        f"({ab['f32_elementwise_ms']:.2f}); first-step loss items "
+        f"{[round(v, 6) for v in items]} against "
+        f"{[round(v, 6) for v in f32]} (|Δ| over the float32 loss "
+        f"{[f'{v:.2e}' for v in rel]})"
+        f"; peak {ab['peak_mem_gib']:.2f} GiB on {card_line()}")
+    require(max(rel) <= 5e-3,
+            f"bn-half first-step loss items off the float32 step's: {ab}")
+    require(items != f32,
+            f"bn-half first-step loss items equal the float32 step's: {ab}")
+    report["bn_half_ab"] = ab
 
 
 # ---------------------------------------------------------------------------
@@ -2573,6 +2656,410 @@ def train_cli_path(dev, report, val_set):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# (h) the DOTA flow: split → evaluate → merge → OBB mAP
+# ---------------------------------------------------------------------------
+
+# raw images at DOTA-v1.0 sizes (W, H): 25 + 20 + 12 + 6 = 63 tiles of
+# 1024² at gap 200; objects a megapixel; the polygon-NMS threshold; the
+# top-scored rows of the largest class file that the NumPy NMS runs on (it
+# is quadratic in the rows: on the H100 machine's host 4485 rows took
+# 4.48 s, 11534 rows 35.79 s)
+RAW_SIZES = ((4000, 4000), (4000, 3000), (3000, 2000), (1900, 1500))
+SUBSIZE, GAP, OBJ_PER_MP, MERGE_NMS = 1024, 200, 40, 0.2
+NUMPY_NMS_ROWS = 4000
+
+
+def _fill_polys(img, polys, colors) -> None:
+    """Fill convex quads ``(n, 8)`` into ``img`` (H, W, 3) in place: each
+    pixel centre inside all four edges of a quad takes its colour (NumPy;
+    no OpenCV on the card)."""
+    h, w = img.shape[:2]
+    for poly, c in zip(polys, colors):
+        p = poly.reshape(4, 2)
+        x0, y0 = np.maximum(np.floor(p.min(0)).astype(int), 0)
+        x1, y1 = np.minimum(np.ceil(p.max(0)).astype(int) + 1, (w, h))
+        if x1 <= x0 or y1 <= y0:
+            continue
+        yy, xx = np.mgrid[y0:y1, x0:x1] + 0.5
+        side = [(p[(k + 1) % 4, 0] - p[k, 0]) * (yy - p[k, 1])
+                - (p[(k + 1) % 4, 1] - p[k, 1]) * (xx - p[k, 0])
+                for k in range(4)]
+        inside = np.all([s >= 0 for s in side], 0) | np.all(
+            [s <= 0 for s in side], 0)
+        img[y0:y1, x0:x1][inside] = c
+
+
+def dota_raw_set(root, sizes, names, seed=0):
+    """Seeded raw DOTA images (uniform noise, filled boxes) and their
+    ``labelTxt/<stem>.txt``: about OBJ_PER_MP objects a megapixel over
+    ``names``, long edges 10-180 px and a diagonal under the gap (so every
+    object lies whole in some tile), some marked difficult; beside each
+    inner window corner a box along the corner's diagonal that both window
+    edges cut, so that its clip keeps 6 points.  Returns ``{stem: image}``
+    (RGB)."""
+    from yolov5_obb_tpu_torch.devkit.img_split import _tile_origins
+    from yolov5_obb_tpu_torch.ops.geometry import rbox2poly
+
+    rng = np.random.default_rng(seed)
+    (root / "labelTxt").mkdir(parents=True, exist_ok=True)
+    images = {}
+    for k, (w, h) in enumerate(sizes):
+        stem = f"P{k:04d}"
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        n = int(OBJ_PER_MP * w * h / 1e6)
+        l = rng.uniform(10, 180, n)
+        s = np.minimum(l * rng.uniform(0.2, 1.0, n),
+                       np.sqrt(np.maximum((GAP - 2) ** 2 - l ** 2, 1.0)))
+        half = np.sqrt(l ** 2 + s ** 2) / 2 + 1
+        rb = [np.stack([rng.uniform(half, w - half), rng.uniform(half, h - half),
+                        l, s, rng.uniform(-np.pi / 2, np.pi / 2, n)], 1)]
+        # corner boxes: bottom-right corners of the windows but the last
+        slide = SUBSIZE - GAP
+        xs = [o + SUBSIZE for o in _tile_origins(w, SUBSIZE, slide)[:-1]]
+        ys = [o + SUBSIZE for o in _tile_origins(h, SUBSIZE, slide)[:-1]]
+        for cx in xs:
+            for cy in ys:
+                lc = rng.uniform(140, 170)
+                d = lc / 2 ** 1.5 + rng.uniform(-3, 3)
+                rb.append(np.array([[cx - d, cy - d, lc, rng.uniform(30, 40),
+                                     np.pi / 4 + rng.uniform(-0.05, 0.05)]]))
+        polys = rbox2poly(np.concatenate(rb))
+        _fill_polys(img, polys, rng.integers(0, 256, (len(polys), 3)))
+        cls = rng.integers(0, len(names), len(polys))
+        diff = (rng.uniform(size=len(polys)) < 0.05).astype(int)
+        (root / "labelTxt" / f"{stem}.txt").write_text("\n".join(
+            " ".join(f"{v:.1f}" for v in p) + f" {names[c]} {d}"
+            for p, c, d in zip(polys, cls, diff)) + "\n")
+        images[stem] = img
+    return images
+
+
+def tile_set(tiles, label_dir, names):
+    """The split's tiles in memory as phase (f)'s eval dataset, each named
+    by its tile name, its labels (difficult 2 dropped) as ``[cls cx cy l s
+    theta]`` in its pixels."""
+    from yolov5_obb_tpu_torch.ops.geometry import poly2rbox
+
+    labels = []
+    for name, _ in tiles:
+        rows = [l.split() for l in
+                (label_dir / f"{name}.txt").read_text().splitlines()]
+        rows = [r for r in rows if r[9] != "2"]
+        polys = np.array([[float(v) for v in r[:8]] for r in rows],
+                         np.float64).reshape(-1, 8)
+        cls = np.array([names.index(r[8]) for r in rows], np.float32)
+        labels.append(np.concatenate([cls[:, None], poly2rbox(polys)],
+                                     1).astype(np.float32))
+    require(max(len(t) for t in labels) <= VAL_LABELS,
+            f"more than {VAL_LABELS} labels on a tile")
+    ds = SeededValSet(np.stack([t for _, t in tiles]), labels, names)
+    ds.img_files = [f"{name}.png" for name, _ in tiles]
+    return ds
+
+
+def _rows(path):
+    return [l for l in Path(path).read_text().splitlines() if l]
+
+
+def _merged_unmatched(dir_a, dir_b, names) -> tuple[int, int]:
+    """Merged Task1 rows of ``dir_a`` with no row of the same class and
+    image in ``dir_b`` at polygon IoU above 0.99, and the rows of
+    ``dir_a``."""
+    from yolov5_obb_tpu_torch.native import poly_overlaps_native
+
+    unmatched = total = 0
+    for c in names:
+        def by_image(d):
+            out = {}
+            for r in _rows(Path(d) / f"Task1_{c}.txt"):
+                p = r.split()
+                out.setdefault(p[0], []).append([float(v) for v in p[2:10]])
+            return out
+        a, b = by_image(dir_a), by_image(dir_b)
+        for img, pa in a.items():
+            total += len(pa)
+            if img not in b:
+                unmatched += len(pa)
+                continue
+            iou = poly_overlaps_native(np.array(pa), np.array(b[img]))
+            unmatched += int((iou.max(1) <= 0.99).sum())
+    return unmatched, total
+
+
+def _model_flow(tag, model, meta, ds, raw_labels, ids, names, out, plain):
+    """``evaluate`` (val regime, save_json) on the tiles, then
+    json_to_task1, the 8-worker merge and the OBB mAP and mAOE against
+    the unsplit labels; each step timed."""
+    import torch
+
+    from yolov5_obb_tpu_torch.devkit.converters import json_to_task1
+    from yolov5_obb_tpu_torch.devkit.evaluate import (
+        evaluate_maoe,
+        evaluate_task1,
+    )
+    from yolov5_obb_tpu_torch.devkit.result_merge import merge_by_poly_nms
+    from yolov5_obb_tpu_torch.engine.evaluator import evaluate
+
+    r = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = evaluate(model, meta, ds, batch_size=BATCH, conf_thres=VAL_CONF,
+                   iou_thres=VAL_IOU, max_det=MAX_DET, plain=plain,
+                   save_json=str(out / f"{tag}.json"))
+    torch.cuda.synchronize()
+    r["evaluate_ms_per_tile"] = (time.perf_counter() - t) * 1e3 / len(ds)
+    r["evaluate_loop_ms_per_tile"] = res["speed_ms_per_img"]
+    r["dets_per_tile"] = float(np.mean([len(d["conf"])
+                                        for d in res["detections"]]))
+    t = time.perf_counter()
+    raw = json_to_task1(out / f"{tag}.json", out / f"{tag}_raw", names)
+    r["json_to_task1_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    merge_by_poly_nms(raw, out / f"{tag}_merged", MERGE_NMS, num_workers=8)
+    r["merge_8_workers_s"] = time.perf_counter() - t
+    merged = sum(len(_rows(f)) for f in (out / f"{tag}_merged").iterdir())
+    r["merged_dets"] = merged
+    r["dets_per_raw_image"] = merged / len(ids)
+    t = time.perf_counter()
+    r["map"], _ = evaluate_task1(out / f"{tag}_merged", raw_labels, ids,
+                                 names)
+    r["evaluate_task1_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r["maoe"], _ = evaluate_maoe(out / f"{tag}_merged", raw_labels, ids,
+                                 names)
+    r["maoe_s"] = time.perf_counter() - t
+    return r
+
+
+def _nms_native_vs_numpy(raw_dir, names):
+    """The class file with the most rows, its largest image: the native
+    and NumPy polygon NMS's keep lists on the same rows (the top
+    NUMPY_NMS_ROWS by score), and both times."""
+    from yolov5_obb_tpu_torch.devkit.result_merge import (
+        poly_nms_np,
+        read_task1_by_image,
+    )
+    from yolov5_obb_tpu_torch.native import poly_nms_native
+
+    cls = max(names, key=lambda c: len(_rows(raw_dir / f"Task1_{c}.txt")))
+    by_image = read_task1_by_image(raw_dir / f"Task1_{cls}.txt")
+    stem, dets = max(by_image.items(), key=lambda kv: len(kv[1]))
+    scores = np.array([d[0] for d in dets])
+    polys = np.stack([d[1] for d in dets])
+    t = time.perf_counter()
+    poly_nms_native(polys, scores, MERGE_NMS)
+    native_all_ms = (time.perf_counter() - t) * 1e3
+    order = np.argsort(-scores, kind="stable")
+    cap = min(len(order), NUMPY_NMS_ROWS)
+    sub = order[:cap]
+    t = time.perf_counter()
+    keep_np = poly_nms_np(polys[sub], scores[sub], MERGE_NMS,
+                          use_native=False)
+    numpy_s = time.perf_counter() - t
+    t = time.perf_counter()
+    keep_nat = poly_nms_native(polys[sub], scores[sub], MERGE_NMS)
+    native_ms = (time.perf_counter() - t) * 1e3
+    return {"class": cls, "image": stem, "rows": len(order), "cap": cap,
+            "kept": len(keep_nat), "same_keep": keep_np == keep_nat,
+            "numpy_s": numpy_s, "native_ms_capped": native_ms,
+            "native_ms_all_rows": native_all_ms}
+
+
+def dota_flow(dev, report, delta, cfg="yolov5m.yaml", sizes=RAW_SIZES):
+    """Phase (h): seeded raw DOTA images → the split in memory → the
+    oracle round trip (tile labels → Task1 → merge → mAP, mAOE) → phase
+    (c)'s density-tuned model through ``evaluate`` on the tiles, kernel
+    and plain runs, each through json_to_task1, the merge and the OBB
+    mAP; the merge's worker count and NMS path checked."""
+    import resource
+
+    import torch
+
+    from yolov5_obb_tpu_torch import native
+    from yolov5_obb_tpu_torch.data.dota import DOTA_V1_NAMES
+    from yolov5_obb_tpu_torch.devkit import img_split
+    from yolov5_obb_tpu_torch.devkit.converters import groundtruth_to_task1
+    from yolov5_obb_tpu_torch.devkit.evaluate import (
+        evaluate_maoe,
+        evaluate_task1,
+    )
+    from yolov5_obb_tpu_torch.devkit.result_merge import merge_by_poly_nms
+    from yolov5_obb_tpu_torch.engine.evaluator import evaluate, make_predict_fn
+
+    names = list(DOTA_V1_NAMES)
+    t_phase = time.perf_counter()
+    lib = native.get_lib()
+    require(lib is not None,
+            f"the native polygon library did not load: {native.BUILD_ERROR}")
+    log(f"polygon IoU/NMS: native C++ {native.so_path().name} (g++ "
+        f"{' '.join(native.FLAGS)})")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dota_"))
+    r = {"raw_sizes": [list(s) for s in sizes]}
+    try:
+        t = time.perf_counter()
+        raw = dota_raw_set(tmp / "raw", sizes, names)
+        r["raw_set_s"] = time.perf_counter() - t
+        ids = sorted(raw)
+        labels = tmp / "raw" / "labelTxt"
+        # 1. the split, in memory (no cv2): tiles and their label files
+        tile_labels = tmp / "split" / "labelTxt"
+        tile_labels.mkdir(parents=True)
+        # count the clips that take the NumPy minimum-area rectangle
+        rects, min_area_rect = [], img_split._min_area_rect
+        img_split._min_area_rect = lambda p: (rects.append(len(p)),
+                                              min_area_rect(p))[1]
+        tiles, split_ms = [], []
+        try:
+            for stem in ids:
+                t = time.perf_counter()
+                objs = img_split.read_split_objects(labels / f"{stem}.txt")
+                for name, tile, lines in img_split.split_image_array(
+                        raw[stem], objs, stem, 1.0, SUBSIZE, GAP):
+                    img_split.write_tile_labels(tile_labels / f"{name}.txt",
+                                                lines)
+                    tiles.append((name, np.ascontiguousarray(tile)))
+                split_ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            img_split._min_area_rect = min_area_rect
+        want = sum(len(img_split._tile_origins(h, SUBSIZE, SUBSIZE - GAP))
+                   * len(img_split._tile_origins(w, SUBSIZE, SUBSIZE - GAP))
+                   for w, h in sizes)
+        require(len(tiles) == want and all(
+            t.shape == (SUBSIZE, SUBSIZE, 3) for _, t in tiles),
+            f"split: {len(tiles)} tiles, expected {want} of {SUBSIZE}²")
+        r["tiles"] = len(tiles)
+        r["split_ms_per_raw_image"] = split_ms
+        r["min_area_rects"] = len(rects)
+        r["min_area_rects_6_plus"] = sum(n >= 6 for n in rects)
+        require(r["min_area_rects_6_plus"] > 0,
+                "no clip of 6 or more points went through the NumPy "
+                "minimum-area rectangle")
+        log(f"split: {len(tiles)} tiles from {len(ids)} raw images "
+            f"{[list(s) for s in sizes]}, ms per raw image "
+            f"{[round(v, 1) for v in split_ms]}, {r['min_area_rects']} "
+            f"minimum-area rectangles ({r['min_area_rects_6_plus']} of "
+            f"clips of 6 or more points)")
+
+        # 2. the oracle round trip: the tile labels as detections
+        t = time.perf_counter()
+        gt_raw = groundtruth_to_task1(tile_labels, tmp / "gt_raw", names,
+                                      skip_difficult2=True)
+        merge_by_poly_nms(gt_raw, tmp / "gt_merged", MERGE_NMS,
+                          num_workers=8)
+        r["oracle_map"], _ = evaluate_task1(tmp / "gt_merged", labels, ids,
+                                            names)
+        r["oracle_maoe"], _ = evaluate_maoe(tmp / "gt_merged", labels, ids,
+                                            names)
+        r["oracle_s"] = time.perf_counter() - t
+        log(f"oracle round trip: mAP {r['oracle_map']:.4f}, mAOE "
+            f"{r['oracle_maoe']:.3f}° ({r['oracle_s']:.2f} s)")
+        require(r["oracle_map"] > 0.95 and r["oracle_maoe"] < 5.0,
+                f"oracle round trip: mAP {r['oracle_map']}, mAOE "
+                f"{r['oracle_maoe']}")
+
+        # 3. the model on the tiles, kernel and plain runs
+        model, meta, set_obj = density_model(dev, cfg)
+        set_obj(delta)
+        ds = tile_set(tiles, tile_labels, names)
+        kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        r["kernel"] = _model_flow("kernel", model, meta, ds, labels, ids,
+                                  names, tmp, plain=False)
+        launches = {n: k.launches for n, k in kernels.items()}
+        r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        require(all(v > 0 for v in launches.values()),
+                f"DOTA flow: kernel not launched: {launches}")
+        r["plain"] = _model_flow("plain", model, meta, ds, labels, ids,
+                                 names, tmp, plain=True)
+        # the predict calls alone on the tiles' batches
+        predict = make_predict_fn(model, meta, VAL_CONF, VAL_IOU, MAX_DET,
+                                  max_candidates=VAL_MAXC)
+        xs = []
+        for i in range(0, len(tiles), BATCH):
+            b = [t for _, t in tiles[i:i + BATCH]]
+            b += [b[-1]] * (BATCH - len(b))
+            xs.append(torch.from_numpy(np.stack(b)).to(dev).reshape(
+                BATCH, SUBSIZE, -1))
+        predict(xs[0])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for x in xs:
+            predict(x)[1].cpu()
+        r["predict_ms_per_tile"] = ((time.perf_counter() - t) * 1e3
+                                    / (len(xs) * BATCH))
+        # evaluate alone in turns (no JSON): kernel, plain, kernel, plain
+        turns = []
+        for plain in (False, True, False, True):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            evaluate(model, meta, ds, batch_size=BATCH, conf_thres=VAL_CONF,
+                     iou_thres=VAL_IOU, max_det=MAX_DET, plain=plain)
+            torch.cuda.synchronize()
+            turns.append((time.perf_counter() - t) * 1e3 / len(ds))
+        r["evaluate_turns_ms_per_tile"] = turns
+        kc, pc = r["kernel"]["merged_dets"], r["plain"]["merged_dets"]
+        require(abs(kc - pc) <= 0.01 * pc,
+                f"merged detections: kernel {kc}, plain {pc}")
+        un_k, tot_k = _merged_unmatched(tmp / "kernel_merged",
+                                        tmp / "plain_merged", names)
+        un_p, tot_p = _merged_unmatched(tmp / "plain_merged",
+                                        tmp / "kernel_merged", names)
+        r["merged_unmatched"] = [un_k, tot_k, un_p, tot_p]
+        log(f"merged detections without a same-class counterpart at IoU > "
+            f"0.99: kernel {un_k} of {tot_k}, plain {un_p} of {tot_p}")
+        require(un_k <= 0.01 * tot_k and un_p <= 0.01 * tot_p,
+                f"merged detections unmatched: {r['merged_unmatched']}")
+
+        # 4. the merge: 1 worker writes the 8 workers' text; native and
+        # NumPy NMS keep the same rows
+        t = time.perf_counter()
+        merge_by_poly_nms(tmp / "kernel_raw", tmp / "kernel_merged_1",
+                          MERGE_NMS, num_workers=1)
+        r["merge_1_worker_s"] = time.perf_counter() - t
+        for f in sorted((tmp / "kernel_merged").iterdir()):
+            require(f.read_text() == (tmp / "kernel_merged_1"
+                                      / f.name).read_text(),
+                    f"merge: 8 and 1 workers wrote different {f.name}")
+        r["nms"] = _nms_native_vs_numpy(tmp / "kernel_raw", names)
+        require(r["nms"]["same_keep"],
+                f"native and NumPy polygon NMS keep different rows: "
+                f"{r['nms']}")
+        r["host_peak_rss_gib"] = (resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2**20)
+        r["phase_s"] = time.perf_counter() - t_phase
+        k, p = r["kernel"], r["plain"]
+        log(f"DOTA flow: evaluate {k['evaluate_ms_per_tile']:.2f} ms/tile "
+            f"(plain {p['evaluate_ms_per_tile']:.2f}; without the JSON in "
+            f"turns kernel, plain, kernel, plain "
+            f"{[round(v, 2) for v in r['evaluate_turns_ms_per_tile']]}), predict "
+            f"{r['predict_ms_per_tile']:.2f} ms/tile; detections "
+            f"{k['dets_per_tile']:.1f} a tile before the merge, "
+            f"{k['dets_per_raw_image']:.1f} a raw image after it (plain "
+            f"{p['dets_per_tile']:.1f}, {p['dets_per_raw_image']:.1f}); "
+            f"json_to_task1 {k['json_to_task1_s']:.3f} s; merge "
+            f"{k['merge_8_workers_s']:.3f} s (8 workers), "
+            f"{r['merge_1_worker_s']:.3f} s (1 worker); polygon NMS on "
+            f"{r['nms']['class']} in {r['nms']['image']} "
+            f"({r['nms']['rows']} rows): native "
+            f"{r['nms']['native_ms_all_rows']:.1f} ms, NumPy "
+            f"{r['nms']['numpy_s']:.2f} s on the top {r['nms']['cap']} "
+            f"rows (native {r['nms']['native_ms_capped']:.1f} ms on "
+            f"them); evaluate_task1 {k['evaluate_task1_s']:.2f} s, mAOE "
+            f"{k['maoe_s']:.2f} s; peak {r['peak_mem_gib']:.2f} GiB on the "
+            f"card, host RSS {r['host_peak_rss_gib']:.2f} GiB; mAP / mAOE: "
+            f"oracle {r['oracle_map']:.4f} / {r['oracle_maoe']:.3f}°, "
+            f"kernel {k['map']:.4f} / {k['maoe']:.3f}°, plain "
+            f"{p['map']:.4f} / {p['maoe']:.3f}°; phase {r['phase_s']:.1f} s "
+            f"on {card_line()}")
+        report["dota_flow"] = r
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 INFER = ("stem_l1", "c3", "down", "riou_boxes", "neighbor")
 
 
@@ -2683,8 +3170,10 @@ def main() -> int:
     results["neighbor"][1]["cases"]["main_path"] = \
         report["neighbor_main_path_case"]
     torch.cuda.empty_cache()
-    # (d) the train path
+    # (d) the train path, and its bn-half A/B
     add(train_path(dev, report))
+    torch.cuda.empty_cache()
+    add(train_path(dev, report, bn_half=True))
     torch.cuda.empty_cache()
     # (e) the fused train path
     add(train_path(dev, report, fused=True))
@@ -2695,6 +3184,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # (g) the train CLI
     add(train_cli_path(dev, report, val_set))
+    torch.cuda.empty_cache()
+    # (h) the DOTA flow
+    add(dota_flow(dev, report, report["obj_delta"]))
     log("main path: " + json.dumps(report))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "

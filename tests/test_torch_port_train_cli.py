@@ -243,9 +243,9 @@ def test_val_cli_names_a_missing_weights_path(cli):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--bn-half"], 3), (["--remat"], 7), (["--evolve", "2"], 7),
+    (["--remat"], 7), (["--evolve", "2"], 7),
     (["--weights", "wandb-artifact://e/p/m:best"], 9)],
-    ids=["bn_half", "remat", "evolve", "wandb_artifact"])
+    ids=["remat", "evolve", "wandb_artifact"])
 def test_refused_flags_name_their_roadmap_item(cli, argv, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item}"):

@@ -383,3 +383,43 @@ def test_val_cli_writes_the_same_files_as_jax(val_setup, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_val.main(["--data", str(vs.data), "--device", "cpu",
                        "--augment"])
+
+
+def test_val_cli_coco_eval_matches_jax(val_setup, tmp_path):
+    """``--coco-eval`` (with ``--save-json``): the COCO bbox metrics of the
+    saved predictions against the split's labels, the JAX val.py's
+    ``res["coco"]`` on the same weights; without ``--save-json`` the port
+    refuses the flag instead of skipping it."""
+    import val as jax_val
+    from yolov5_obb_tpu.utils.checkpoint import save_weights
+    from yolov5_obb_tpu_torch import val as port_val
+
+    vs = val_setup
+    save_weights(tmp_path / "w", vs.v["params"], vs.v["batch_stats"],
+                 {"cfg": "yolov5n.yaml"})
+    port, _ = create_model("yolov5n.yaml", nc=15, device="cpu")
+    torch.save(from_jax_variables(vs.v, port.specs), tmp_path / "w.pt")
+    want = jax_val.run(types.SimpleNamespace(
+        cfg="yolov5n.yaml", data=str(vs.data), task="val", imgsz=S,
+        batch_size=2, conf_thres=0.01, iou_thres=0.4, max_det=300,
+        max_images=None, save_json=True, save_txt=False, save_conf=False,
+        save_task1=False, rect_pad=0.0, single_cls=False, dtype="float32",
+        no_fuse=False, project=str(tmp_path), exist_ok=True,
+        weights=str(tmp_path / "w"), name="jax", augment=False,
+        no_plots=True, coco_eval=True, mesh=0, hyp=None))["coco"]
+    argv = ["--weights", str(tmp_path / "w.pt"), "--data", str(vs.data),
+            "--imgsz", str(S), "--batch-size", "2", "--max-det", "300",
+            "--device", "cpu", "--project", str(tmp_path), "--name", "port",
+            "--exist-ok", "--coco-eval"]
+    got = port_val.main(argv + ["--save-json"])["coco"]
+    assert got.keys() == want.keys()
+    for k in ("map", "map50", "map75"):
+        assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
+    assert got["per_class"].keys() == want["per_class"].keys()
+    for k, v in want["per_class"].items():
+        assert abs(got["per_class"][k] - v) <= 1e-6, k
+    assert got["map50"] > 0.1
+    assert json.loads((tmp_path / "port" / "gt_coco.json").read_text()) == \
+        json.loads((tmp_path / "jax" / "gt_coco.json").read_text())
+    with pytest.raises(ValueError, match="--save-json"):
+        port_val.main(argv)

@@ -10,7 +10,9 @@ NCHW for ``F.conv2d`` (no copy).  Convs compute in the activation dtype,
 BatchNorm and SiLU in float32, BN eps 1e-3.  In eval mode BatchNorm uses its
 running statistics; in train mode (``module.train()``) it normalises with
 the batch statistics and updates the running ones as flax does (see
-:func:`batch_norm_train`).
+:func:`batch_norm_train`).  ``YOLO_BN_HALF=1`` (the train CLI's
+``--bn-half``) casts the train-mode normalised values to bfloat16 and runs
+SiLU in bfloat16 (:func:`bn_dtype`).
 
 Every module takes ``(x, plain=False)``; ``plain`` sends a kernel-bearing
 layer to its kernel's plain PyTorch version on any device.
@@ -87,16 +89,38 @@ def batch_norm_train(bn: nn.BatchNorm2d, z):
     return (zf - mean) * (torch.rsqrt(var + BN_EPS) * bn.weight) + bn.bias
 
 
+def bn_dtype() -> torch.dtype:
+    """The dtype of the train-mode BatchNorm output and its SiLU: bfloat16
+    under ``YOLO_BN_HALF=1`` (the train CLI's ``--bn-half``), else float32
+    (JAX ``layers._bn_dtype``; eval mode stays float32).  As flax's
+    ``BatchNorm(dtype=bfloat16)`` does, the statistics, the normalisation,
+    scale and shift stay float32 and only their result is cast; the running
+    statistics stay float32."""
+    if os.environ.get("YOLO_BN_HALF") == "1":
+        return torch.bfloat16
+    return torch.float32
+
+
+def silu(y):
+    """SiLU in ``y``'s dtype.  In bfloat16 it is the JAX graph's op
+    sequence ``y · (1 / (1 + exp(-y)))``, each op rounded to bfloat16 (a
+    fused sigmoid rounds once and differs in ~28% of the elements by one
+    ulp, which compounds over the layers)."""
+    if y.dtype == torch.bfloat16:
+        return y * (1 / (1 + torch.exp(-y)))
+    return y * torch.sigmoid(y)
+
+
 def _bn_act(m, z, dtype):
     """BatchNorm (batch statistics in train mode, running ones in eval) +
-    SiLU in float32 → ``dtype``."""
+    SiLU in :func:`bn_dtype` → ``dtype``."""
     bn = m.bn
     if m.training:
-        y = batch_norm_train(bn, z)
+        y = batch_norm_train(bn, z).to(bn_dtype())
     else:
         mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
         y = (z.float() - bn.running_mean) * mul + bn.bias
-    y = y * torch.sigmoid(y) if m.act else y
+    y = silu(y) if m.act else y
     return y.to(dtype)
 
 

@@ -343,12 +343,15 @@ class YoloModel(nn.Module):
         # down2
         zd2, std2 = TF.pass_3x3s2(z3, gb3, taps(m3), plain)
         gbo = fin(std2, m3, npix(zd2))
-        # hand-off to layer 4: BN+SiLU in float32, cast to the model dtype
-        h = zd2.float() * gbo[0] + gbo[1]
+        # hand-off to layer 4: BN+SiLU in float32 (bfloat16 under
+        # YOLO_BN_HALF=1, its operands cast first, JAX yolo.py:427-429),
+        # cast to the model dtype
+        bd = L.bn_dtype()
+        h = zd2.to(bd) * gbo[0].to(bd) + gbo[1].to(bd)
         with torch.no_grad():
             for bn, mean, var in updates:
                 _bn_update(bn, mean, var)
-        return (h * torch.sigmoid(h)).to(self.dtype)
+        return L.silu(h).to(self.dtype)
 
     def forward(self, x, plain: bool = False):
         """Image batch → list of flat Detect maps ``(B, n_l, no)``."""

@@ -25,10 +25,12 @@ dtype.  A machine without OpenCV trains from the pre-augmented shard cache
 As in the JAX CLI, ``--weights`` gives the parameters and BatchNorm
 buffers alone (the config's anchors stay until autoanchor runs; ``--resume``
 restores a checkpoint's anchors), and the logged ``x/lr0`` is the learning
-rate at the micro-step count.  Not ported (each raises
-``NotImplementedError``): ``--bn-half`` (ROADMAP.md queue 1 item 3),
-``--remat`` and more than one process (item 7), ``--evolve`` (item 7); the
-label, batch and results plots wait for item 6.
+rate at the micro-step count.  ``--bn-half`` sets ``YOLO_BN_HALF=1``
+(train-mode BN output and SiLU in bfloat16, ``models/layers.bn_dtype``);
+the default is off, as in the JAX CLI off the TPU.  Not ported (each raises
+``NotImplementedError``): ``--remat`` and more than one process (ROADMAP.md
+queue 1 item 7), ``--evolve`` (item 7); the label, batch and results plots
+wait for item 6.
 """
 
 from __future__ import annotations
@@ -141,10 +143,12 @@ def parse_opt(args=None):
     p.add_argument("--project", type=str, default="runs/train")
     p.add_argument("--name", type=str, default="exp")
     p.add_argument("--exist-ok", action="store_true")
-    # not ported: each raises NotImplementedError when asked for
     p.add_argument("--bn-half", dest="bn_half", default=None,
-                   action="store_true")
+                   action="store_true",
+                   help="train-mode BN output and SiLU in bfloat16 "
+                        "(YOLO_BN_HALF=1; statistics stay float32)")
     p.add_argument("--no-bn-half", dest="bn_half", action="store_false")
+    # not ported: each raises NotImplementedError when asked for
     p.add_argument("--remat", nargs="?", const="full", default="",
                    choices=["", "full", "selective"])
     p.add_argument("--evolve", type=int, default=0)
@@ -152,8 +156,7 @@ def parse_opt(args=None):
 
 
 def _refuse_unported(opt) -> None:
-    for flag, what, item in (("bn_half", "--bn-half", 3),
-                             ("remat", "--remat", 7),
+    for flag, what, item in (("remat", "--remat", 7),
                              ("evolve", "--evolve", 7)):
         if getattr(opt, flag):
             raise NotImplementedError(f"{what} is not ported "
@@ -225,6 +228,10 @@ def run(opt, callbacks=None):
     if packed is None:
         packed = device.type == "cuda"
     fused_train = bool(opt.fused_train) and packed
+    # bf16 BN/SiLU on the train path (JAX train.py:234-238; off unless
+    # asked, as the JAX CLI is off the TPU)
+    if opt.bn_half:
+        os.environ["YOLO_BN_HALF"] = "1"
     model, meta = create_model(opt.cfg, nc=nc, dtype=dtype, device=device,
                                seed=opt.seed, packed_stem=packed,
                                fused_train=fused_train)

@@ -13,9 +13,11 @@ checkpoint directory of the port (``utils/checkpoint.py``: the train CLI's
 come with it) or a state-dict ``.pt`` in the reference model's names (the
 file ``tools/import_torch_weights.py --sd`` reads).  The default IoU threshold is
 0.4, and 0.45 for ``--task speed`` (the reference's speed regime, with conf
-0.25).  Not ported yet: ``--task study``, TTA (``--augment``), ensembles and
-exported artifacts as ``--weights``, ``--mesh``, ``--coco-eval`` and the
-plots (ROADMAP.md queue 1).
+0.25).  ``--coco-eval`` (with ``--save-json``) scores the saved predictions
+with the COCO bbox metrics against the split's labels
+(``devkit/coco_eval.py``).  Not ported yet: ``--task study``, TTA
+(``--augment``), ensembles and exported artifacts as ``--weights``,
+``--mesh`` and the plots (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from pathlib import Path
 import torch
 
 from .data.dota import DotaDataset
+from .devkit.coco_eval import coco_eval_bbox
+from .devkit.converters import dota_to_coco
 from .engine.evaluator import evaluate, save_dota_task1
 from .models.yolo import create_model
 from .ops.geometry import poly2hbb
@@ -71,10 +75,11 @@ def parse_opt(argv=None):
     p.add_argument("--project", type=str, default="runs/val")
     p.add_argument("--name", type=str, default="exp")
     p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--coco-eval", action="store_true",
+                   help="COCO bbox AP of the --save-json predictions")
     # not ported: each raises NotImplementedError when asked for
     p.add_argument("--augment", action="store_true")
     p.add_argument("--mesh", type=int, default=0)
-    p.add_argument("--coco-eval", action="store_true")
     p.add_argument("--plots", action="store_true")
     return p.parse_args(argv)
 
@@ -85,7 +90,6 @@ def _refuse_unported(opt) -> None:
                                   "(ROADMAP.md queue 1 item 6)")
     for flag, what, item in (("augment", "TTA (--augment)", 6),
                              ("mesh", "--mesh", 9),
-                             ("coco_eval", "--coco-eval", 6),
                              ("plots", "the plots", 6)):
         if getattr(opt, flag):
             raise NotImplementedError(f"{what} is not ported "
@@ -105,6 +109,9 @@ def _refuse_unported(opt) -> None:
 def run(opt):
     _refuse_unported(opt)
     speed = opt.task == "speed"
+    if opt.coco_eval and not (opt.save_json and not speed):
+        raise ValueError("--coco-eval scores the --save-json predictions: "
+                         "add --save-json (not with --task speed)")
     conf = opt.conf_thres if opt.conf_thres is not None else (
         0.25 if speed else 0.01)
     iou = opt.iou_thres if opt.iou_thres is not None else (
@@ -172,6 +179,17 @@ def run(opt):
                         ["item"] if opt.single_cls else d["names"],
                         save_dir / "task1_raw")
         print(f"Task1 txts saved to {save_dir / 'task1_raw'}")
+    if opt.coco_eval:
+        # the JAX val.py:232-248 branch: the split's labels as a COCO GT
+        # json, then the saved predictions against it
+        gt_json = save_dir / "gt_coco.json"
+        dota_to_coco(Path(split).parent, gt_json,
+                     ["item"] if opt.single_cls else d["names"])
+        res["coco"] = coco_eval_bbox(gt_json,
+                                     save_dir / "best_obb_predictions.json")
+        print(f"COCO bbox eval: AP@[.5:.95]={res['coco']['map']:.4f} "
+              f"AP50={res['coco']['map50']:.4f} "
+              f"AP75={res['coco']['map75']:.4f}")
     print(f"Results saved to {save_dir}")
     return res
 
