@@ -82,8 +82,8 @@ Phases, each fatal on failure:
       detections to the plain path's;
   (g) the train CLI (``yolov5_obb_tpu_torch.train.main`` with real argv) at
       yolov5m, 1024², batch 16, bf16, nc 15, on a seeded mini-DOTA set of
-      48 images written to a temporary directory (PNGs through zlib and
-      struct, DOTA label files, a data.yaml) and replayed from the
+      48 images written to a temporary directory (PNGs through
+      utils/image_io.write_png, DOTA label files, a data.yaml) and replayed from the
       ``--cache shards`` cache, which the port's ``write_shards`` builds
       from an in-memory copy of the set (no OpenCV on the card): 2 stock
       epochs (the train kernels' launches per step, finite loss items,
@@ -98,9 +98,9 @@ Phases, each fatal on failure:
       4000x3000, 3000x2000, 1900x1500; noise with filled boxes, ~40 objects
       a megapixel over the 15 DOTA-v1.0 classes, boxes across tile corners
       whose clips keep 6 points) split in memory into 63 tiles of 1024² at
-      gap 200 (devkit/img_split, no OpenCV; the NumPy minimum-area
-      rectangle must run); the oracle round trip (tile labels → Task1 →
-      polygon-NMS merge → OBB mAP > 0.95 and mAOE < 5° against the unsplit
+      gap 200 (devkit/img_split, no OpenCV; the minimum-area rectangle,
+      OpenCV 5.0's steps in native/min_area_rect.cpp, must run); the
+      oracle round trip (tile labels → Task1 → polygon-NMS merge → OBB mAP > 0.95 and mAOE < 5° against the unsplit
       labels); phase (c)'s density-tuned model through ``evaluate`` on the
       tiles in the val regime with ``save_json``, then json_to_task1, the
       8-worker merge, ``evaluate_task1`` and ``evaluate_maoe``, kernel run
@@ -110,7 +110,25 @@ Phases, each fatal on failure:
       kernel, plain); the merge with 1 worker writing the same text, the
       native and NumPy polygon NMS keeping the same rows on the largest
       class file (the NumPy run capped to the top NUMPY_NMS_ROWS rows; the
-      native library must load); each step timed.
+      native library must load); each step timed;
+  (i) the detect surface: 16 seeded PNGs (12 at 1024², 4 at 1024x768;
+      phase (h)'s noise and boxes, rows filtered by the five PNG filters in
+      turn) in a temporary directory, read by utils/image_io (no OpenCV;
+      its decode timed, native and NumPy); phase (c)'s density-tuned
+      yolov5m and a second one from seed 1, saved with utils/checkpoint;
+      (i1) ``detect.main`` in bf16 (rows 1-3 once an image, row 4 at least
+      once) against the same letterboxed inputs through the plain predict,
+      written by the CLI's own line writer (per-image counts within 1%, at
+      most 1% of the detections without a same-class counterpart); (i2)
+      ``--augment`` and (i3) ``--weights W1,W2`` in float32 at max_det
+      3000 (row 4 launched; on the same candidates the keep masks equal
+      the plain NMS's; detections per image equal the plain run's); (i4)
+      ``api.load`` in bf16 on the 16 arrays and the 16 paths (equal), against
+      the plain predict (phase (f)'s bars); (i5) ``serve`` in-process on
+      127.0.0.1: 4 client threads POST the 16 PNGs 4 times, every reply 200
+      and within phase (f)'s bars of the API's rows, a junk body 400;
+      each step's seconds, the CLIs' printed speeds, serve latency and
+      batch sizes, peak memory.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -122,12 +140,10 @@ from __future__ import annotations
 import json
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1217,8 +1233,8 @@ def check_pairs_iou(gen, dev):
 # ---------------------------------------------------------------------------
 
 
-def density_model(dev, cfg="yolov5m.yaml", **kw):
-    """A bf16 packed-stem model, random weights from seed 0, with the class
+def density_model(dev, cfg="yolov5m.yaml", seed=0, **kw):
+    """A bf16 packed-stem model, random weights from ``seed``, with the class
     biases spread so that conf = obj*cls clears 0.25 for some (anchor,
     class) pairs (bench.py's recipe), Conv+BN folded; and ``set_obj(δ)``,
     which moves every Detect obj bias by δ."""
@@ -1228,10 +1244,10 @@ def density_model(dev, cfg="yolov5m.yaml", **kw):
     from yolov5_obb_tpu_torch.utils.fuse import fuse_conv_bn
 
     model, meta = create_model(cfg, nc=15, dtype=torch.bfloat16, device=dev,
-                               seed=0, packed_stem=True, **kw)
+                               seed=seed, packed_stem=True, **kw)
     det = model.model[-1]
     na, no, nc = meta.na, meta.no, meta.nc
-    rngb = np.random.default_rng(7)
+    rngb = np.random.default_rng(7 + seed)
     with torch.no_grad():
         for li in range(meta.nl):
             b = det.m[li].bias.view(na, no)
@@ -2290,24 +2306,6 @@ def val_path(dev, report, delta):
 # ---------------------------------------------------------------------------
 
 
-def write_png(path, rgb) -> None:
-    """An RGB uint8 (H, W, 3) image as an 8-bit PNG, with the standard
-    library only (zlib + struct)."""
-    h, w, _ = rgb.shape
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          np.ascontiguousarray(rgb).reshape(h, -1)], 1)
-    path.write_bytes(b"\x89PNG\r\n\x1a\n"
-                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
-                                                  0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
-                     + chunk(b"IEND", b""))
-
-
 def write_seeded_dota(root, n, size, seed, names, max_boxes=40):
     """A seeded DOTA-format set under ``root``: ``images/imNNN.png`` (a
     blocky background with each box's cover filled), ``labelTxt/imNNN.txt``
@@ -2315,6 +2313,7 @@ def write_seeded_dota(root, n, size, seed, names, max_boxes=40):
     and ``data.yaml`` (train = val = images).  Returns the yaml's path and
     the images, BGR as a decoder gives them."""
     from yolov5_obb_tpu_torch.ops.geometry import rbox2poly
+    from yolov5_obb_tpu_torch.utils.image_io import write_png
 
     rng = np.random.default_rng(seed)
     (root / "images").mkdir(parents=True, exist_ok=True)
@@ -2894,6 +2893,9 @@ def dota_flow(dev, report, delta, cfg="yolov5m.yaml", sizes=RAW_SIZES):
             f"the native polygon library did not load: {native.BUILD_ERROR}")
     log(f"polygon IoU/NMS: native C++ {native.so_path().name} (g++ "
         f"{' '.join(native.FLAGS)})")
+    require(native.get_min_area_rect_lib() is not None,
+            f"the native minimum-area rectangle did not load: "
+            f"{native.BUILD_ERRORS}")
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dota_"))
     r = {"raw_sizes": [list(s) for s in sizes]}
     try:
@@ -2905,7 +2907,7 @@ def dota_flow(dev, report, delta, cfg="yolov5m.yaml", sizes=RAW_SIZES):
         # 1. the split, in memory (no cv2): tiles and their label files
         tile_labels = tmp / "split" / "labelTxt"
         tile_labels.mkdir(parents=True)
-        # count the clips that take the NumPy minimum-area rectangle
+        # count the clips that take the minimum-area rectangle (C++)
         rects, min_area_rect = [], img_split._min_area_rect
         img_split._min_area_rect = lambda p: (rects.append(len(p)),
                                               min_area_rect(p))[1]
@@ -2933,8 +2935,8 @@ def dota_flow(dev, report, delta, cfg="yolov5m.yaml", sizes=RAW_SIZES):
         r["min_area_rects"] = len(rects)
         r["min_area_rects_6_plus"] = sum(n >= 6 for n in rects)
         require(r["min_area_rects_6_plus"] > 0,
-                "no clip of 6 or more points went through the NumPy "
-                "minimum-area rectangle")
+                "no clip of 6 or more points went through the minimum-area "
+                "rectangle")
         log(f"split: {len(tiles)} tiles from {len(ids)} raw images "
             f"{[list(s) for s in sizes]}, ms per raw image "
             f"{[round(v, 1) for v in split_ms]}, {r['min_area_rects']} "
@@ -3058,6 +3060,408 @@ def dota_flow(dev, report, delta, cfg="yolov5m.yaml", sizes=RAW_SIZES):
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+DETECT_SIZES = ((1024, 1024),) * 12 + ((1024, 768),) * 4  # (w, h)
+SERVE_CLIENTS, SERVE_ROUNDS = 4, 4
+
+
+def detect_images(root, seed=3):
+    """Phase (i)'s PNGs: phase (h)'s recipe (uniform noise, about
+    OBJ_PER_MP filled boxes a megapixel) at DETECT_SIZES, rows filtered by
+    the five PNG filters in turn.  Returns (paths, BGR arrays)."""
+    from yolov5_obb_tpu_torch.ops.geometry import rbox2poly
+    from yolov5_obb_tpu_torch.utils.image_io import write_png
+
+    rng = np.random.default_rng(seed)
+    paths, images = [], []
+    for k, (w, h) in enumerate(DETECT_SIZES):
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        n, e = int(OBJ_PER_MP * w * h / 1e6), min(100, w // 4, h // 4)
+        rb = np.stack([rng.uniform(e, w - e, n),
+                       rng.uniform(e, h - e, n), rng.uniform(10, 180, n),
+                       rng.uniform(8, 60, n),
+                       rng.uniform(-np.pi / 2, np.pi / 2, n)], 1)
+        _fill_polys(img, rbox2poly(rb), rng.integers(0, 256, (n, 3)))
+        path = root / f"im{k:02d}.png"
+        write_png(path, img, filters=(0, 1, 2, 3, 4))  # img as RGB
+        paths.append(path)
+        images.append(np.ascontiguousarray(img[..., ::-1]))
+    return paths, images
+
+
+def _label_rows(text):
+    """A detect label file → float64 rows ``[poly (8) conf cls]``."""
+    import torch
+
+    a = np.array([[float(v) for v in line.split()]
+                  for line in text.splitlines()], np.float64).reshape(-1, 10)
+    return torch.as_tensor(np.c_[a[:, 1:9], a[:, 9], a[:, 0]])
+
+
+def _bars(got, want) -> dict:
+    """Phase (f)'s bars between two runs' per-image rows ``[poly conf
+    cls]``: images whose counts differ by more than 1%, rows without a
+    same-class counterpart, rows in all."""
+    un = sum(_unmatched(g, w, _polys_tol(w)) for g, w in zip(got, want))
+    return {"count_diff_images": _count_diff([len(g) for g in got],
+                                             [len(w) for w in want]),
+            "unmatched": un,
+            "rows": sum(len(g) + len(w) for g, w in zip(got, want))}
+
+
+def _bars_hold(b) -> bool:
+    return b["count_diff_images"] == 0 and b["unmatched"] <= 0.01 * b["rows"]
+
+
+def _detect_cli(argv):
+    """``detect.main(argv)`` with its output captured: (label texts by
+    image stem, pre-process ms/img, inference+NMS ms/img, seconds)."""
+    import contextlib
+    import io
+
+    from yolov5_obb_tpu_torch import detect
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        save_dir = detect.main(argv)
+    secs = time.perf_counter() - t
+    m = re.search(r"Speed: ([\d.]+)ms pre-process, ([\d.]+)ms "
+                  r"inference\+NMS", buf.getvalue())
+    require(m is not None, f"detect printed no speed line: {buf.getvalue()}")
+    labels = {p.stem: p.read_text()
+              for p in sorted((save_dir / "labels").iterdir())}
+    return labels, float(m[1]), float(m[2]), secs
+
+
+def _keep_masks(rb, sc, cid, kk):
+    """The keep masks of the kernel NMS and of the plain one on the same
+    candidates (the first ``kk``): the count of rows where they differ."""
+    from yolov5_obb_tpu_torch.ops.rotated_nms import nms_rotated
+
+    args = (rb[:, :kk].contiguous(), sc[:, :kk].contiguous(), IOU)
+    kw = dict(class_ids=cid[:, :kk].contiguous(), presorted=True)
+    return int((nms_rotated(*args, **kw)
+                != nms_rotated(*args, plain=True, **kw)).sum())
+
+
+F32_MAX_DET = 3000  # (i2), (i3): above the ensemble's ~1000 a PNG
+
+
+def _f32_reference(preds, meta):
+    """Decoded float32 predictions per image → (keep-mask mismatches of the
+    kernel NMS against the plain one on the same candidates, the plain
+    run's detections per image); as the detect CLI: multi-label, conf 0.25,
+    IoU 0.45, 4096 candidates, max_det F32_MAX_DET."""
+    from yolov5_obb_tpu_torch.ops import rotated_nms as R
+
+    mism, counts = 0, []
+    for pred in preds:
+        rb, sc, cid = R.obb_candidates(pred, meta.nc, CONF, 4096, True)
+        kk = R._tier(sc.shape[1], int((sc > 0).sum(1).max()))
+        mism += _keep_masks(rb, sc, cid, kk)
+        _, n = R.non_max_suppression_obb(pred, meta.nc, CONF, IOU, 4096,
+                                         F32_MAX_DET, True, plain=True)
+        counts.append(int(n[0]))
+    return mism, counts
+
+
+def detect_surface(dev, report, delta, cfg="yolov5m.yaml"):
+    """Phase (i): the detect CLI, TTA, the ensemble, the Python API and the
+    REST server on the port, each against its plain run."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from yolov5_obb_tpu_torch import api, native
+    from yolov5_obb_tpu_torch.data.augment import letterbox
+    from yolov5_obb_tpu_torch.data.dota import DOTA_V1_NAMES
+    from yolov5_obb_tpu_torch.detect import label_lines
+    from yolov5_obb_tpu_torch.engine.evaluator import (
+        load_ensemble_members,
+        make_predict_fn,
+        pack_images,
+    )
+    from yolov5_obb_tpu_torch.models.tta import predict_tta
+    from yolov5_obb_tpu_torch.models.yolo import decode
+    from yolov5_obb_tpu_torch.ops.geometry import rbox2poly, scale_polys
+    from yolov5_obb_tpu_torch.serve import _Worker, make_handler
+    from yolov5_obb_tpu_torch.utils import image_io
+    from yolov5_obb_tpu_torch.utils.checkpoint import save_weights
+
+    t_phase = time.perf_counter()
+    names = list(DOTA_V1_NAMES)
+    card = card_line()
+    kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+    launches, r, steps = {}, {}, {}
+
+    def counted(step, fn):
+        """``fn()`` with every count at 0 before it; returns its result and
+        adds its launches to the phase's."""
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[step] = time.perf_counter() - t
+        got = {n: k.launches for n, k in kernels.items()}
+        for n, v in got.items():
+            launches[n] = launches.get(n, 0) + v
+        r[f"{step}_launches"] = got
+        return out
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_detect_"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        (tmp / "images").mkdir()
+        paths, images = detect_images(tmp / "images")
+        steps["images"] = time.perf_counter() - t
+        n_img = len(paths)
+        # the reader: the files decode to the arrays written, no OpenCV
+        require(native.get_png_lib() is not None,
+                f"the native PNG unfilter did not load: "
+                f"{native.BUILD_ERRORS}")
+        data = paths[0].read_bytes()
+        for path, img in zip(paths, images):
+            require(np.array_equal(image_io.imread(path), img),
+                    f"{path.name} does not decode to the image written")
+        dec = {}
+        for native_ in (True, False):
+            t = time.perf_counter()
+            got = image_io.decode_png(data, use_native=native_)
+            dec["native" if native_ else "numpy"] = (
+                time.perf_counter() - t) * 1e3
+            require(np.array_equal(got, images[0]), "PNG decode differs")
+        r["png_decode_ms_1024"] = dec
+
+        # the models: phase (c)'s density-tuned yolov5m (seed 0) and a
+        # second member from seed 1, tuned the same way
+        t = time.perf_counter()
+        model, meta, set_obj = density_model(dev, cfg)
+        set_obj(delta)
+        model2, meta2, set_obj2 = density_model(dev, cfg, seed=1)
+        x = torch.from_numpy(np.stack([
+            letterbox(im, IMGSZ, auto=False, scaleup=False)[0][..., ::-1]
+            for im in images])).to(dev)
+        delta2 = tune_density(
+            make_predict_fn(model2, meta2, CONF, IOU, MAX_DET,
+                            multi_label=False, max_candidates=MAXC),
+            set_obj2, pack_images(x))
+        w1, w2 = tmp / "w1", tmp / "w2"
+        for w, m, mt in ((w1, model, meta), (w2, model2, meta2)):
+            save_weights(w, m.state_dict(), {
+                "cfg": cfg, "names": names,
+                "anchors": np.asarray(mt.anchors_px).tolist()})
+        del model2
+        steps["models"] = time.perf_counter() - t
+        r["obj_delta_seed1"] = delta2
+        src = str(tmp / "images")
+        common = ["--cfg", cfg, "--source", src, "--imgsz", str(IMGSZ),
+                  "--conf-thres", str(CONF), "--iou-thres", str(IOU),
+                  "--nosave", "--save-txt", "--save-conf", "--project",
+                  str(tmp / "runs"), "--exist-ok"]
+
+        # (i1) the detect CLI in bf16, against the plain predict
+        labels, pre, inf, secs = counted("i1_detect", lambda: _detect_cli(
+            ["--weights", str(w1), "--dtype", "bfloat16", "--name", "bf16"]
+            + common))
+        got = r["i1_detect_launches"]
+        require(all(got[k] == n_img for k in ("stem_l1", "c3", "down"))
+                and got["riou_boxes"] >= n_img and got["neighbor"] >= n_img,
+                f"detect CLI launches: {got} for {n_img} images")
+        plain = make_predict_fn(model, meta, CONF, IOU, 1000,
+                                multi_label=True, plain=True)
+        want, want_txt = [], {}
+        with torch.inference_mode():
+            for path, im in zip(paths, images):
+                lb = letterbox(im, IMGSZ, auto=False, scaleup=False)[0]
+                d, n = plain(torch.from_numpy(pack_images(
+                    np.ascontiguousarray(lb[..., ::-1])[None])).to(dev))
+                d = d[0, :int(n[0])].float().cpu().numpy()
+                polys = (scale_polys((IMGSZ, IMGSZ), rbox2poly(d[:, :5]),
+                                     im.shape[:2]) if len(d)
+                         else np.zeros((0, 8)))
+                want_txt[path.stem] = label_lines(polys, d[:, 5], d[:, 6],
+                                                  True)
+        stems = [p.stem for p in paths]
+        require(sorted(labels) == stems, f"detect CLI labels: {sorted(labels)}")
+        r["i1_bars"] = _bars([_label_rows(labels[s]) for s in stems],
+                             [_label_rows(want_txt[s]) for s in stems])
+        r["i1_dets_per_img"] = sum(len(_label_rows(labels[s]))
+                                   for s in stems) / n_img
+        r["i1_speed_ms"] = {"pre": pre, "inference_nms": inf}
+        require(_bars_hold(r["i1_bars"]),
+                f"detect CLI against the plain predict: {r['i1_bars']}")
+
+        # float32 references: the unpacked models the CLI builds for (i2)
+        # and (i3), through their kernel-free forwards
+        members, _ = load_ensemble_members([str(w1), str(w2)], cfg, 15,
+                                           device=dev)
+        f32_inputs = [torch.from_numpy(np.ascontiguousarray(letterbox(
+            im, IMGSZ, auto=False, scaleup=False)[0][..., ::-1])[None]).to(
+                dev).float() / 255.0 for im in images]
+        for step, flags in (("i2_augment", ["--augment"]),
+                            ("i3_ensemble", [])):
+            weights = str(w1) if step == "i2_augment" else f"{w1},{w2}"
+            labels, pre, inf, secs = counted(step, lambda: _detect_cli(
+                ["--weights", weights, "--dtype", "float32", "--name", step,
+                 "--max-det", str(F32_MAX_DET)] + flags + common))
+            got = r[f"{step}_launches"]
+            require(got["riou_boxes"] > 0 and got["neighbor"] > 0,
+                    f"{step}: row 4 not launched: {got}")
+            with torch.inference_mode():
+                if step == "i2_augment":
+                    m0, mt0 = members[0]
+                    preds = [predict_tta(m0, mt0, xi) for xi in f32_inputs]
+                else:
+                    preds = [torch.cat([decode(m(xi), mt, (IMGSZ, IMGSZ))
+                                        for m, mt in members], 1)
+                             for xi in f32_inputs]
+                mism, counts = _f32_reference(preds, meta)
+            cli_counts = [len(_label_rows(labels[s])) for s in stems]
+            r[f"{step}_keep_mismatches"] = mism
+            r[f"{step}_dets_per_img"] = sum(cli_counts) / n_img
+            r[f"{step}_speed_ms"] = {"pre": pre, "inference_nms": inf}
+            require(mism == 0, f"{step}: {mism} keep-mask mismatches")
+            require(cli_counts == counts,
+                    f"{step}: detections per image {cli_counts}, plain "
+                    f"{counts}")
+        del members, f32_inputs
+
+        # (i4) the Python API in bf16: arrays and paths, against plain
+        obb = api.load(cfg, weights=str(w1), names=names, imgsz=IMGSZ,
+                       conf_thres=CONF, iou_thres=IOU, max_det=1000,
+                       dtype=torch.bfloat16)
+        res = counted("i4_api", lambda: obb(images))
+        require(r["i4_api_launches"]["neighbor"] > 0
+                and r["i4_api_launches"]["stem_l1"] > 0,
+                f"API launches: {r['i4_api_launches']}")
+        res_p = obb([str(p) for p in paths])
+        require(all(np.array_equal(a, b) and np.array_equal(c, d)
+                    for a, b, c, d in zip(res.polys, res_p.polys, res.confs,
+                                          res_p.confs)),
+                "the API's detections of the paths differ from the arrays'")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        obb(images)
+        torch.cuda.synchronize()
+        r["i4_api_ms_per_img"] = (time.perf_counter() - t) * 1e3 / n_img
+        plain1 = make_predict_fn(obb.model, obb.meta, CONF, IOU, 1000,
+                                 multi_label=False, plain=True)
+        d_p, n_p = plain1(pack_images(x) if plain1.packed_stem else x)
+        rows = lambda polys, confs, clses: torch.as_tensor(np.c_[
+            np.asarray(polys, np.float64).reshape(-1, 8), confs, clses])
+        want = []
+        for i, im in enumerate(images):
+            d = d_p[i, :int(n_p[i])].float().cpu().numpy()
+            polys = (scale_polys((IMGSZ, IMGSZ), rbox2poly(d[:, :5]),
+                                 im.shape[:2]) if len(d) else np.zeros((0, 8)))
+            want.append(rows(polys, d[:, 5], d[:, 6]))
+        api_rows = [rows(p, c, k) for p, c, k in zip(res.polys, res.confs,
+                                                      res.clses)]
+        r["i4_bars"] = _bars(api_rows, want)
+        require(_bars_hold(r["i4_bars"]),
+                f"API against the plain predict: {r['i4_bars']}")
+
+        # (i5) the REST server, in process
+        worker = _Worker(obb)
+        worker.start()
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}/v1/obb-detection"
+        bodies = [p.read_bytes() for p in paths]
+        replies, lat = {}, []
+
+        def post(body):
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as rep:
+                return rep.status, json.loads(rep.read())
+
+        def client(c):
+            for j in range(SERVE_ROUNDS * n_img // SERVE_CLIENTS):
+                i = (c * 4 + j) % n_img
+                t0 = time.perf_counter()
+                replies[(c, j)] = (i, *post(bodies[i]))
+                lat.append((time.perf_counter() - t0) * 1e3)
+
+        try:
+            def serve_all():
+                ts = [threading.Thread(target=client, args=(c,))
+                      for c in range(SERVE_CLIENTS)]
+                for th in ts:
+                    th.start()
+                for th in ts:
+                    th.join(timeout=600)
+
+            t = time.perf_counter()
+            counted("i5_serve", serve_all)
+            wall = time.perf_counter() - t
+            require(len(replies) == SERVE_ROUNDS * n_img
+                    and all(st == 200 for _, st, _ in replies.values()),
+                    f"serve: {len(replies)} replies, statuses "
+                    f"{sorted({st for _, st, _ in replies.values()})}")
+            key = [f"{ax}{k + 1}" for k in range(4) for ax in "xy"]
+            got_rows = [torch.as_tensor([[row[k] for k in key]
+                                         + [row["confidence"], row["class"]]
+                                         for row in rows_],
+                                        dtype=torch.float64).reshape(-1, 10)
+                        for _, _, rows_ in replies.values()]
+            r["i5_bars"] = _bars(got_rows, [api_rows[i]
+                                            for i, _, _ in replies.values()])
+            require(_bars_hold(r["i5_bars"]),
+                    f"serve against the API: {r['i5_bars']}")
+            try:
+                post(b"not an image")
+                require(False, "serve answered a junk body")
+            except urllib.error.HTTPError as e:
+                require(e.code == 400, f"serve: junk body got {e.code}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        lat_a = np.array(lat)
+        r["i5_serve"] = {
+            "requests": len(lat), "wall_s": wall,
+            "req_per_s": len(lat) / wall,
+            "latency_ms_p50": float(np.percentile(lat_a, 50)),
+            "latency_ms_p90": float(np.percentile(lat_a, 90)),
+            "latency_ms_max": float(lat_a.max()),
+            "batch_sizes": list(worker.batch_sizes)}
+        r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        r["steps_s"] = steps
+        r["phase_s"] = time.perf_counter() - t_phase
+        s5 = r["i5_serve"]
+        log(f"detect surface on {card}: PNG decode of a 1024² image "
+            f"{dec['native']:.1f} ms native, {dec['numpy']:.0f} ms NumPy; "
+            f"detect CLI bf16 {pre_fmt(r['i1_speed_ms'])} "
+            f"({r['i1_dets_per_img']:.1f} dets/img, bars {r['i1_bars']}); "
+            f"--augment f32 {pre_fmt(r['i2_augment_speed_ms'])}; ensemble "
+            f"f32 {pre_fmt(r['i3_ensemble_speed_ms'])}; keep-mask mismatches "
+            f"{r['i2_augment_keep_mismatches']} / "
+            f"{r['i3_ensemble_keep_mismatches']}; API "
+            f"{r['i4_api_ms_per_img']:.2f} ms/img at {n_img} (bars "
+            f"{r['i4_bars']}); serve {s5['requests']} requests in "
+            f"{s5['wall_s']:.2f} s, {s5['req_per_s']:.2f} req/s, latency "
+            f"p50/p90/max {s5['latency_ms_p50']:.1f} / "
+            f"{s5['latency_ms_p90']:.1f} / {s5['latency_ms_max']:.1f} ms, "
+            f"batches {s5['batch_sizes']} (bars {r['i5_bars']}); peak "
+            f"{r['peak_mem_gib']:.2f} GiB; steps "
+            f"{ {k: round(v, 2) for k, v in steps.items()} }; phase "
+            f"{r['phase_s']:.1f} s")
+        report["detect_surface"] = r
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pre_fmt(speed) -> str:
+    return (f"{speed['pre']:.1f} ms pre-process + "
+            f"{speed['inference_nms']:.1f} ms inference+NMS a image")
 
 
 INFER = ("stem_l1", "c3", "down", "riou_boxes", "neighbor")
@@ -3187,6 +3591,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # (h) the DOTA flow
     add(dota_flow(dev, report, report["obj_delta"]))
+    torch.cuda.empty_cache()
+    # (i) the detect surface: detect CLI, TTA, ensemble, API, serve
+    add(detect_surface(dev, report, report["obj_delta"]))
     log("main path: " + json.dumps(report))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "

@@ -5,10 +5,10 @@ with its tolerance.
 Bit for bit where both run the same float64 operations (polygon IoU and
 clipping, polygon NMS in NumPy and in C++, merged Task1 text, the
 converters).  A tile label whose clip keeps 3 or more than 5 points goes
-through the port's NumPy minimum-area rectangle where the JAX package calls
-``cv2.minAreaRect``: within 0.1 px (one ``.1f`` step) for 6 or more points;
-a 3-point clip (a right triangle) has two minimum rectangles, and the two
-packages may pick different ones.
+through the port's minimum-area rectangle (OpenCV 5.0's steps in C++, and
+in NumPy without a compiler) where the JAX package calls
+``cv2.minAreaRect``: bit for bit cv2's corners on float32, so the tile
+labels are the same text.
 """
 
 import importlib.util
@@ -34,6 +34,7 @@ from yolov5_obb_tpu_torch.devkit import converters as pconv
 from yolov5_obb_tpu_torch.devkit import dota_api as papi
 from yolov5_obb_tpu_torch.devkit import evaluate as peval
 from yolov5_obb_tpu_torch.devkit import img_split as psplit
+from yolov5_obb_tpu_torch.devkit import min_area_rect as pmar
 from yolov5_obb_tpu_torch.devkit import poly_iou as ppoly
 from yolov5_obb_tpu_torch.devkit import result_merge as pmerge
 from yolov5_obb_tpu_torch.ops.geometry import rbox2poly
@@ -133,22 +134,69 @@ def _clips(rng, n):
     return out
 
 
-def test_min_area_rect_matches_cv2():
-    """The NumPy minimum-area rectangle against ``cv2.minAreaRect`` +
-    ``boxPoints`` (what the JAX package calls) on 240 seeded 6-8-point
-    clips: area within 1e-4 relative, corners within 1e-3 px after the
-    split's cyclic point order, the same orientation."""
-    clips = _clips(np.random.default_rng(2), 240)
-    assert {len(c) for c, _ in clips} >= {6, 7, 8}
-    for inter, quad in clips:
-        got = psplit._min_area_rect(inter)
-        want = jsplit._min_area_rect(inter)
-        a_got, a_want = ppoly.poly_area(got), ppoly.poly_area(want)
-        assert abs(a_got - a_want) <= 1e-4 * a_want, (a_got, a_want)
-        assert np.sign(_signed_area(got)) == np.sign(_signed_area(want)) == 1
-        g = psplit._best_point_order(got, quad)
-        w = jsplit._best_point_order(want, quad)
-        assert np.abs(g - w).max() <= 1e-3, (g, w)
+def _cv2_box_points(pts):
+    p = np.asarray(pts, np.float32)
+    r = cv2.minAreaRect(p)
+    return np.array([*r[0], *r[1], r[2]], np.float32), cv2.boxPoints(r)
+
+
+def _window_triangles():
+    """The 3-point clips of :func:`test_clip_poly_to_tile_matches_jax`'s
+    rotated rectangles and general quads by its four tile windows."""
+    rng = np.random.default_rng(3)
+    rects = [rbox2poly(np.array([[*rng.uniform(700, 1200, 2),
+                                   rng.uniform(20, 180), rng.uniform(10, 90),
+                                   rng.uniform(-1.5, 1.5)]]))[0]
+             for _ in range(400)]
+    out = []
+    for quad in [*rects, *_general_quads(rng, 800)]:
+        for left, up in ((0, 0), (824, 0), (0, 824), (824, 824)):
+            inter = ppoly.clip_polygon(quad.reshape(4, 2), _window(left, up))
+            whole = (len(inter) >= 3 and ppoly.poly_area(inter)
+                     / ppoly.poly_area(quad.reshape(4, 2)) >= 1 - 1e-6)
+            if len(inter) == 3 and not whole:
+                out.append(inter)
+    return out
+
+
+def _quad_triangles(n):
+    """``n`` triangles clipped from seeded general quads by a window corner
+    near them."""
+    rng = np.random.default_rng(13)
+    out = []
+    while len(out) < n:
+        for quad in _general_quads(rng, 500, 900.0, 1100.0):
+            inter = ppoly.clip_polygon(quad.reshape(4, 2), _window(0, 0))
+            if len(inter) == 3:
+                out.append(inter)
+    return out[:n]
+
+
+@pytest.mark.parametrize("which", ["clips_6_8", "window_triangles",
+                                   "quad_triangles"])
+def test_min_area_rect_matches_cv2(which):
+    """The minimum-area rectangle, C++ and NumPy, against
+    ``cv2.minAreaRect`` + ``boxPoints`` (what the JAX package calls), bit for
+    bit on float32 (centre, size, angle and corners): 240 seeded 6-8-point
+    clips, the 383 triangles of the tile windows, 2000 triangles of random
+    quads."""
+    if which == "clips_6_8":
+        pts = [c for c, _ in _clips(np.random.default_rng(2), 240)]
+        assert {len(c) for c in pts} >= {6, 7, 8}
+    elif which == "window_triangles":
+        pts = _window_triangles()
+        assert len(pts) == 383
+    else:
+        pts = _quad_triangles(2000)
+    assert pnative.get_min_area_rect_lib() is not None, pnative.BUILD_ERRORS
+    for inter in pts:
+        want_box, want = _cv2_box_points(inter)
+        for use_native in (True, False):
+            box, corners = pmar.min_area_rect(inter, use_native=use_native)
+            np.testing.assert_array_equal(box, want_box)
+            np.testing.assert_array_equal(corners, want)
+        np.testing.assert_array_equal(psplit._min_area_rect(inter),
+                                      jsplit._min_area_rect(inter))
 
 
 def _clip_points(poly8, left, up, size=1024):
@@ -162,10 +210,6 @@ def _clip_points(poly8, left, up, size=1024):
         return 0
     whole = ppoly.poly_area(inter) / ppoly.poly_area(quad) >= 1 - 1e-6
     return 4 if whole else len(inter)
-
-
-def _rect_area(poly8):
-    return ppoly.poly_area(np.asarray(poly8, np.float64).reshape(4, 2))
 
 
 def _general_quads(rng, n, lo=700.0, hi=1200.0):
@@ -183,58 +227,19 @@ def _window(left, up, size=1024):
                      [left, up + size]], np.float64)
 
 
-def _is_min_rect(rect, tri):
-    """``rect`` (4, 2) holds the triangle ``tri`` (3, 2) (every vertex
-    within 1e-3 px of its inside) and its area is twice the triangle's
-    (within 1e-4 relative plus 1e-3 px times its long side: float32
-    corners, which for a sliver is most of the area): no rectangle that
-    holds a triangle is smaller, so it is one of the triangle's
-    minimum-area rectangles."""
-    s = np.sign(_signed_area(rect))
-    e = np.roll(rect, -1, 0) - rect
-    for x in tri:
-        d = x - rect
-        cross = s * (e[:, 0] * d[:, 1] - e[:, 1] * d[:, 0])
-        if (cross / np.hypot(e[:, 0], e[:, 1]) < -1e-3).any():
-            return False
-    two_a = 2 * ppoly.poly_area(tri)
-    long_side = np.hypot(e[:, 0], e[:, 1]).max()
-    return abs(ppoly.poly_area(rect) - two_a) <= 1e-4 * two_a \
-        + 1e-3 * long_side
-
-
-def _same_triangle_rect(inter, quad):
-    """Both packages' rectangles of a 3-point clip are minimum-area ones;
-    returns whether they are the same rectangle (corners within 1e-3 px
-    after the split's cyclic point order).  A triangle has up to three
-    minimum rectangles of one area (one on each edge whose neighbours'
-    angles are not obtuse): cv2 picks one by its float32 rounding, the
-    port the first in edge order, so they can differ (ROADMAP queue 3)."""
-    got = psplit._min_area_rect(inter)
-    want = jsplit._min_area_rect(inter)
-    assert _is_min_rect(got, inter), (inter, got)
-    assert _is_min_rect(want, inter), (inter, want)
-    return np.abs(psplit._best_point_order(got, quad)
-                  - jsplit._best_point_order(want, quad)).max() <= 1e-3
-
-
 def test_clip_poly_to_tile_matches_jax():
     """Rotated rectangles and general convex quads (:func:`_general_quads`)
-    against four tile windows: the same flag everywhere; bit for bit where
-    the clip keeps 4 or 5 points (or the polygon lies whole in the tile);
-    within 1e-3 px where a clip of 6 or more points becomes its
-    minimum-area rectangle.  A 3-point clip's rectangle is checked by
-    :func:`_same_triangle_rect`: both packages' are minimum-area ones, and
-    where they are the same rectangle the clipped labels agree within 1e-3
-    px.  A rectangle's 3-point clips are right triangles covering at most
+    against four tile windows: the same flag and the same clipped label bit
+    for bit, whether the clip keeps 4 or 5 points (or the polygon lies whole
+    in the tile) or becomes its minimum-area rectangle (3 points, or 6 and
+    more).  A rectangle's 3-point clips are right triangles covering at most
     half of it, so flagged '2'; a general quad's need not be."""
     rng = np.random.default_rng(3)
     rects = [rbox2poly(np.array([[*rng.uniform(700, 1200, 2),
                                    rng.uniform(20, 180), rng.uniform(10, 90),
                                    rng.uniform(-1.5, 1.5)]]))[0]
              for _ in range(400)]
-    seen = {k: 0 for k in ("4", "5", "6+", "3 rect", "3 quad", "3 quad, not 2",
-                           "3 same rect")}
+    seen = {k: 0 for k in ("4", "5", "6+", "3 rect", "3 quad", "3 quad, not 2")}
     for kind, quads in (("rect", rects),
                         ("quad", _general_quads(rng, 800))):
         for quad in quads:
@@ -244,24 +249,18 @@ def test_clip_poly_to_tile_matches_jax():
                 assert gf == wf and (got is None) == (want is None)
                 if got is None:
                     continue
+                np.testing.assert_array_equal(got, want)
                 n = _clip_points(quad, left, up)
                 if n in (4, 5):
                     seen[str(n)] += 1
-                    np.testing.assert_array_equal(got, want)
-                    continue
-                if n >= 6:
+                elif n >= 6:
                     seen["6+"] += 1
-                    assert np.abs(got - want).max() <= 1e-3
-                    continue
-                seen[f"3 {kind}"] += 1
-                assert kind == "quad" or gf == "2"
-                seen["3 quad, not 2"] += kind == "quad" and gf != "2"
-                inter = ppoly.clip_polygon(quad.reshape(4, 2),
-                                           _window(left, up))
-                if _same_triangle_rect(inter, quad.reshape(4, 2)):
-                    seen["3 same rect"] += 1
-                    assert np.abs(got - want).max() <= 1e-3
+                else:
+                    seen[f"3 {kind}"] += 1
+                    assert kind == "quad" or gf == "2"
+                    seen["3 quad, not 2"] += kind == "quad" and gf != "2"
     assert min(seen.values()) > 0, seen
+    assert seen["3 rect"] + seen["3 quad"] == 383, seen
 
 
 # ---------------------------------------------------------------------------
@@ -352,51 +351,35 @@ def quad_dota(tmp_path_factory):
 
 
 def _split_labels_agree(src, jdir, pdir):
-    """Tile PNG bytes equal; label files equal text, but for the lines of
-    the clips that become a minimum-area rectangle: those of 6 or more
-    points agree within one .1f step; those of 3 have the same class and
-    flag, both packages' rectangles are minimum-area ones, and where they
-    are the same rectangle (:func:`_same_triangle_rect`) the lines agree
-    within one .1f step.  Returns the count of each kind of clip."""
+    """Tile PNG bytes and label text equal, the lines of clips that become
+    a minimum-area rectangle among them.  Returns the count of each kind of
+    clip."""
     names = sorted(p.name for p in (jdir / "images").iterdir())
     assert names == sorted(p.name for p in (pdir / "images").iterdir())
     for name in names:
         assert (jdir / "images" / name).read_bytes() == \
             (pdir / "images" / name).read_bytes()
-    seen = {"rect": 0, "3": 0, "3 not 2": 0, "3 same rect": 0}
+    seen = {"rect": 0, "3": 0, "3 not 2": 0}
     for lab in sorted((jdir / "labelTxt").iterdir()):
         stem, _, left, up = pmerge.parse_tile_name(lab.stem)
         objs = psplit.read_split_objects(src / "labelTxt" / f"{stem}.txt")
-        clips = [(o[0], n) for o in objs
-                 if (n := _clip_points(o[0], left, up))]
+        clips = [n for o in objs if (n := _clip_points(o[0], left, up))]
         want = lab.read_text().splitlines()
         got = (pdir / "labelTxt" / lab.name).read_text().splitlines()
-        assert len(got) == len(want) == len(clips)
-        for g, w, (poly8, n) in zip(got, want, clips):
-            if n in (4, 5):
-                assert g == w
-                continue
-            assert g.split()[8:] == w.split()[8:]
+        assert got == want and len(got) == len(clips)
+        for g, n in zip(got, clips):
             if n == 3:
                 seen["3"] += 1
                 seen["3 not 2"] += g.split()[9] != "2"
-                quad = poly8.reshape(4, 2)
-                inter = ppoly.clip_polygon(quad, _window(left, up))
-                if not _same_triangle_rect(inter, quad):
-                    continue
-                seen["3 same rect"] += 1
-            else:
+            elif n >= 6:
                 seen["rect"] += 1
-            np.testing.assert_allclose([float(v) for v in g.split()[:8]],
-                                       [float(v) for v in w.split()[:8]],
-                                       atol=0.1 + 1e-9)
     return seen
 
 
 def test_split_dataset_matches_jax(big_dota, split_pair, quad_dota):
     """:func:`_split_labels_agree` on the rotated boxes of ``big_dota``
     (6-8-point clips among them) and the general quads of ``quad_dota``
-    (3-point clips that are not difficult '2' among them)."""
+    (3-point clips that are not difficult '2' among them): the same text."""
     boxes = _split_labels_agree(big_dota, *split_pair)
     assert boxes["rect"] >= 4, boxes
     quads = _split_labels_agree(*quad_dota)

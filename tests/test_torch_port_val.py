@@ -323,7 +323,7 @@ def test_evaluate_matches_jax(val_setup, tmp_path):
     _same_json_rows(json.loads((tmp_path / "port.json").read_text()),
                     json.loads((tmp_path / "jax.json").read_text()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate(vs.port, vs.meta, pds, tta=True)
+        evaluate(vs.port, vs.meta, pds, plots_dir=str(tmp_path / "plots"))
 
 
 def _read_rows(path):
@@ -382,7 +382,7 @@ def test_val_cli_writes_the_same_files_as_jax(val_setup, tmp_path):
     assert not list(pdir.glob("*.png"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_val.main(["--data", str(vs.data), "--device", "cpu",
-                       "--augment"])
+                       "--plots"])
 
 
 def test_val_cli_coco_eval_matches_jax(val_setup, tmp_path):

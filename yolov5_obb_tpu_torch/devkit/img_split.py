@@ -10,8 +10,8 @@ DOTA_devkit/ImgSplit_multi_process.py):
   intersection-over-area is ``thresh`` (0.7) or less;
 * a 5-point clip becomes 4 points by merging its shortest edge, a clip of
   3 or more than 5 points becomes its minimum-area rectangle
-  (:func:`_min_area_rect`, NumPy here where the JAX package calls
-  ``cv2.minAreaRect``);
+  (:func:`_min_area_rect`: the corners the JAX package's
+  ``cv2.minAreaRect`` call gives, without OpenCV);
 * tile names are ``{stem}__{rate}__{left}___{up}``.
 
 The tiling itself is :func:`split_image_array` (arrays in, tiles and label
@@ -29,6 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from ..data.dota import IMG_EXTS
+from .min_area_rect import min_area_rect
 from .poly_iou import clip_polygon, poly_area
 
 
@@ -56,31 +57,11 @@ def _poly5to4(poly: np.ndarray) -> np.ndarray:
 
 
 def _min_area_rect(pts: np.ndarray) -> np.ndarray:
-    """Minimum-area rectangle of a convex point ring ``(m, 2)`` → its four
-    corners ``(4, 2)``, as ``cv2.boxPoints(cv2.minAreaRect(pts))`` gives
-    them: float32 in and out, the corners counter-clockwise in (x, y) (a
-    positive shoelace area).
-
-    The ring is convex (a clip of a convex quad by a tile window), so its
-    minimum-area rectangle has a side on one of its edges: each edge
-    direction is tried and the smallest extent product wins, the first in
-    ring order on a tie.  A triangle that is not obtuse has a minimum
-    rectangle on each of its edges, all of one area; cv2 takes one by its
-    float32 rounding, so on a 3-point clip the two can differ (ROADMAP
-    queue 3)."""
-    p = np.asarray(pts, np.float32).astype(np.float64)
-    d = np.roll(p, -1, axis=0) - p
-    norm = np.hypot(d[:, 0], d[:, 1])
-    d = d[norm > 0] / norm[norm > 0, None]
-    u = p @ d.T  # (m, edges): coordinates along each edge
-    v = p @ np.stack([-d[:, 1], d[:, 0]], 1).T  # ... and across it
-    k = int(np.argmin((u.max(0) - u.min(0)) * (v.max(0) - v.min(0))))
-    ux, uy = d[k]
-    u0, u1, v0, v1 = u[:, k].min(), u[:, k].max(), v[:, k].min(), v[:, k].max()
-    corners = np.array([[u0, v0], [u1, v0], [u1, v1], [u0, v1]])
-    box = np.stack([corners[:, 0] * ux - corners[:, 1] * uy,
-                    corners[:, 0] * uy + corners[:, 1] * ux], 1)
-    return box.astype(np.float32).astype(np.float64)
+    """Minimum-area rectangle of a point ring ``(m, 2)`` → its four corners
+    ``(4, 2)`` float64, those of ``cv2.boxPoints(cv2.minAreaRect(pts))`` bit
+    for bit on the float32 points (:mod:`.min_area_rect`: OpenCV 5.0's
+    steps in C++ where ``g++`` builds them, else in NumPy)."""
+    return min_area_rect(pts)[1].astype(np.float64)
 
 
 def clip_poly_to_tile(poly8: np.ndarray, left: float, up: float, size: int,

@@ -2,8 +2,10 @@
 metrics and DOTA-format outputs.
 
 Counterpart of ``yolov5_obb_tpu/engine/evaluator.py``: ``make_predict_fn``
-(evaluator.py:27), ``pack_images`` (:166), ``evaluate`` (:175) and
-``save_dota_task1`` (:403).  Decode + rotated NMS run on the model's
+(evaluator.py:27, test-time augmentation too), the model ensemble
+(``load_ensemble_members`` :89, ``make_ensemble_predict_fn`` :120),
+``pack_images`` (:166), ``evaluate`` (:175) and ``save_dota_task1``
+(:403).  Decode + rotated NMS run on the model's
 device; per image on the host: rbox → poly, rescale to the native
 resolution, HBB-cover TP matching at 10 IoU thresholds, AP aggregation, and
 the DOTA JSON rows for the devkit merge step.
@@ -18,15 +20,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..models.tta import predict_tta
+from ..models.yolo import create_model, decode
 from ..ops.geometry import poly2hbb, rbox2poly, scale_polys, xywh2xyxy
-from ..ops.rotated_nms import non_max_suppression_from_maps
+from ..ops.rotated_nms import (
+    non_max_suppression_from_maps,
+    non_max_suppression_obb,
+)
+from ..utils.checkpoint import load_model_weights
+from ..utils.fuse import fuse_conv_bn
 from ..utils.metrics import ap_per_class, process_batch_hbb
 
 
 def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
                     multi_label=True, max_candidates=4096,
                     agnostic: bool = False, classes=None,
-                    plain: bool = False):
+                    plain: bool = False, tta: bool = False):
     """Image → detections function, shared by the command-line tools.
 
     If ``model.packed_stem`` is set, the returned function expects the image
@@ -37,25 +46,99 @@ def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
     reference the kernels are checked against.
 
     The returned ``predict(images) -> (dets (B, max_det, 7), num (B,))``
-    runs under ``torch.inference_mode``.
+    runs under ``torch.inference_mode``; ``predict.device`` is the model's.
 
     ``multi_label`` (the default, as in the JAX package) lets every (box,
     class) pair above ``conf_thres`` compete for the ``max_candidates``
-    slots; ``False`` keeps the best class of each box."""
+    slots; ``False`` keeps the best class of each box.  ``tta`` runs
+    :func:`~..models.tta.predict_tta` (three scales, one flipped) and one
+    NMS over the merged rows; a packed-stem model refuses it (TTA
+    transforms the unpacked image)."""
     classes = tuple(int(c) for c in classes) if classes is not None else None
     packed = bool(model.packed_stem)
+    if packed and tta:
+        raise ValueError("packed_stem and tta are mutually exclusive "
+                         "(TTA transforms the unpacked image)")
+    nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
+               max_candidates=max_candidates, max_det=max_det,
+               multi_label=multi_label, agnostic=agnostic, classes=classes,
+               plain=plain)
 
     @torch.inference_mode()
     def predict(image_u8):
+        if tta:
+            pred = predict_tta(model, meta, image_u8.float() / 255.0,
+                               plain=plain)
+            return non_max_suppression_obb(pred, num_classes=meta.nc, **nms)
         x = image_u8 if packed else image_u8.float() / 255.0
         maps = model(x, plain=plain)
-        return non_max_suppression_from_maps(
-            maps, meta, conf_thres=conf_thres, iou_thres=iou_thres,
+        return non_max_suppression_from_maps(maps, meta, **nms)
+
+    predict.packed_stem = packed
+    predict.device = next(model.parameters()).device
+    return predict
+
+
+def load_ensemble_members(weights_list, cfg, nc, dtype=torch.float32,
+                          fuse: bool = True, device=None):
+    """N weights (checkpoint directories or state-dict ``.pt`` files, as the
+    CLIs' ``--weights``) → ``([(model, meta), ...], names)``: unpacked
+    models in ``dtype`` on ``device`` (the card unless ``"cpu"``), each with
+    its own checkpoint's anchors, Conv+BN folded unless ``fuse`` is False
+    (JAX evaluator.py:89; the reference's ``attempt_load`` of a weights
+    list).  ``cfg``: one config for all, or a comma-separated list pairing
+    each weight.  ``names``: the first checkpoint's that has them."""
+    cfgs = [c.strip() for c in str(cfg).split(",")] if cfg else [
+        "yolov5m.yaml"]
+    if len(cfgs) == 1:
+        cfgs = cfgs * len(weights_list)
+    if len(cfgs) != len(weights_list):
+        raise ValueError(f"{len(weights_list)} weights but {len(cfgs)} "
+                         "configs")
+    members, names = [], None
+    for w, c in zip(weights_list, cfgs):
+        model, meta = create_model(c, nc=nc, dtype=dtype, device=device)
+        wnames = load_model_weights(model, meta, w).get("names")
+        names = names or wnames
+        if fuse:
+            fuse_conv_bn(model)
+        members.append((model, meta))
+    return members, names
+
+
+def make_ensemble_predict_fn(members, conf_thres, iou_thres, max_det,
+                             multi_label=True, max_candidates=4096,
+                             agnostic: bool = False, classes=None,
+                             plain: bool = False):
+    """Model-level ensemble (JAX evaluator.py:120; the reference's
+    ``Ensemble``): every member's decoded rows are concatenated along the
+    anchor axis and go through one rotated NMS.  ``members``: ``[(model,
+    meta), ...]`` of unpacked models on one device; architectures may
+    differ, ``nc`` must match.  Returns ``predict(images_u8)`` as
+    :func:`make_predict_fn` does."""
+    classes = tuple(int(c) for c in classes) if classes is not None else None
+    if not members:
+        raise ValueError("ensemble needs at least one member")
+    nc = members[0][1].nc
+    if any(meta.nc != nc for _, meta in members):
+        raise ValueError("ensemble members must share nc")
+    if any(m.packed_stem for m, _ in members):
+        raise ValueError("ensemble members must be unpacked models")
+
+    @torch.inference_mode()
+    def predict(image_u8):
+        x = image_u8.float() / 255.0
+        hw = tuple(x.shape[1:3])
+        pred = torch.cat([decode(m(x, plain=plain), meta, hw)
+                          for m, meta in members], 1)
+        return non_max_suppression_obb(
+            pred, num_classes=nc, conf_thres=conf_thres, iou_thres=iou_thres,
             max_candidates=max_candidates, max_det=max_det,
             multi_label=multi_label, agnostic=agnostic, classes=classes,
             plain=plain)
 
-    predict.packed_stem = packed
+    predict.packed_stem = False
+    predict.device = next(members[0][0].parameters()).device
     return predict
 
 
@@ -74,25 +157,24 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
              max_det: int = 1500, verbose: bool = False,
              save_json: str | None = None, max_images: int | None = None,
              tta: bool = False, mesh=None, plots_dir=None,
-             plain: bool = False):
+             plain: bool = False, predict_fn=None):
     """HBB-metric evaluation of ``model`` over ``dataset`` (anything with
     ``names``, ``img_files``, ``img_size``, ``__len__`` and
     ``get_eval_sample``, as :class:`~..data.dota.DotaDataset`).
 
     Multi-label decode + rotated NMS at ``conf_thres`` / ``iou_thres`` with
     4096 candidates on the model's device (``plain`` runs the kernels'
-    plain versions).
-    ``tta``, ``mesh`` and ``plots_dir`` are not ported (ROADMAP.md queue 1
-    items 6 and 9).
+    plain versions; ``tta`` the augmented inference of
+    :func:`make_predict_fn`).  ``predict_fn`` (``images_u8 -> (dets,
+    num)`` with a ``device``, e.g. :func:`make_ensemble_predict_fn`'s)
+    replaces the model's; ``model`` may then be None.  ``mesh`` and
+    ``plots_dir`` are not ported (ROADMAP.md queue 1 items 6 and 9).
 
     Returns the JAX package's result dict: mp, mr, map50, map, per-class
     p/r/ap50/ap, ``speed_ms_per_img`` (the timed loop over the batches
     after one warm-up call), ``speed_pre_ms_per_img`` (host loading and
     letterboxing) and ``detections`` (native-resolution polys per image);
     ``save_json`` writes the DOTA JSON rows there."""
-    if tta:
-        raise NotImplementedError("test-time augmentation is not ported "
-                                  "(ROADMAP.md queue 1 item 6)")
     if mesh is not None:
         raise NotImplementedError("multi-device evaluation is not ported "
                                   "(ROADMAP.md queue 1 item 9)")
@@ -101,9 +183,10 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
                                   "are not ported (ROADMAP.md queue 1 item 6)")
     names = dataset.names
     iouv = np.linspace(0.5, 0.95, 10)
-    predict = make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
-                              multi_label=True, plain=plain)
-    device = next(model.parameters()).device
+    predict = predict_fn or make_predict_fn(
+        model, meta, conf_thres, iou_thres, max_det, multi_label=True,
+        plain=plain, tta=tta)
+    device = predict.device
 
     stats = []  # (tp, conf, cls, target_cls) per image
     json_out = []

@@ -162,6 +162,37 @@ class Detect(nn.Module):
         return outs
 
 
+def decode(maps, meta: ModelMeta, image_hw):
+    """Flat Detect maps → ``(B, sum(ny*nx*na), no)`` float32 decoded
+    predictions (JAX ``decode``, yolo.py:202): xy = (2σ - 0.5 + grid) ·
+    stride, wh = (2σ)² · anchor_px, everything else σ.
+
+    Each level ``(B, ny*nx*na, no)`` has the anchor index varying fastest;
+    ``ny``, ``nx`` are the input's ``image_hw`` over the level's stride, so
+    levels need not be square."""
+    H, W = image_hw
+    zs = []
+    for li, p in enumerate(maps):
+        B, n, no = p.shape
+        stride = meta.strides[li]
+        ny, nx = int(round(H / stride)), int(round(W / stride))
+        if ny * nx * meta.na != n:
+            raise ValueError(f"Detect level {li}: n={n} is not {ny}x{nx} "
+                             f"cells of {meta.na} anchors at stride {stride}")
+        y = torch.sigmoid(p.float().reshape(B, ny, nx, meta.na, no))
+        gy, gx = torch.meshgrid(
+            torch.arange(ny, dtype=torch.float32, device=p.device),
+            torch.arange(nx, dtype=torch.float32, device=p.device),
+            indexing="ij")
+        grid = torch.stack([gx, gy], -1)[:, :, None, :]  # (ny, nx, 1, 2)
+        anchor = torch.as_tensor(np.asarray(meta.anchors_px[li], np.float32),
+                                 device=p.device)  # (na, 2)
+        xy = (y[..., 0:2] * 2 - 0.5 + grid) * stride
+        wh = (y[..., 2:4] * 2) ** 2 * anchor
+        zs.append(torch.cat([xy, wh, y[..., 4:]], -1).reshape(B, n, no))
+    return torch.cat(zs, 1)
+
+
 # ---------------------------------------------------------------------------
 # full model graph
 # ---------------------------------------------------------------------------

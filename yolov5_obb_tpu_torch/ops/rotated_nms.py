@@ -227,6 +227,56 @@ def exact_select_pairs(cls_conf, conf_thres: float, k: int):
     return scores, idx // nc, (idx % nc).to(torch.int32)
 
 
+def obb_candidates(prediction, num_classes: int, conf_thres: float = 0.25,
+                   max_candidates: int = 4096, multi_label: bool = False,
+                   classes=None):
+    """The candidate selection of :func:`non_max_suppression_obb`: ``(rb
+    (B, k, 5) [cx cy l s θ], scores (B, k), cls_id (B, k))``, score-sorted,
+    empty slots at score 0."""
+    nc = num_classes
+    pred = prediction.float()
+    boxes, obj = pred[..., :4], pred[..., 4]
+    cls_conf = pred[..., 5:5 + nc] * obj[..., None]
+    cls_conf = _apply_class_filter(cls_conf, classes, nc)
+    B, N = obj.shape
+    k = min(max_candidates, N * nc if multi_label else N)
+    if multi_label:
+        scores, box_idx, cls_id = exact_select_pairs(cls_conf, conf_thres, k)
+    else:
+        best, cid = cls_conf.max(-1)  # first maximum on ties
+        gate = torch.where((best > conf_thres) & (obj > conf_thres), best,
+                           torch.zeros_like(best))
+        scores, box_idx = exact_select(gate, k)
+        cls_id = torch.gather(cid, 1, box_idx).to(torch.int32)
+    rows = lambda t: torch.gather(
+        t, 1, box_idx[..., None].expand(-1, -1, t.shape[-1]))
+    theta_idx = torch.argmax(rows(pred[..., 5 + nc:]), -1)
+    theta = (theta_idx.float() - 90.0) / 180.0 * PI
+    return torch.cat([rows(boxes), theta[..., None]], -1), scores, cls_id
+
+
+def non_max_suppression_obb(prediction, num_classes: int,
+                            conf_thres: float = 0.25, iou_thres: float = 0.45,
+                            max_candidates: int = 4096, max_det: int = 1500,
+                            multi_label: bool = False, agnostic: bool = False,
+                            classes=None, plain: bool = False):
+    """Candidate selection + rotated NMS of decoded predictions (JAX
+    ``non_max_suppression_obb``, rotated_nms.py:513): ``prediction`` is
+    ``(B, N, 5+nc+180)`` ``[cx cy l s obj cls... theta_bins...]``, the
+    sigmoid outputs of :func:`~..models.yolo.decode` in image pixels.
+
+    ``conf = cls·obj``; the best class of each box (single-label) or every
+    (box, class) pair (``multi_label``) above ``conf_thres`` competes for
+    ``k = min(max_candidates, N·nc or N)`` slots; θ is ``(argmax_bin -
+    90)°`` over the sigmoid bins (saturated bins tie in float32 and the
+    first wins, as in the JAX package).  Same output as
+    :func:`non_max_suppression_from_maps`."""
+    rb, scores, cls_id = obb_candidates(prediction, num_classes, conf_thres,
+                                        max_candidates, multi_label, classes)
+    return _suppress_compact_batch(rb, scores, cls_id, iou_thres, agnostic,
+                                   max_det, plain=plain)
+
+
 def decode_planes(maps, meta, classes=None, multi_label: bool = False):
     """Flat Detect maps → per-anchor f32 planes, concatenated over levels:
     x, y, w, h, obj, theta-bin argmax ``th``, and either the best class

@@ -15,8 +15,10 @@ file ``tools/import_torch_weights.py --sd`` reads).  The default IoU threshold i
 0.4, and 0.45 for ``--task speed`` (the reference's speed regime, with conf
 0.25).  ``--coco-eval`` (with ``--save-json``) scores the saved predictions
 with the COCO bbox metrics against the split's labels
-(``devkit/coco_eval.py``).  Not ported yet: ``--task study``, TTA
-(``--augment``), ensembles and exported artifacts as ``--weights``,
+(``devkit/coco_eval.py``).  ``--augment`` runs test-time augmentation
+(three scales, one flipped; never on the packed path), and ``--weights
+a,b`` a model ensemble: every member's decoded rows go through one NMS.
+Not ported yet: ``--task study``, exported artifacts as ``--weights``,
 ``--mesh`` and the plots (ROADMAP.md queue 1).
 """
 
@@ -30,7 +32,12 @@ import torch
 from .data.dota import DotaDataset
 from .devkit.coco_eval import coco_eval_bbox
 from .devkit.converters import dota_to_coco
-from .engine.evaluator import evaluate, save_dota_task1
+from .engine.evaluator import (
+    evaluate,
+    load_ensemble_members,
+    make_ensemble_predict_fn,
+    save_dota_task1,
+)
 from .models.yolo import create_model
 from .ops.geometry import poly2hbb
 from .utils.checkpoint import STATE, load_model_weights
@@ -77,8 +84,8 @@ def parse_opt(argv=None):
     p.add_argument("--exist-ok", action="store_true")
     p.add_argument("--coco-eval", action="store_true",
                    help="COCO bbox AP of the --save-json predictions")
+    p.add_argument("--augment", action="store_true", help="TTA inference")
     # not ported: each raises NotImplementedError when asked for
-    p.add_argument("--augment", action="store_true")
     p.add_argument("--mesh", type=int, default=0)
     p.add_argument("--plots", action="store_true")
     return p.parse_args(argv)
@@ -88,22 +95,21 @@ def _refuse_unported(opt) -> None:
     if opt.task == "study":
         raise NotImplementedError("--task study is not ported "
                                   "(ROADMAP.md queue 1 item 6)")
-    for flag, what, item in (("augment", "TTA (--augment)", 6),
-                             ("mesh", "--mesh", 9),
-                             ("plots", "the plots", 6)):
+    for flag, what, item in (("mesh", "--mesh", 9), ("plots", "the plots", 6)):
         if getattr(opt, flag):
             raise NotImplementedError(f"{what} is not ported "
                                       f"(ROADMAP.md queue 1 item {item})")
-    w = Path(opt.weights)
-    if opt.weights and "," not in opt.weights and not w.exists():
-        raise FileNotFoundError(f"--weights {opt.weights}: no such file or "
-                                "directory")
-    if opt.weights and ("," in opt.weights or not (
-            (w.suffix == ".pt" and w.is_file()) or (w / STATE).is_file())):
-        raise NotImplementedError(
-            "--weights takes one checkpoint directory or state-dict .pt; "
-            "ensembles and exported artifacts are not ported (ROADMAP.md "
-            "queue 1 items 6 and 9)")
+    for w in filter(None, (w.strip() for w in opt.weights.split(","))):
+        path = Path(w)
+        if not path.exists():
+            raise FileNotFoundError(f"--weights {w}: no such file or "
+                                    "directory")
+        if not ((path.suffix == ".pt" and path.is_file())
+                or (path / STATE).is_file()):
+            raise NotImplementedError(
+                f"--weights {w}: not a checkpoint directory or state-dict "
+                ".pt; exported artifacts are not ported (ROADMAP.md queue 1 "
+                "item 9)")
 
 
 def run(opt):
@@ -125,15 +131,29 @@ def run(opt):
 
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
     device = torch.device(opt.device or "cuda")
-    # the stem kernels compute bf16: the packed path only for a bf16 run on
-    # the card, so a float32 run keeps its numerics
-    packed = device.type == "cuda" and dtype == torch.bfloat16
-    model, meta = create_model(opt.cfg, nc=nc, dtype=dtype, device=device,
-                               seed=opt.seed, packed_stem=packed)
-    if opt.weights:
-        load_model_weights(model, meta, opt.weights)
-    if not opt.no_fuse:
-        fuse_conv_bn(model)
+    model = meta = predict_fn = None
+    if "," in opt.weights:
+        # a model ensemble: unpacked members, one NMS over their rows
+        if opt.augment:
+            raise ValueError("--augment with an ensemble is not supported")
+        members, _ = load_ensemble_members(
+            [w.strip() for w in opt.weights.split(",") if w.strip()],
+            opt.cfg, nc, dtype=dtype, fuse=not opt.no_fuse, device=device)
+        predict_fn = make_ensemble_predict_fn(members, conf, iou,
+                                              opt.max_det, multi_label=True)
+    else:
+        # the stem kernels compute bf16: the packed path only for a bf16
+        # run on the card, so a float32 run keeps its numerics (and never
+        # with TTA, which transforms the unpacked image)
+        packed = (device.type == "cuda" and dtype == torch.bfloat16
+                  and not opt.augment)
+        model, meta = create_model(opt.cfg, nc=nc, dtype=dtype,
+                                   device=device, seed=opt.seed,
+                                   packed_stem=packed)
+        if opt.weights:
+            load_model_weights(model, meta, opt.weights)
+        if not opt.no_fuse:
+            fuse_conv_bn(model)
 
     save_dir = increment_path(Path(opt.project) / opt.name,
                               exist_ok=opt.exist_ok)
@@ -142,7 +162,8 @@ def run(opt):
         iou_thres=iou, max_det=opt.max_det, verbose=True,
         save_json=(str(save_dir / "best_obb_predictions.json")
                    if opt.save_json and not speed else None),
-        max_images=(opt.max_images or 64) if speed else opt.max_images)
+        max_images=(opt.max_images or 64) if speed else opt.max_images,
+        tta=opt.augment, predict_fn=predict_fn)
     if speed:
         print(f"speed: {res['speed_ms_per_img']:.2f} ms/img "
               f"(bs={opt.batch_size}, conf={conf}, iou={iou})")
