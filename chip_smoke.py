@@ -128,7 +128,24 @@ Phases, each fatal on failure:
       127.0.0.1: 4 client threads POST the 16 PNGs 4 times, every reply 200
       and within phase (f)'s bars of the API's rows, a junk body 400;
       each step's seconds, the CLIs' printed speeds, serve latency and
-      batch sizes, peak memory.
+      batch sizes, peak memory;
+  (j) the model zoo: (j1) each of the 21 bundled configs at its published
+      width, nc 15, bf16, packed stem where its stem is Conv(6, 2),
+      density-tuned random weights from a seed, strides probed, one
+      single-label predict of 2 images at 256² (the C3 and downsample gates
+      scaled with the image to 64², so layers 2 and 3 take their kernels
+      as at 1024²) against its plain run: the kernels that the model's
+      layers call for launched and no other (rows 1-3 in every yolov5
+      config but yolov5s-ghost, whose stem runs on row 6; none in yolov3;
+      row 4 in all), the Detect maps within row 2's 0.06 or one bf16 ulp
+      of their scale, 0 keep-mask mismatches, phase (c)'s bar on the
+      detections; (j2) yolov5m6 at 1280², b16, phase (c)'s regime, against
+      its plain run (the same bars, detections within 1%), img/s and peak
+      memory; (j3) a yolov5m6 train step at 1280², b16 if phase (d)'s
+      peak times (1280/1024)² is under 60 GiB (else 8), against the plain
+      step (phase (d)'s bars), stem 1+1 and downsample 2+2 launches a
+      step, img/s and peak memory; (j4) yolov5s-transformer b16 at 1024²
+      (C3TR over 32x32 tokens) as (j2).
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -220,6 +237,8 @@ MMA_KERNELS = tuple(dict.fromkeys(n for names in MMA_SOURCES.values()
 # float32 operations per activated element: silu(z·g + b) forward; the
 # recomputed activation, silu' and the products of the backward
 ACT_OPS, DACT_OPS = 5, 12
+# seconds between the profiler's warm-up call and the recorded one
+PROFILE_PAUSE_S = 0.05
 
 
 def log(*a):
@@ -369,20 +388,47 @@ def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile_cycle(run, activities=None):
+    """``torch.profiler``'s averages (``key_averages()``) over one call of
+    ``run``, recorded after an unrecorded warm-up call and a pause: CUPTI
+    can lose the first kernels of a session, and those of a recording
+    begun straight after its warm-up (the train step's stem forward was
+    lost so).  The schedule's ``ProfilerStep*`` range, which the trace
+    also files as device time, is left out."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cycles = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "clears events at each cycle"
+        with profile(activities=activities or [ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: cycles.append(
+                         p.key_averages())) as prof:
+            for i in range(2):
+                if i:
+                    time.sleep(PROFILE_PAUSE_S)
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+    require(len(cycles) == 1, f"profiled {len(cycles)} cycles, not 1")
+    return [e for e in cycles[0] if not e.key.startswith("ProfilerStep")]
+
+
 def profiled_ms(fn, iters: int = 10) -> float:
     """Mean device ms per call of the kernels ``fn`` launches, from the
     profiler: for a call shorter than its own enqueue, where CUDA events
     around back-to-back calls time the host."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
+
+    return sum(e.self_device_time_total for e in profile_cycle(run)
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
 
 
@@ -1277,6 +1323,26 @@ def tune_density(predict, set_obj, x) -> float:
     return (lo + hi) / 2
 
 
+def path_candidates(maps, meta):
+    """The single-label candidates that post-processing takes from these
+    Detect maps at phase (c)'s conf and candidate count, cut to their
+    tier: rotated boxes, scores, class ids, the tier."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops import rotated_nms as R
+
+    pl = R.decode_planes(maps, meta)
+    gate = torch.where((pl["best"] > CONF) & (pl["obj"] > CONF),
+                       pl["best"], torch.zeros_like(pl["best"]))
+    sc, idx = R.exact_select(gate, min(MAXC, gate.shape[1]))
+    kk = R._tier(sc.shape[1], int((sc > 0).sum(1).max()))
+    cid = torch.gather(pl["cid"], 1, idx)[:, :kk]
+    th = (torch.gather(pl["th"], 1, idx).float() - 90.0) / 180.0 * R.PI
+    rb = torch.stack([torch.gather(pl[c], 1, idx) for c in "xywh"]
+                     + [th], -1)[:, :kk].contiguous()
+    return rb, sc[:, :kk], cid, kk
+
+
 def main_path(dev, report):
     import torch
 
@@ -1336,16 +1402,7 @@ def main_path(dev, report):
                 if a == b:
                     cls_mismatch += int((d_k[i, :a, 6] != d_p[i, :a, 6]).sum())
             # the kernel path's own candidates through both NMS versions
-            pl = R.decode_planes(maps_k, meta)
-            gate = torch.where((pl["best"] > CONF) & (pl["obj"] > CONF),
-                               pl["best"], torch.zeros_like(pl["best"]))
-            sc, idx = R.exact_select(gate, min(MAXC, gate.shape[1]))
-            kk = R._tier(sc.shape[1], int((sc > 0).sum(1).max()))
-            cid = torch.gather(pl["cid"], 1, idx)[:, :kk]
-            th = (torch.gather(pl["th"], 1, idx).float() - 90.0) / 180.0 * R.PI
-            rb = torch.stack([torch.gather(pl[c], 1, idx) for c in "xywh"]
-                             + [th], -1)[:, :kk].contiguous()
-            sc = sc[:, :kk]
+            rb, sc, cid, kk = path_candidates(maps_k, meta)
             keep_k = R.nms_rotated(rb, sc, IOU, cid, presorted=True)
             keep_p = R.nms_rotated(rb, sc, IOU, cid, presorted=True, plain=True)
             keep_mismatch += int((keep_k != keep_p).sum())
@@ -1458,7 +1515,7 @@ def c3_gate_ab(model, x):
 # ---------------------------------------------------------------------------
 
 
-def train_batches(dev, csl_radius):
+def train_batches(dev, csl_radius, batch=BATCH, imgsz=IMGSZ):
     """Two distinct seeded batches as tools/bench_train.py builds them (64
     label slots, 8 live targets), the CSL rows from the port's
     csl_gaussian_labels; the image as the packed (B, H, 3W) view."""
@@ -1469,19 +1526,19 @@ def train_batches(dev, csl_radius):
     rng = np.random.default_rng(0)
     out = []
     for _ in range(2):
-        img = rng.integers(0, 255, (BATCH, IMGSZ, IMGSZ, 3), dtype=np.uint8)
-        tg = np.zeros((BATCH, MAX_LABELS, 186), np.float32)
-        tg[:, :LIVE, 0] = rng.integers(0, 15, (BATCH, LIVE))
-        tg[:, :LIVE, 1:3] = rng.uniform(100, 900, (BATCH, LIVE, 2))
-        tg[:, :LIVE, 3:5] = rng.uniform(20, 120, (BATCH, LIVE, 2))
-        tg[:, :LIVE, 5] = rng.uniform(-1.5, 1.5, (BATCH, LIVE))
+        img = rng.integers(0, 255, (batch, imgsz, imgsz, 3), dtype=np.uint8)
+        tg = np.zeros((batch, MAX_LABELS, 186), np.float32)
+        tg[:, :LIVE, 0] = rng.integers(0, 15, (batch, LIVE))
+        tg[:, :LIVE, 1:3] = rng.uniform(100, 900, (batch, LIVE, 2))
+        tg[:, :LIVE, 3:5] = rng.uniform(20, 120, (batch, LIVE, 2))
+        tg[:, :LIVE, 5] = rng.uniform(-1.5, 1.5, (batch, LIVE))
         tg[:, :LIVE, 6:] = csl_gaussian_labels(
             tg[:, :LIVE, 5].reshape(-1) * 180 / np.pi + 90,
-            radius=csl_radius).reshape(BATCH, LIVE, 180)
-        mask = np.zeros((BATCH, MAX_LABELS), bool)
+            radius=csl_radius).reshape(batch, LIVE, 180)
+        mask = np.zeros((batch, MAX_LABELS), bool)
         mask[:, :LIVE] = True
         out.append(tuple(torch.from_numpy(a).to(dev) for a in (
-            img.reshape(BATCH, IMGSZ, -1), tg, mask)))
+            img.reshape(batch, imgsz, -1), tg, mask)))
     require(out[0][0].data_ptr() != out[1][0].data_ptr(),
             "batches share buffers")
     return out
@@ -1665,16 +1722,13 @@ def profile_step(step, state, batch, step_ms):
     the groups of ``_GROUPS``; the idle share compares the device time with
     the unprofiled step time ``step_ms``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        float(step(state, *batch)["loss"])
-    torch.cuda.synchronize()
+    averages = profile_cycle(lambda: float(step(state, *batch)["loss"]),
+                             [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     # the kernels themselves: an aten op's entry repeats its kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     device_ms = sum(ms for _, ms, _ in rows)
@@ -3459,6 +3513,331 @@ def detect_surface(dev, report, delta, cfg="yolov5m.yaml"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# (j) the model zoo
+# ---------------------------------------------------------------------------
+
+ZOO_SIZE, ZOO_BATCH = 256, 2  # (j1): every bundled config
+M6_CFG, M6_SIZE = "yolov5m6.yaml", 1280  # (j2), (j3): the P6 native size
+TR_CFG = "yolov5s-transformer.yaml"  # (j4), at IMGSZ
+ZOO_ITERS, ZOO_TRAIN_ITERS = 8, 6
+TRAIN_MEM_CAP_GIB = 60  # (j3): batch 16 if phase (d)'s peak, scaled, fits
+
+
+def zoo_configs():
+    from yolov5_obb_tpu_torch.models import yolo
+
+    return sorted(p.name for p in (Path(yolo.__file__).parent
+                                   / "configs").glob("*.yaml")
+                  if p.name != "anchors.yaml")
+
+
+def zoo_batch(gen, model, batch, size, dev):
+    """A seeded uint8 batch: the packed (B, H, 3W) view for a packed-stem
+    model, NHWC otherwise."""
+    import torch
+
+    x = torch.randint(0, 256, (batch, size, size * 3), generator=gen,
+                      device=dev, dtype=torch.uint8)
+    return x if model.packed_stem else x.view(batch, size, size, 3)
+
+
+def _maps_bar(scale: float) -> float:
+    """The Detect maps' bar, kernels against plain: row 2's 0.06 or one
+    bf16 ulp of the maps' largest value, whichever is larger."""
+    return max(0.06, 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7))
+
+
+def kernels_wanted(model, x) -> set:
+    """The inference kernels this model's predict must launch on ``x``:
+    row 4 (records and neighbour scan) always; the stem+L1 kernel where
+    layers 0-1 fold, else the stem kernel where the stem is packed; the C3
+    and downsample kernels where a layer is eligible at its input (forward
+    pre-hooks on a plain forward)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.models import layers as L
+
+    want = {"riou_boxes", "neighbor"}
+    if model.packed_l1:
+        want.add("stem_l1")
+    elif model.packed_stem:
+        want.add("stem")
+
+    def hook(m, args):
+        if isinstance(m, L.C3) and m.eligible(args[0]):
+            want.add("c3")
+        if type(m) is L.ConvBnAct and m.down_eligible(args[0]):
+            want.add("down")
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, (L.C3, L.ConvBnAct))]
+    try:
+        with torch.inference_mode():
+            model(x if model.packed_stem else x.float() / 255.0, plain=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return want
+
+
+def predict_vs_plain(model, meta, xs):
+    """One counted single-label predict a batch through the kernels
+    (phase (c)'s conf, IoU, candidates, max_det), then the same batches
+    through the plain versions: each inference kernel's launches, the
+    Detect maps' max |Δ| and their scale, the keep masks of both NMS
+    versions on the kernel path's own candidates (rows that differ), the
+    detections per image of both runs."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+
+    kw = dict(multi_label=False, max_candidates=MAXC)
+    predict = make_predict_fn(model, meta, CONF, IOU, MAX_DET, **kw)
+    plain = make_predict_fn(model, meta, CONF, IOU, MAX_DET, plain=True,
+                            **kw)
+    kernels = {n: k for n, k in _named_kernels().items()
+               if n in INFER + ("stem",)}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    outs = [predict(x) for x in xs]
+    torch.cuda.synchronize()
+    res = {"launches": {n: k.launches for n, k in kernels.items()},
+           "maps_abs_err": 0.0, "maps_scale": 0.0, "keep_mismatches": 0,
+           "candidates_max": 0, "dets": [], "dets_plain": []}
+    with torch.inference_mode():
+        for x, (d_k, n_k) in zip(xs, outs):
+            require(d_k.shape == (x.shape[0], MAX_DET, 7)
+                    and bool(torch.isfinite(d_k).all()),
+                    f"detections {tuple(d_k.shape)}, finite "
+                    f"{bool(torch.isfinite(d_k).all())}")
+            inp = x if model.packed_stem else x.float() / 255.0
+            maps_k = model(inp)
+            for a, b in zip(maps_k, model(inp, plain=True)):
+                res["maps_abs_err"] = max(res["maps_abs_err"], float(
+                    (a.float() - b.float()).abs().max()))
+                res["maps_scale"] = max(res["maps_scale"],
+                                        float(b.float().abs().max()))
+            res["dets_plain"] += plain(x)[1].tolist()
+            res["dets"] += n_k.tolist()
+            rb, sc, cid, kk = path_candidates(maps_k, meta)
+            res["keep_mismatches"] += _keep_masks(rb, sc, cid, kk)
+            res["candidates_max"] = max(res["candidates_max"],
+                                        int((sc > 0).sum(1).max()))
+    res["dets_abs_diff"] = int(sum(abs(a - b) for a, b in
+                                   zip(res["dets"], res["dets_plain"])))
+    return res
+
+
+def _hold(tag, res, want, det_bar):
+    """The bars of (j1), (j2), (j4): the kernels in ``want`` launched and
+    no other, the maps within :func:`_maps_bar`, 0 keep-mask mismatches,
+    the detections' differences within ``det_bar``."""
+    launched = {n for n, v in res["launches"].items() if v}
+    require(launched == want, f"{tag}: kernels launched {res['launches']}, "
+            f"wanted {sorted(want)}")
+    require(res["maps_abs_err"] <= _maps_bar(res["maps_scale"]),
+            f"{tag}: Detect maps differ from the plain run's by "
+            f"{res['maps_abs_err']:.4g} at scale {res['maps_scale']:.4g}")
+    require(res["keep_mismatches"] == 0,
+            f"{tag}: {res['keep_mismatches']} keep-mask mismatches")
+    require(res["dets_abs_diff"] <= det_bar,
+            f"{tag}: detections differ from the plain run's by "
+            f"{res['dets_abs_diff']} (bar {det_bar:.1f}): {res}")
+    require(min(res["dets"]) > 0, f"{tag}: an image without detections")
+
+
+def zoo_configs_path(dev, report):
+    """(j1) every bundled config at its published width, nc 15, bf16,
+    packed stem where the config has the Conv(6, 2) stem, random weights
+    from a seed with the detection density tuned, its strides probed; one
+    predict of a seeded batch of ZOO_BATCH at ZOO_SIZE² against its plain
+    run (phase (c)'s bar on the detections, :func:`_maps_bar` on the maps,
+    keep masks exact).  The kernel gates are the default's scaled with the
+    image, (ZOO_SIZE / 4)², so layers 2 and 3 take the C3 and downsample
+    kernels as they do at 1024²."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+    from yolov5_obb_tpu_torch.models import layers
+
+    gates = layers.FUSED_C3_MIN_SPATIAL, layers.FUSED_DOWN_MIN_SPATIAL
+    layers.FUSED_C3_MIN_SPATIAL = layers.FUSED_DOWN_MIN_SPATIAL = \
+        (ZOO_SIZE // 4) ** 2
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out, launches = {}, {}
+    try:
+        for seed, cfg in enumerate(zoo_configs()):
+            t = time.perf_counter()
+            model, meta, set_obj = density_model(dev, cfg, seed=seed)
+            x = zoo_batch(gen, model, ZOO_BATCH, ZOO_SIZE, dev)
+            delta = tune_density(make_predict_fn(
+                model, meta, CONF, IOU, MAX_DET, multi_label=False,
+                max_candidates=MAXC), set_obj, x)
+            want = kernels_wanted(model, x)
+            if cfg.startswith("yolov3"):
+                require(want == {"riou_boxes", "neighbor"},
+                        f"{cfg}: {sorted(want)}")
+            elif cfg != "yolov5s-ghost.yaml":
+                require({"stem_l1", "c3", "down"} <= want,
+                        f"{cfg}: {sorted(want)}")
+            res = predict_vs_plain(model, meta, [x])
+            total = sum(res["dets_plain"])
+            _hold(cfg, res, want, max(10, 0.02 * total))
+            for n, v in res["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+            out[cfg] = {"strides": list(meta.strides), "nl": meta.nl,
+                        "packed_stem": model.packed_stem,
+                        "packed_l1": model.packed_l1, "obj_delta": delta,
+                        "params_m": sum(p.numel() for p in
+                                        model.parameters()) / 1e6,
+                        "s": time.perf_counter() - t, **res}
+            log(f"(j1) {cfg}: " + json.dumps(out[cfg]))
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        layers.FUSED_C3_MIN_SPATIAL, layers.FUSED_DOWN_MIN_SPATIAL = gates
+    report["zoo_configs"] = out
+    return launches
+
+
+def zoo_predict(dev, report, cfg, size, key, batches=2):
+    """(j2) yolov5m6 at M6_SIZE², (j4) yolov5s-transformer at IMGSZ²:
+    BATCH images a batch, bf16, phase (c)'s regime and density tuning,
+    against the plain path (keep masks equal, detections per image within
+    1%, the maps within :func:`_maps_bar`, rows 1-4 launched); the
+    predict's img/s over ZOO_ITERS pipelined calls and peak memory."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.evaluator import make_predict_fn
+
+    t0 = time.perf_counter()
+    model, meta, set_obj = density_model(dev, cfg)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    xs = [zoo_batch(gen, model, BATCH, size, dev) for _ in range(batches)]
+    predict = make_predict_fn(model, meta, CONF, IOU, MAX_DET,
+                              multi_label=False, max_candidates=MAXC)
+    delta = tune_density(predict, set_obj, xs[0])
+    want = kernels_wanted(model, xs[0])
+    require({"stem_l1", "c3", "down", "riou_boxes", "neighbor"} == want,
+            f"{cfg}: {sorted(want)}")
+    res = predict_vs_plain(model, meta, xs)
+    _hold(cfg, res, want, 0.01 * sum(res["dets_plain"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    predict(xs[0])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    acc = torch.zeros((), device=dev)
+    for i in range(ZOO_ITERS):
+        d_, n_ = predict(xs[i % batches])
+        acc = acc + d_.sum() + n_.sum()
+    require(np.isfinite(float(acc)), "non-finite timing checksum")
+    dt = (time.perf_counter() - t) / ZOO_ITERS
+    with torch.inference_mode():
+        forward_ms = cuda_time(lambda: model(xs[1 % batches]), 3)
+    report[key] = {"cfg": cfg, "imgsz": size, "batch": BATCH,
+                   "obj_delta": delta, "imgs_per_s": BATCH / dt,
+                   "ms_per_img": dt * 1e3 / BATCH,
+                   "forward_ms_per_batch": forward_ms,
+                   "dets_per_img": float(np.mean(res["dets"])),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "s": time.perf_counter() - t0, **res}
+    log(f"({key}) " + json.dumps(report[key]))
+    return res["launches"]
+
+
+def zoo_train_step(dev, report):
+    """(j3) a yolov5m6 train step at M6_SIZE², bf16, packed stem, stock
+    path, seeded batches as phase (d) builds them: batch 16 if phase (d)'s
+    peak scaled by (M6_SIZE / IMGSZ)² fits under TRAIN_MEM_CAP_GIB, else
+    8; the step against the same step on the plain versions (phase (d)'s
+    bars, :func:`compare_plain_step`); TRAIN_LAUNCHES a step (stem 1+1,
+    downsample 2+2, layers 1 and 3 at 640² and 320²) over
+    ZOO_TRAIN_ITERS steps after 2 warm-up; img/s, peak memory."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
+    from yolov5_obb_tpu_torch.engine.optim import build_optimizer
+    from yolov5_obb_tpu_torch.engine.trainer import (
+        create_train_state,
+        make_train_step,
+    )
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
+
+    t0 = time.perf_counter()
+    est = report["train_peak_mem_gib"] * (M6_SIZE / IMGSZ) ** 2
+    batch = 16 if est < TRAIN_MEM_CAP_GIB else 8
+    model, meta = create_model(M6_CFG, nc=15, dtype=torch.bfloat16,
+                               device=dev, seed=0, packed_stem=True)
+    hyp = load_hyp()
+    loss_fn = ComputeLoss(meta, scale_hyp_gains(hyp, meta.nl, meta.nc,
+                                                M6_SIZE))
+    opt, _ = build_optimizer(model, hyp, epochs=10, steps_per_epoch=100,
+                             batch_size=batch, nominal_batch=batch)
+    state = create_train_state(opt)
+    step = make_train_step(model, loss_fn, opt, device=dev)
+    batches = train_batches(dev, hyp["csl_radius"], batch, M6_SIZE)
+    cmp = compare_plain_step(model, loss_fn, opt, batches[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        float(step(state, *batches[i])["loss"])
+    kernels = {n: k for n, k in _named_kernels().items()
+               if n in TRAIN_LAUNCHES}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(ZOO_TRAIN_ITERS):
+        m = step(state, *batches[i % 2])
+    loss = float(m["loss"])
+    dt = time.perf_counter() - t
+    launches = {n: k.launches for n, k in kernels.items()}
+    require(all(launches[n] == ZOO_TRAIN_ITERS * per
+                for n, per in TRAIN_LAUNCHES.items()),
+            f"(j3) train kernel launches {launches}, per step "
+            f"{TRAIN_LAUNCHES}")
+    items = m["items"].float().tolist()
+    require(bool(np.isfinite([loss] + items).all()),
+            f"(j3) non-finite loss {loss} / items {items}")
+    report["zoo_train"] = {
+        "cfg": M6_CFG, "imgsz": M6_SIZE, "batch": batch,
+        "batch_rule": f"phase (d) peak {report['train_peak_mem_gib']:.2f} "
+                      f"GiB x {(M6_SIZE / IMGSZ) ** 2:.4f} = {est:.2f} GiB "
+                      f"{'<' if batch == 16 else '>='} {TRAIN_MEM_CAP_GIB}",
+        "imgs_per_s": ZOO_TRAIN_ITERS * batch / dt,
+        "step_ms": dt * 1e3 / ZOO_TRAIN_ITERS,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": {n: v / ZOO_TRAIN_ITERS
+                              for n, v in launches.items()},
+        "loss": loss, "items": items, "vs_plain": cmp,
+        "s": time.perf_counter() - t0}
+    log("(j3) " + json.dumps(report["zoo_train"]))
+    return launches
+
+
+def zoo_path(dev, report):
+    """Phase (j): (j1) every bundled config, (j2) yolov5m6 at 1280², (j3)
+    its train step, (j4) yolov5s-transformer at 1024²; each kernel's
+    launches summed."""
+    import torch
+
+    t = time.perf_counter()
+    launches = {}
+    for part in (lambda: zoo_configs_path(dev, report),
+                 lambda: zoo_predict(dev, report, M6_CFG, M6_SIZE, "j2"),
+                 lambda: zoo_train_step(dev, report),
+                 lambda: zoo_predict(dev, report, TR_CFG, IMGSZ, "j4")):
+        for n, v in part().items():
+            launches[n] = launches.get(n, 0) + v
+        torch.cuda.empty_cache()
+    report["zoo_s"] = time.perf_counter() - t
+    report["zoo_launches"] = launches
+    return launches
+
+
 def pre_fmt(speed) -> str:
     return (f"{speed['pre']:.1f} ms pre-process + "
             f"{speed['inference_nms']:.1f} ms inference+NMS a image")
@@ -3594,6 +3973,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # (i) the detect surface: detect CLI, TTA, ensemble, API, serve
     add(detect_surface(dev, report, report["obj_delta"]))
+    torch.cuda.empty_cache()
+    # (j) the model zoo: every config, yolov5m6 at 1280², its train step,
+    # yolov5s-transformer
+    add(zoo_path(dev, report))
     log("main path: " + json.dumps(report))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "

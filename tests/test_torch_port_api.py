@@ -133,6 +133,16 @@ def test_png_paths_and_other_formats(tmp_path, monkeypatch):
     np.testing.assert_array_equal(image_io.imdecode(data), img)
 
 
+def test_empty_data_is_undecodable(tmp_path, monkeypatch):
+    """Empty bytes and a zero-byte file read as undecodable (None, as
+    ``cv2.imread`` gives for an empty file) before any OpenCV call."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    assert image_io.imdecode(b"") is None
+    assert image_io.imdecode(bytearray()) is None
+    (tmp_path / "empty.png").write_bytes(b"")
+    assert image_io.imread(tmp_path / "empty.png") is None
+
+
 # ---------------------------------------------------------------------------
 # the API and the server
 # ---------------------------------------------------------------------------
@@ -163,6 +173,36 @@ def models(tmp_path_factory):
     return types.SimpleNamespace(
         jax=jax_model, port=OBBModel(weights=str(root / "w.pt"),
                                      device="cpu", **kw), root=root)
+
+
+def test_api_raises_file_not_found_on_an_empty_file(models, tmp_path):
+    """A zero-byte image file raises ``FileNotFoundError``, as the JAX
+    API does."""
+    (tmp_path / "empty.png").write_bytes(b"")
+    with pytest.raises(FileNotFoundError, match="empty.png"):
+        models.port(str(tmp_path / "empty.png"))
+    with pytest.raises(FileNotFoundError):
+        models.jax(str(tmp_path / "empty.png"))
+
+
+def test_serve_answers_400_to_an_empty_body(models):
+    """An empty POST body gets 400 and the server goes on answering."""
+    from yolov5_obb_tpu_torch.serve import _Worker, make_handler
+
+    worker = _Worker(models.port, max_batch=1)
+    worker.start()
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(worker))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/v1/obb-detection"
+    try:
+        for _ in range(2):
+            req = urllib.request.Request(url, data=b"", method="POST")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                urllib.request.urlopen(req, timeout=60)
+            assert e.value.code == 400
+            assert "not a decodable image" in e.value.read().decode()
+    finally:
+        srv.shutdown()
 
 
 def _scene(seed, h=120, w=160):

@@ -355,3 +355,22 @@ def test_val_cli_augment_and_ensemble_match_jax(det, tmp_path, case,
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_val.main(["--data", str(det.data), "--device", "cpu",
                        "--plots"])
+
+
+def test_detect_cli_skips_an_empty_file(det, tmp_path, capsys):
+    """A zero-byte ``.png`` in the source directory is skipped as
+    unreadable (JAX detect.py:118-121) and the other images are read: one
+    label file, for the image that decodes."""
+    src = tmp_path / "src"
+    src.mkdir()
+    good = sorted((det.src / "images").glob("*.png"))[0]
+    (src / good.name).write_bytes(good.read_bytes())
+    (src / "empty.png").write_bytes(b"")
+    port_detect.main(
+        ["--weights", str(det.root / "w.pt"), "--source", str(src),
+         "--data", str(det.data), "--imgsz", str(S), "--conf-thres",
+         "0.03", "--save-txt", "--nosave", "--device", "cpu", "--project",
+         str(tmp_path), "--name", "port", "--exist-ok"])
+    assert f"skipping unreadable {src / 'empty.png'}" in capsys.readouterr().out
+    assert [p.name for p in (tmp_path / "port" / "labels").iterdir()] == [
+        good.with_suffix(".txt").name]

@@ -1,9 +1,11 @@
 """Layers of the YOLOv5-OBB graph, NHWC, inference and training.
 
-Counterparts of ``yolov5_obb_tpu/models/layers.py`` for the modules the
-yolov5n/s/m/l/x and yolov5s-ghost configs use.  Module and parameter names follow the
-reference PyTorch model (``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m``), so
-a reference state_dict maps onto them key for key.
+Counterparts of ``yolov5_obb_tpu/models/layers.py``: every module of the
+JAX zoo but its TPU-only parameter twins, so every bundled config builds.
+Module and parameter names follow the reference PyTorch model
+(``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m``), so a reference state_dict
+maps onto them key for key (the attention keeps flax's separate
+``query``/``key``/``value``/``out`` projections).
 
 Activations are NHWC tensors; a convolution views them as channels-last
 NCHW for ``F.conv2d`` (no copy).  Convs compute in the activation dtype,
@@ -23,6 +25,7 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -111,17 +114,33 @@ def silu(y):
     return y * torch.sigmoid(y)
 
 
+def _norm(bn, z):
+    """BatchNorm of an NHWC tensor: the batch statistics in train mode,
+    its result cast to :func:`bn_dtype`; the running statistics in eval
+    mode, in float32."""
+    if bn.training:
+        return batch_norm_train(bn, z).to(bn_dtype())
+    mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+    return (z.float() - bn.running_mean) * mul + bn.bias
+
+
 def _bn_act(m, z, dtype):
     """BatchNorm (batch statistics in train mode, running ones in eval) +
     SiLU in :func:`bn_dtype` → ``dtype``."""
-    bn = m.bn
-    if m.training:
-        y = batch_norm_train(bn, z).to(bn_dtype())
-    else:
-        mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-        y = (z.float() - bn.running_mean) * mul + bn.bias
+    y = _norm(m.bn, z)
     y = silu(y) if m.act else y
     return y.to(dtype)
+
+
+def _conv(conv: nn.Conv2d, x):
+    """``conv`` on an NHWC tensor in ``x``'s dtype (its bias too, if any)."""
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    return _nhwc(F.conv2d(_nchw(x), conv.weight.to(x.dtype), b, conv.stride,
+                          conv.padding, conv.dilation, conv.groups))
+
+
+def _bn_module(c):
+    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBnAct(nn.Module):
@@ -139,7 +158,7 @@ class ConvBnAct(nn.Module):
         self.fused = fused
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g,
                               bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = _bn_module(c2)
 
     def _down_shape(self, x) -> bool:
         ci, co = self.conv.in_channels, self.conv.out_channels
@@ -166,9 +185,7 @@ class ConvBnAct(nn.Module):
             w = self.conv.weight.permute(2, 3, 1, 0).reshape(9 * ci, co)
             z = down_conv_train(x, w, plain=plain)
         else:
-            z = _nhwc(F.conv2d(_nchw(x), self.conv.weight.to(x.dtype), None,
-                               self.conv.stride, self.conv.padding, 1,
-                               self.g))
+            z = _conv(self.conv, x)
         return _bn_act(self, z, x.dtype)
 
 
@@ -361,3 +378,298 @@ class C3Ghost(C3):
         super().__init__(c1, c2, n, shortcut, g, e)
         c_ = int(c2 * e)
         self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo (JAX layers.py:301-328, :520-609, :634-654, :717-880)
+# ---------------------------------------------------------------------------
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck, the original formulation (reference
+    models/common.py:107-123): a standalone BatchNorm + SiLU over the
+    concatenation of two raw 1x1 convs (``cv3`` after the bottlenecks,
+    ``cv2`` on the input), then ``cv4``."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv4 = ConvBnAct(2 * c_, c2, 1, 1)
+        self.bn = _bn_module(2 * c_)
+        self.m = nn.Sequential(
+            *(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+    def forward(self, x, plain: bool = False):
+        y1 = self.cv1(x, plain)
+        for b in self.m:
+            y1 = b(y1, plain)
+        y = torch.cat([_conv(self.cv3, y1), _conv(self.cv2, x)], -1)
+        return self.cv4(silu(_norm(self.bn, y)).to(x.dtype), plain)
+
+
+def _linear(lin: nn.Linear, x):
+    """``lin`` in ``x``'s dtype; the bias added after the product, as flax's
+    ``Dense`` adds it."""
+    y = x @ lin.weight.to(x.dtype).t()
+    return y if lin.bias is None else y + lin.bias.to(x.dtype)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` without masks or dropout:
+    separate ``query``/``key``/``value`` projections with bias, the query
+    scaled by ``1/sqrt(head_dim)``, a softmax over the keys (the ops of
+    ``jax.nn.softmax``), the ``out`` projection with bias.  Written as
+    explicit products (no fused attention backend, whose rounding
+    differs)."""
+
+    def __init__(self, c, num_heads):
+        super().__init__()
+        self.h = num_heads
+        self.query = nn.Linear(c, c)
+        self.key = nn.Linear(c, c)
+        self.value = nn.Linear(c, c)
+        self.out = nn.Linear(c, c)
+
+    def forward(self, q, k, v):
+        B, N, C = q.shape
+        d = C // self.h
+        heads = lambda lin, t: _linear(lin, t).reshape(B, -1, self.h, d)
+        qh = heads(self.query, q) / torch.tensor(math.sqrt(d), dtype=q.dtype)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, heads(self.key, k))
+        # jax.nn.softmax's ops, each rounded to the dtype (a fused softmax
+        # rounds once and differs by an ulp in ~half the bf16 weights)
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        w = e / e.sum(-1, keepdim=True)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, heads(self.value, v))
+        return _linear(self.out, o.reshape(B, N, C))
+
+
+class TransformerLayer(nn.Module):
+    """LayerNorm-free transformer layer (reference models/common.py:58-72):
+    ``q``/``k``/``v`` and ``fc1``/``fc2`` without bias."""
+
+    def __init__(self, c, num_heads):
+        super().__init__()
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = MultiHeadAttention(c, num_heads)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def forward(self, x):
+        x = self.ma(_linear(self.q, x), _linear(self.k, x),
+                    _linear(self.v, x)) + x
+        return _linear(self.fc2, _linear(self.fc1, x)) + x
+
+
+class TransformerBlock(nn.Module):
+    """ViT-style block over the flattened ``h*w`` tokens (reference
+    models/common.py:75-91): a learned position ``linear`` (with bias)
+    added to the tokens, then ``num_layers`` transformer layers."""
+
+    def __init__(self, c1, c2, num_heads, num_layers):
+        super().__init__()
+        self.conv = ConvBnAct(c1, c2) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(
+            *(TransformerLayer(c2, num_heads) for _ in range(num_layers)))
+        self.c2 = c2
+
+    def forward(self, x, plain: bool = False):
+        if self.conv is not None:
+            x = self.conv(x, plain)
+        B, H, W, C = x.shape
+        p = x.reshape(B, H * W, C)
+        p = p + _linear(self.linear, p)
+        for layer in self.tr:
+            p = layer(p)
+        return p.reshape(B, H, W, self.c2)
+
+
+class C3TR(C3):
+    """C3 with a TransformerBlock inner stage (reference
+    models/common.py:141-146).  Never the C3 kernel: the kernel computes
+    bottlenecks, not attention."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = TransformerBlock(c_, c_, 4, n)
+
+    def eligible(self, x) -> bool:
+        return False
+
+    def forward(self, x, plain: bool = False):
+        y1 = self.m(self.cv1(x, plain), plain)
+        return self.cv3(torch.cat([y1, self.cv2(x, plain)], -1), plain)
+
+
+def _max_pool(x, k, s, p=0):
+    return _nhwc(F.max_pool2d(_nchw(x), k, s, p))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling (reference models/common.py:165-178)."""
+
+    def __init__(self, c1, c2, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x, plain: bool = False):
+        x = self.cv1(x, plain)
+        pools = [_max_pool(x, k, 1, k // 2) for k in self.k]
+        return self.cv2(torch.cat([x, *pools], -1), plain)
+
+
+class C3SPP(C3):
+    """C3 with an SPP inner stage (reference models/common.py:149-154);
+    the JAX package's argument order, ``k`` last."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5,
+                 k=(5, 9, 13)):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = SPP(c_, c_, k)
+
+    def eligible(self, x) -> bool:
+        return False
+
+    def forward(self, x, plain: bool = False):
+        y1 = self.m(self.cv1(x, plain), plain)
+        return self.cv3(torch.cat([y1, self.cv2(x, plain)], -1), plain)
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem (reference models/common.py:199-208): the four
+    pixel phases ``[::2, ::2]``, ``[1::2, ::2]``, ``[::2, 1::2]``,
+    ``[1::2, 1::2]`` (rows, columns) stacked on the channels, then a
+    ConvBnAct."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, act=True):
+        super().__init__()
+        self.conv = ConvBnAct(c1 * 4, c2, k, s, p, g, act)
+
+    def forward(self, x, plain: bool = False):
+        x = torch.cat([x[:, ::2, ::2], x[:, 1::2, ::2], x[:, ::2, 1::2],
+                       x[:, 1::2, 1::2]], -1)
+        return self.conv(x, plain)
+
+
+class CrossConv(nn.Module):
+    """Cross convolution (reference models/experimental.py:15-26): a
+    ``(1, k)`` ConvBnAct of stride ``(1, s)``, then a ``(k, 1)`` one of
+    stride ``(s, 1)`` with ``g`` groups."""
+
+    def __init__(self, c1, c2, k=3, s=1, g=1, e=1.0, shortcut=False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, (1, k), (1, s))
+        self.cv2 = ConvBnAct(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x, plain: bool = False):
+        y = self.cv2(self.cv1(x, plain), plain)
+        return x + y if self.add else y
+
+
+class Contract(nn.Module):
+    """Space-to-depth ``(b, h, w, c) → (b, h/g, w/g, g·g·c)``, NHWC order
+    ``(g, g, c)`` on the channels (JAX layers.py:755)."""
+
+    def __init__(self, gain=2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x, plain: bool = False):
+        g = self.gain
+        B, H, W, C = x.shape
+        x = x.reshape(B, H // g, g, W // g, g, C).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(B, H // g, W // g, C * g * g)
+
+
+class Expand(nn.Module):
+    """Depth-to-space ``(b, h, w, c) → (b, h·g, w·g, c/g²)``, the inverse
+    of :class:`Contract` (JAX layers.py:768)."""
+
+    def __init__(self, gain=2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x, plain: bool = False):
+        g = self.gain
+        B, H, W, C = x.shape
+        x = x.reshape(B, H, W, g, g, C // (g * g)).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(B, H * g, W * g, C // (g * g))
+
+
+class Classify(nn.Module):
+    """Classification head (reference models/common.py:628-638): global
+    average pool, a 1x1 conv with bias, flattened."""
+
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, 1)
+
+    def forward(self, x, plain: bool = False):
+        x = x.float().mean((1, 2), keepdim=True).to(x.dtype)
+        return _conv(self.conv, x).reshape(x.shape[0], -1)
+
+
+class Sum(nn.Module):
+    """Sum of ``n`` inputs, optionally weighted (reference
+    models/experimental.py:29-47): ``y = x0 + Σ 2σ(wᵢ)·xᵢ₊₁`` with ``w``
+    learned, initialised to ``-arange(1, n) / 2``."""
+
+    def __init__(self, n, weight=False):
+        super().__init__()
+        self.n = n
+        self.w = (nn.Parameter(-torch.arange(1.0, n) / 2) if weight
+                  else None)
+
+    def forward(self, xs, plain: bool = False):
+        y = xs[0]
+        w = None if self.w is None else torch.sigmoid(self.w) * 2
+        for i in range(self.n - 1):
+            y = y + (xs[i + 1] if w is None else xs[i + 1] * w[i].to(y.dtype))
+        return y
+
+
+class MixConv2d(nn.Module):
+    """Mixed kernel sizes (reference models/experimental.py:50-71): the
+    output channels split over the kernels as ``floor(linspace(0, n -
+    1e-6, c2))`` does, each conv with ``gcd(c1, c_)`` groups,
+    concatenated, then BatchNorm + SiLU."""
+
+    def __init__(self, c1, c2, k=(1, 3), s=1):
+        super().__init__()
+        k = tuple(k)
+        idx = np.floor(np.linspace(0, len(k) - 1e-6, c2)).astype(int)
+        split = [int((idx == g).sum()) for g in range(len(k))]
+        self.m = nn.ModuleList(
+            nn.Conv2d(c1, c_, ki, s, ki // 2, groups=math.gcd(c1, c_),
+                      bias=False) for ki, c_ in zip(k, split))
+        self.bn = _bn_module(c2)
+
+    def forward(self, x, plain: bool = False):
+        y = torch.cat([_conv(m, x) for m in self.m], -1)
+        return silu(_norm(self.bn, y)).to(x.dtype)
+
+
+class MaxPool(nn.Module):
+    """Max-pool of ``k`` with stride ``s`` (default ``k``), no padding (the
+    reference yolov3-tiny's ``nn.MaxPool2d`` rows; flax ``max_pool``
+    VALID)."""
+
+    def __init__(self, k=2, s=None):
+        super().__init__()
+        self.k, self.s = k, s or k
+
+    def forward(self, x, plain: bool = False):
+        return _max_pool(x, self.k, self.s)

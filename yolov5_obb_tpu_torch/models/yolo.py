@@ -1,9 +1,11 @@
 """YOLOv5-OBB model: YAML graph spec → PyTorch module graph, Detect head.
 
 Counterpart of ``yolov5_obb_tpu/models/yolo.py``.  The YAML spec is the
-single source of truth for the n/s/m/l/x and s-ghost variants
-(``models/configs``).  ``packed_stem`` builds the fast path: ``forward``
-then takes the raw ``(B, H, 3W)`` uint8 view.  In eval mode layers 0-1 run
+single source of truth for the 21 bundled configs (``models/configs``: the
+P5 n/s/m/l/x, the P6 n6-x6, P2, P7, BiFPN, FPN, PANet, YOLOv3, the ghost
+and transformer variants; ``anchors.yaml`` holds anchor sets).
+``packed_stem`` builds the fast path: ``forward`` then takes the raw
+``(B, H, 3W)`` uint8 view.  In eval mode layers 0-1 run
 as the fused stem+L1 kernel where layer 1 can join the stem
 (:func:`packed_l1_eligible`, and ``PACKED_L1`` is not ``0``), else layer 0
 as the stem kernel; the eligible C3 blocks and stride-2 downsamples run as
@@ -86,24 +88,32 @@ def load_config(cfg) -> dict:
 
 
 # modules whose first arg is an output-channel count subject to width scaling
-_CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C3", "DWConv", "GhostConv",
-               "GhostBottleneck", "C3Ghost"}
+_CH_MODULES = {
+    "Conv", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP", "SPPF",
+    "DWConv", "Focus", "CrossConv", "BottleneckCSP", "C3", "C3TR", "C3SPP",
+    "C3Ghost", "MixConv2d",
+}
 # modules that additionally take the repeat count as a constructor arg
-_REPEAT_MODULES = {"C3", "C3Ghost"}
+_REPEAT_MODULES = {"BottleneckCSP", "C3", "C3TR", "C3Ghost"}
+_NAMES = {"nn.Upsample": "Upsample", "nn.MaxPool": "MaxPool",
+          "nn.MaxPool2d": "MaxPool"}
 
 
 def parse_model_config(d: dict, ch_in: int = 3):
     """YAML dict → (specs, nc, na, anchors_px, detect_from); the reference
-    ``parse_model`` channel arithmetic."""
+    ``parse_model`` channel arithmetic (JAX yolo.py:83-156).  ``anchors: N``
+    (an integer) gives N placeholder priors a level: squares of 1.25, 2.5,
+    5, ... times the level's stride, for a P3-first ladder (fit them to a
+    dataset with ``utils/autoanchor``)."""
     anchors, nc = d["anchors"], d["nc"]
     gd, gw = d["depth_multiple"], d["width_multiple"]
-    na = len(anchors[0]) // 2
+    na = len(anchors[0]) // 2 if isinstance(anchors, list) else anchors
 
     specs: list[LayerSpec] = []
     ch = [ch_in]
     detect_from = None
     for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
-        name = {"nn.Upsample": "Upsample"}.get(name, name)
+        name = _NAMES.get(name, name)
         args = list(args)
         n_eff = max(round(n * gd), 1) if n > 1 else n
         if name in _CH_MODULES:
@@ -115,22 +125,34 @@ def parse_model_config(d: dict, ch_in: int = 3):
                 n_eff = 1
         elif name == "Concat":
             c2 = sum(ch[x] for x in f)
+        elif name == "Sum":
+            args = [len(f), *args[1:]] if args else [len(f)]
+            c2 = ch[f[0]]
         elif name == "Detect":
             detect_from = tuple(f)
             args = [tuple(ch[x] for x in f)]
             c2 = None
-        elif name == "Upsample":
-            c2 = ch[f]
+        elif name == "Contract":
+            c2 = ch[f] * args[0] ** 2
+        elif name == "Expand":
+            c2 = ch[f] // args[0] ** 2
         else:
-            raise ValueError(f"module {name!r} is not ported yet")
+            c2 = ch[f] if isinstance(f, int) else ch[f[0]]
         specs.append(LayerSpec(
             i, tuple(f) if isinstance(f, list) else f, n_eff, name,
             tuple(tuple(v) if isinstance(v, list) else v for v in args)))
         if i == 0:
             ch = []
         ch.append(c2)
-    anchors_px = np.asarray(anchors, dtype=np.float32).reshape(
-        len(anchors), -1, 2)
+    if isinstance(anchors, int):
+        sizes = np.array([[1.25 * 2.0 ** a] * 2 for a in range(anchors)],
+                         dtype=np.float32)
+        anchors_px = np.stack([sizes * 2.0 ** (li + 3)
+                               for li in range(len(detect_from))]
+                              ).astype(np.float32)
+    else:
+        anchors_px = np.asarray(anchors, dtype=np.float32).reshape(
+            len(anchors), -1, 2)
     return specs, nc, na, anchors_px, detect_from
 
 
@@ -198,12 +220,19 @@ def decode(maps, meta: ModelMeta, image_hw):
 # ---------------------------------------------------------------------------
 
 
-_PLAIN_MODULES = {"Bottleneck": L.Bottleneck, "SPPF": L.SPPF,
-                  "DWConv": L.DWConv, "GhostConv": L.GhostConv,
-                  "GhostBottleneck": L.GhostBottleneck, "C3Ghost": L.C3Ghost}
+_PLAIN_MODULES = {
+    "Bottleneck": L.Bottleneck, "BottleneckCSP": L.BottleneckCSP,
+    "C3TR": L.C3TR, "C3SPP": L.C3SPP, "C3Ghost": L.C3Ghost, "SPP": L.SPP,
+    "SPPF": L.SPPF, "Focus": L.Focus, "DWConv": L.DWConv,
+    "GhostConv": L.GhostConv, "GhostBottleneck": L.GhostBottleneck,
+    "CrossConv": L.CrossConv, "Contract": L.Contract, "Expand": L.Expand,
+    "Sum": L.Sum, "MixConv2d": L.MixConv2d, "Classify": L.Classify}
 
 
 def _build_module(spec: LayerSpec, packed_stem: bool, dtype):
+    """Every kind of JAX ``_build_module`` (yolo.py:234-266).  Only ``Conv``
+    and ``C3`` take the kernels' gates (``fused``); C3TR, C3SPP and C3Ghost
+    are built without them, as in the JAX package."""
     kind, a = spec.name, spec.args
     if packed_stem and spec.index == 0:
         return L.PackedStem(*a, dtype=dtype)
@@ -217,6 +246,8 @@ def _build_module(spec: LayerSpec, packed_stem: bool, dtype):
         return L.Concat()
     if kind == "Upsample":
         return L.Upsample(int(a[1]) if len(a) > 1 else 2)
+    if kind == "MaxPool":
+        return L.MaxPool(*(int(v) for v in a))
     raise ValueError(f"unknown module {kind!r} in model config")
 
 
@@ -414,7 +445,8 @@ class YoloModel(nn.Module):
                 out = h
                 h = None
             y.append(h)
-        return out
+        # a graph without a Detect head yields its last layer's output
+        return out if out is not None else y[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -486,21 +518,28 @@ def probe_strides(model: YoloModel, meta: ModelMeta,
     strides = tuple(float(imgsz // round((o.shape[1] // meta.na) ** 0.5))
                     for o in outs)
     meta = dataclasses.replace(meta, strides=strides)
-    # anchor order must match stride order (reference check_anchor_order)
+    # anchor order must match stride order: the levels' anchors flip when
+    # their mean areas run against the strides (reference
+    # utils/autoanchor.py check_anchor_order; the JAX package's reorder by
+    # the strides' rank leaves levels listed largest-first as they are)
     areas = meta.anchors_px.prod(-1).mean(-1)
-    if len(areas) > 1 and (np.argsort(areas) != np.argsort(strides)).any():
-        meta = dataclasses.replace(
-            meta, anchors_px=meta.anchors_px[np.argsort(np.argsort(strides))])
+    da, ds = areas[-1] - areas[0], strides[-1] - strides[0]
+    if da and np.sign(da) != np.sign(ds):
+        meta = dataclasses.replace(meta, anchors_px=meta.anchors_px[::-1])
     return meta
 
 
 def init_model(model: YoloModel, meta: ModelMeta,
                generator: torch.Generator) -> None:
-    """Initialise in place, on the CPU, from ``generator``: conv kernels
-    LeCun-normal (truncated at 2σ, flax's default), BN identity, Detect
+    """Initialise in place, on the CPU, from ``generator``: conv and linear
+    kernels LeCun-normal (truncated at 2σ, flax's default), biases zero, BN
+    identity, a weighted ``Sum``'s ``w`` at ``-arange(1, n) / 2``, Detect
     biases zero plus the focal-style priors (reference yolo.py:224-232)."""
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, L.Sum) and mod.w is not None:
+            with torch.no_grad():
+                mod.w.copy_(-torch.arange(1.0, mod.n) / 2)
+        elif isinstance(mod, (nn.Conv2d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             with torch.no_grad():

@@ -22,11 +22,19 @@ def load_yaml(path) -> dict:
         return yaml.safe_load(f)
 
 
+CONFIG_DIR = Path(__file__).parent.parent / "data" / "configs"
+
+
 def load_hyp(path=None) -> dict:
     """Load a hyperparameter yaml; the bundled DOTA finetune set (reference
-    data/hyps/obb/hyp.finetune_dota.yaml) when ``path`` is None."""
+    data/hyps/obb/hyp.finetune_dota.yaml) when ``path`` is None.  A name
+    that is not a file is looked up among the bundled sets
+    (``data/configs``: ``hyp_paper.yaml``, ``hyp_finetune_dota_closeaug.yaml``
+    ...), as a model config's name is among ``models/configs``."""
     if path is None:
-        path = Path(__file__).parent.parent / "data" / "configs" / DEFAULT_HYP_NAME
+        path = CONFIG_DIR / DEFAULT_HYP_NAME
+    elif not Path(path).exists() and (CONFIG_DIR / Path(path).name).exists():
+        path = CONFIG_DIR / Path(path).name
     return load_yaml(path)
 
 

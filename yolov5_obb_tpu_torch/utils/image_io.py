@@ -211,8 +211,12 @@ def _cv2_decode(data) -> np.ndarray | None:
 def imdecode(data) -> np.ndarray | None:
     """Image file bytes → BGR uint8 ``(H, W, 3)``, or None when they do not
     decode (as ``cv2.imdecode``).  PNG is read here; any other format needs
-    OpenCV (:class:`OpenCVUnavailable` where it is absent)."""
+    OpenCV (:class:`OpenCVUnavailable` where it is absent).  Empty data
+    does not decode: None, before any OpenCV call (``cv2.imdecode`` raises
+    on an empty buffer, where ``cv2.imread`` of an empty file gives None)."""
     data = bytes(data)
+    if not data:
+        return None
     if is_png(data):
         try:
             return decode_png(data)
