@@ -145,7 +145,29 @@ Phases, each fatal on failure:
       peak times (1280/1024)² is under 60 GiB (else 8), against the plain
       step (phase (d)'s bars), stem 1+1 and downsample 2+2 launches a
       step, img/s and peak memory; (j4) yolov5s-transformer b16 at 1024²
-      (C3TR over 32x32 tokens) as (j2).
+      (C3TR over 32x32 tokens) as (j2);
+  (k) the golden flow (OpenCV must import; its version and matplotlib's
+      presence printed): (k1) ``tools/golden_e2e.run_flow`` at the JAX
+      nightly's setting (4 raw PNGs at 640² → 16 tiles of 384 at gap 128,
+      the train CLI from the tiles: yolov5n float32 at 128², 250 epochs,
+      batch 8, lr0 0.025, mosaic, flips, affine, HSV, autoanchor; the val
+      CLI with ``--save-json``, the merge at 0.2, the OBB mAP and mAOE),
+      held to the nightly's floors (merged OBB mAP >= 0.12, HBB mAP50 >=
+      0.13, 0 < mAOE <= 55°), the kernels the gates allow launched and no
+      other, train img/s over the run and per epoch, first-batch wait, val
+      ms per tile, each stage's seconds; (k2) the committed golden yolov5n
+      (releases/golden_yolov5n_192_torch) on the 90 tiles of its own
+      training set through the val CLI at 192, merged and scored, in
+      float32 (row 4) and bfloat16 (rows 1 and 4), each kernel run within
+      0.01 of the JAX package's merged OBB mAP and HBB mAP50 and 0.5° of
+      its mAOE (PERF.md, the golden flow), each against the same CLI on the plain
+      versions (phase (f)'s bars on the tiles' detections, phase (h)'s on
+      the merged rows, equal confusion matrices; in bfloat16 the stem+L1
+      kernel's differing outputs within a fixed budget, and the unmatched
+      and moved shares within the largest of six one-ulp controls of the
+      stem+L1 output at that budget), the five
+      val plots where matplotlib imports, and ``--task study`` at 128,
+      160, 192 (three rows, 192's mAP50 the val run's).
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -3838,6 +3860,425 @@ def zoo_path(dev, report):
     return launches
 
 
+# phase (k): the golden flow.  (k1) at the JAX nightly's setting
+# (tests/test_golden_e2e.py:57-72) and its floors; (k2) the golden yolov5n
+# on the set it was trained on, against the JAX package's numbers for it
+# (its val, merge and eval on the CPU, float32; PERF.md, the golden flow)
+GOLDEN_K1 = dict(n_images=4, raw_size=640, subsize=384, gap=128, imgsz=128,
+                 epochs=250, batch=8, hyp_overrides={"lr0": 0.025})
+GOLDEN_FLOORS = {"golden_obb_map": 0.12, "hbb_map50": 0.13, "maoe_deg": 55.0}
+GOLDEN_WEIGHTS = Path(__file__).resolve().parent / "releases" / \
+    "golden_yolov5n_192_torch"
+GOLDEN_REF = {"golden_obb_map": 1.0, "hbb_map50": 0.9938, "maoe_deg": 2.1585}
+GOLDEN_SIZE, GOLDEN_BATCH, STUDY_SIZES = 192, 4, (128, 160, 192)
+# (k2) in bf16: the share of the stem+L1 outputs on the golden tiles that
+# may differ from the plain version by one ulp (0.104% read on the H100,
+# PERF.md), and the seeds of the control runs that move that share
+STEM_ULP_BUDGET = 0.00125
+CONTROL_SEEDS = (17, 18, 19, 20, 21, 22)
+VAL_PLOTS = ("F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
+             "confusion_matrix.png")
+
+
+def _launched(kernels) -> dict:
+    return {n: k.launches for n, k in kernels.items() if k.launches}
+
+
+def _wanted(dev, dtype, packed, size):
+    """The kernels the val CLI's yolov5n (``dtype``, packed stem or not,
+    Conv+BN folded) calls for at ``size``: ``kernels_wanted`` on a batch
+    of that size."""
+    import torch
+
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.fuse import fuse_conv_bn
+
+    model, _ = create_model("yolov5n.yaml", nc=15, dtype=dtype, device=dev,
+                            packed_stem=packed)
+    fuse_conv_bn(model)
+    x = torch.zeros(GOLDEN_BATCH, size, size * 3, dtype=torch.uint8,
+                    device=dev)
+    return kernels_wanted(model, x if packed else x.view(
+        GOLDEN_BATCH, size, size, 3))
+
+
+def golden_k1(dev, kernels, tmp):
+    """(k1): ``run_flow`` on the card at the JAX nightly's setting: raw
+    PNGs → split → the train CLI from the tiles (float32, decoding,
+    mosaic, flips, affine, HSV, autoanchor) → the val CLI (float32,
+    ``--save-json``) → merge → OBB mAP, HBB mAP50, mAOE against the
+    floors; the train CLI timed through its callbacks."""
+    import torch
+
+    from yolov5_obb_tpu_torch.tools import golden_e2e
+
+    want = _wanted(dev, torch.float32, False, GOLDEN_K1["imgsz"])
+    epochs = []
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res = golden_e2e.run_flow(tmp / "k1", callbacks=cli_callbacks(epochs),
+                              **GOLDEN_K1)
+    res["flow_s"] = time.perf_counter() - t
+    res["launches"] = _launched(kernels)
+    res["wanted"] = sorted(want)
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    steps = sum(e["batches"] for e in epochs)
+    per_epoch = [e["batches"] * GOLDEN_K1["batch"] / e["total_s"]
+                 for e in epochs]
+    res["train"] = {
+        "steps": steps, "epochs": len(epochs),
+        "imgs_per_s": steps * GOLDEN_K1["batch"] / res["seconds"]["train"],
+        "epoch_imgs_per_s_min_median_max": [
+            min(per_epoch), float(np.median(per_epoch)), max(per_epoch)],
+        "first_batch_wait_s_first_median": [
+            epochs[0]["first_batch_wait_s"],
+            float(np.median([e["first_batch_wait_s"] for e in epochs]))],
+        "loader_wait_share_median": float(np.median(
+            [e["loader_wait_share"] for e in epochs])),
+        "last_save_ms_median": float(np.median(
+            [e.get("last_save_ms", 0.0) for e in epochs]))}
+    log("golden (k1): " + json.dumps(res))
+    require(len(epochs) == GOLDEN_K1["epochs"] and steps > 0,
+            f"golden (k1): {len(epochs)} epochs, {steps} steps")
+    require(set(res["launches"]) == want,
+            f"golden (k1): launched {res['launches']}, the gates allow "
+            f"{sorted(want)}")
+    f = GOLDEN_FLOORS
+    require(res["golden_obb_map"] >= f["golden_obb_map"]
+            and res["hbb_map50"] >= f["hbb_map50"]
+            and 0.0 < res["maoe_deg"] <= f["maoe_deg"],
+            f"golden (k1) below the JAX nightly's floors {f}: merged OBB "
+            f"mAP {res['golden_obb_map']}, HBB mAP50 {res['hbb_map50']}, "
+            f"mAOE {res['maoe_deg']}")
+    return res
+
+
+def _stem_l1_vs_plain(dev, split_dir):
+    """The stem+L1 kernel against its plain version on every batch of the
+    golden tiles, the val CLI's bf16 model (golden weights, Conv+BN
+    folded): (elements that differ, elements, max |Δ|).  Launches made
+    here are not the path's: the counts are set to 0 before each run."""
+    import torch
+
+    from yolov5_obb_tpu_torch.data.dota import DOTA_V1_NAMES, DotaDataset
+    from yolov5_obb_tpu_torch.engine.evaluator import pack_images
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.checkpoint import load_model_weights
+    from yolov5_obb_tpu_torch.utils.fuse import fuse_conv_bn
+
+    model, meta = create_model("yolov5n.yaml", nc=15, dtype=torch.bfloat16,
+                               device=dev, packed_stem=True)
+    load_model_weights(model, meta, GOLDEN_WEIGHTS)
+    fuse_conv_bn(model)
+    ds = DotaDataset(split_dir / "images", DOTA_V1_NAMES,
+                     img_size=GOLDEN_SIZE)
+    diff = total = 0
+    err = 0.0
+    with torch.inference_mode():
+        for i in range(0, len(ds), GOLDEN_BATCH):
+            b = np.stack([ds.get_eval_sample(j)["image"]
+                          for j in range(i, min(i + GOLDEN_BATCH, len(ds)))])
+            x = torch.from_numpy(pack_images(b)).to(dev)
+            got, want = model._stem_l1(x, False), model._stem_l1(x, True)
+            diff += int((got != want).sum())
+            total += got.numel()
+            err = max(err, float((got.float() - want.float()).abs().max()))
+    return diff, total, err
+
+
+def _confusion(val_res, split_dir):
+    """The confusion matrix (``utils/metrics.ConfusionMatrix``, its
+    defaults) of a val run's detections against the tiles' labels, each as
+    its horizontal box at the tile's own resolution."""
+    from yolov5_obb_tpu_torch.data.dota import DOTA_V1_NAMES, DotaDataset
+    from yolov5_obb_tpu_torch.ops.geometry import poly2hbb, xywh2xyxy
+    from yolov5_obb_tpu_torch.utils.metrics import ConfusionMatrix
+
+    ds = DotaDataset(split_dir / "images", DOTA_V1_NAMES,
+                     img_size=GOLDEN_SIZE)
+    index = {Path(f).name: i for i, f in enumerate(ds.img_files)}
+    cm = ConfusionMatrix(nc=len(DOTA_V1_NAMES))
+    for d in val_res["detections"]:
+        i = index[Path(d["path"]).name]
+        gt = (xywh2xyxy(poly2hbb(ds.polys[i])) if len(ds.polys[i])
+              else np.zeros((0, 4)))
+        det = (xywh2xyxy(poly2hbb(d["polys"])) if len(d["polys"])
+               else np.zeros((0, 4)))
+        cm.process_batch(det, d["conf"], d["cls"], gt, ds.cls[i])
+    return cm.matrix
+
+
+def _one_ulp_stem(frac: float, dev, seed: int):
+    """A plain stem+L1 whose output moves one bf16 ulp (up or down, from
+    ``seed``) on a ``frac`` share of its elements: a control run's
+    noise."""
+    import torch
+
+    from yolov5_obb_tpu_torch.ops.kernels.stem_kernel import (
+        fused_stem_l1_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def stem(*a, **k):
+        y = fused_stem_l1_plain(*a, **k)
+        if y.device.type == "meta":  # the model's stride probe
+            return y
+        move = torch.rand(y.shape, generator=gen, device=dev) < frac
+        step = torch.where(torch.rand(y.shape, generator=gen, device=dev)
+                           < 0.5, 1, -1).to(torch.int16)
+        return torch.where(move, (y.view(torch.int16) + step).view(y.dtype),
+                           y)
+    return stem
+
+
+def _golden_pair(dev, tag, k, p, controls=()) -> dict:
+    """Kernel run ``k`` against plain run ``p`` of the val CLI on the
+    golden tiles: phase (f)'s bars on the tiles' detections (mAP within
+    0.01, per-tile counts within 1%, at most 1% of the detections without
+    a counterpart), phase (h)'s on the merged rows (counts within 1%, at
+    most 1% without a counterpart at polygon IoU > 0.99), the confusion
+    matrices (``_confusion``) equal.  With ``controls`` (plain runs whose
+    stem+L1 output moved one ulp on STEM_ULP_BUDGET of its elements, each
+    from its own seed) each unmatched share may reach the largest
+    control's own against ``p`` where that is above 1%, and the confusion
+    matrices may differ by as many detections as the most any control's
+    differs from ``p``'s: bf16 noise alone moves a trained model's
+    low-confidence rows and the merge's picks (PERF.md, the golden
+    flow)."""
+    from yolov5_obb_tpu_torch.data.dota import DOTA_V1_NAMES
+
+    def diff(a, b):
+        av, bv = a["val"], b["val"]
+        un, total, same = _evaluate_diff(av, bv, dev)
+        kc, pc = (sum(len(_rows(f)) for f in x["merged"].iterdir())
+                  for x in (a, b))
+        cm_a, cm_b = a["confusion"], b["confusion"]
+        mu = [_merged_unmatched(a["merged"], b["merged"], DOTA_V1_NAMES),
+              _merged_unmatched(b["merged"], a["merged"], DOTA_V1_NAMES)]
+        return {
+            "map50": [av["map50"], bv["map50"]], "map": [av["map"], bv["map"]],
+            "count_diff_tiles": _count_diff(
+                [len(d["conf"]) for d in av["detections"]],
+                [len(d["conf"]) for d in bv["detections"]]),
+            "tile_unmatched": un, "tile_rows": total, "tiles_same": same,
+            "merged_rows": [kc, pc],
+            "merged_unmatched": mu[0][0] + mu[1][0],
+            "merged_total": mu[0][1] + mu[1][1],
+            # a detection that changes cell moves two counts
+            "confusion_moved": float(np.abs(cm_a - cm_b).sum() / 2),
+            "confusion_total": float(cm_b.sum())}
+
+    r = diff(k, p)
+    share = {"tile": 0.01, "merged": 0.01, "confusion": 0.0}
+    if controls:
+        r["controls"] = cs = [diff(c, p) for c in controls]
+        share = {
+            "tile": max(0.01, *(c["tile_unmatched"] / c["tile_rows"]
+                                for c in cs)),
+            "merged": max(0.01, *(c["merged_unmatched"]
+                                  / max(c["merged_total"], 1) for c in cs)),
+            "confusion": max(c["confusion_moved"] / c["confusion_total"]
+                             for c in cs)}
+    r["unmatched_share_bars"] = share
+    log(f"golden (k2) {tag} kernel against plain: {json.dumps(r)}")
+    require(abs(r["map50"][0] - r["map50"][1]) <= 0.01
+            and abs(r["map"][0] - r["map"][1]) <= 0.01
+            and r["count_diff_tiles"] == 0
+            and r["tile_unmatched"] <= share["tile"] * r["tile_rows"],
+            f"golden (k2) {tag} tile detections against plain: {r}")
+    kc, pc = r["merged_rows"]
+    require(abs(kc - pc) <= 0.01 * pc
+            and r["merged_unmatched"] <= share["merged"] * r["merged_total"],
+            f"golden (k2) {tag} merged rows against plain: {r}")
+    require(r["confusion_moved"] <= share["confusion"] * r["confusion_total"],
+            f"golden (k2) {tag}: the confusion matrices differ: {r}")
+    return r
+
+
+def golden_k2(dev, kernels, tmp, plots: bool):
+    """(k2): the golden yolov5n (``releases/golden_yolov5n_192_torch``)
+    on its own training set (10 raw images → 90 tiles), the val CLI at
+    192 with ``--save-json``, each run merged and scored: in float32 (row
+    4) and in bfloat16 (the packed stem: rows 1 and 4), each on the
+    kernels against the JAX package's numbers and against the same CLI on
+    the kernels' plain versions (``_golden_pair``; in bfloat16 the
+    stem+L1 kernel's differing outputs within STEM_ULP_BUDGET, and six
+    one-ulp controls of the stem+L1 output at that budget), the five
+    plots; then ``--task study`` at 128, 160, 192 in bfloat16 on the
+    kernels."""
+    import functools
+
+    import torch
+
+    from yolov5_obb_tpu_torch import val as val_cli
+    from yolov5_obb_tpu_torch.devkit.img_split import split_dataset
+    from yolov5_obb_tpu_torch.models import yolo
+    from yolov5_obb_tpu_torch.tools import golden_e2e
+
+    r = {}
+    out = tmp / "k2"
+    t = time.perf_counter()
+    raw = golden_e2e.generate_raw(out / "raw", n_images=10, size=768,
+                                  grid=4, seed=3)
+    r["tiles"] = split_dataset(raw, out / "split", rate=1.0, subsize=384,
+                               gap=128, num_workers=1)
+    data_yaml, _ = golden_e2e.write_configs(out, out / "split")
+    r["set_s"] = time.perf_counter() - t
+    require(r["tiles"] == 90, f"golden (k2): {r['tiles']} tiles, not 90")
+    want = {"float32": _wanted(dev, torch.float32, False, GOLDEN_SIZE),
+            "bfloat16": _wanted(dev, torch.bfloat16, True, GOLDEN_SIZE)}
+    d, n, err = _stem_l1_vs_plain(dev, out / "split")
+    r["stem_l1_vs_plain"] = {"differ": d, "elements": n, "max_abs_err": err}
+    require(err <= 0.05 and d <= STEM_ULP_BUDGET * n,
+            f"golden (k2): stem+L1 kernel against plain "
+            f"{r['stem_l1_vs_plain']} (at most {STEM_ULP_BUDGET} of the "
+            f"outputs may differ)")
+    runs = {}
+    controls = tuple(("bfloat16", f"bf16_control{seed}", True,
+                      _one_ulp_stem(STEM_ULP_BUDGET, dev, seed))
+                     for seed in CONTROL_SEEDS)
+    for dtype, tag, plain, stem in (
+            ("float32", "f32_kernel", False, None),
+            ("float32", "f32_plain", True, None),
+            ("bfloat16", "bf16_kernel", False, None),
+            ("bfloat16", "bf16_plain", True, None), *controls):
+        for k in kernels.values():
+            k.launches = 0
+        evaluate, stem_plain = val_cli.evaluate, yolo.fused_stem_l1_plain
+        if plain:  # the same CLI on the kernels' plain versions
+            val_cli.evaluate = functools.partial(evaluate, plain=True)
+        if stem is not None:
+            yolo.fused_stem_l1_plain = stem
+        try:
+            t = time.perf_counter()
+            runs[tag] = x = golden_e2e.val_merge_eval(
+                out, data_yaml, raw, GOLDEN_WEIGHTS, imgsz=GOLDEN_SIZE,
+                batch=GOLDEN_BATCH, dtype=dtype, name=tag)
+            x["flow_s"] = time.perf_counter() - t
+            x["confusion"] = _confusion(x["val"], out / "split")
+        finally:
+            val_cli.evaluate, yolo.fused_stem_l1_plain = evaluate, stem_plain
+        x["launches"] = _launched(kernels)
+        r[tag] = {n: x[n] for n in ("golden_obb_map", "hbb_map50",
+                                    "maoe_deg", "seconds", "flow_s",
+                                    "launches")}
+        r[tag]["val_ms_per_tile"] = x["val"]["speed_ms_per_img"]
+        r[tag]["hbb_map"] = x["val"]["map"]
+        r[tag]["worst_class_maoe_deg"] = max(x["maoe_classes"].values())
+        log(f"golden (k2) {tag}: " + json.dumps(r[tag]))
+        ok = x["launches"] == {} if plain else set(x["launches"]) == want[
+            dtype]
+        require(ok, f"golden (k2) {tag} launched {x['launches']}; the "
+                f"gates allow {sorted(want[dtype])}")
+        if not plain:
+            require(abs(x["golden_obb_map"] - GOLDEN_REF["golden_obb_map"])
+                    <= 0.01
+                    and abs(x["hbb_map50"] - GOLDEN_REF["hbb_map50"]) <= 0.01
+                    and abs(x["maoe_deg"] - GOLDEN_REF["maoe_deg"]) <= 0.5,
+                    f"golden (k2) {tag} against the JAX package's "
+                    f"{GOLDEN_REF}: {r[tag]}")
+            pngs = sorted(q.name for q in (out / "val" / tag).glob("*.png"))
+            require(not plots or pngs == list(VAL_PLOTS),
+                    f"golden (k2) {tag}: the val plots are {pngs}")
+    r["wanted"] = {k: sorted(v) for k, v in want.items()}
+    r["f32_pair"] = _golden_pair(dev, "float32", runs["f32_kernel"],
+                                 runs["f32_plain"])
+    r["bf16_pair"] = _golden_pair(
+        dev, "bfloat16", runs["bf16_kernel"], runs["bf16_plain"],
+        [runs[f"bf16_control{seed}"] for seed in CONTROL_SEEDS])
+    r["confusion_trace"] = float(np.trace(
+        runs["bf16_kernel"]["confusion"][:-1, :-1]))
+
+    # --task study on the kernels: a row per size, 192's as the val run's
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    rows = val_cli.run(val_cli.parse_opt([
+        "--weights", str(GOLDEN_WEIGHTS), "--data", str(data_yaml),
+        "--task", "study", "--study-sizes", *map(str, STUDY_SIZES),
+        "--batch-size", str(GOLDEN_BATCH), "--conf-thres", "0.01",
+        "--iou-thres", "0.4", "--max-det", "200", "--dtype", "bfloat16",
+        "--no-plots", "--project", str(out / "study"), "--name", "run"]))
+    r["study_s"] = time.perf_counter() - t
+    r["study_launches"] = _launched(kernels)
+    text = (out / "study" / "run" / "study_data_yolov5n.txt").read_text()
+    r["study_rows"] = rows
+    map50 = runs["bf16_kernel"]["val"]["map50"]
+    require([row[0] for row in rows] == list(STUDY_SIZES)
+            and len(text.splitlines()) == len(STUDY_SIZES)
+            and rows[-1][3] == map50,
+            f"golden (k2) study rows {rows} (the val run's mAP50 {map50})")
+    r["launches"] = {}
+    for x in [runs[t]["launches"] for t in ("f32_kernel", "bf16_kernel")] + [
+            r["study_launches"]]:
+        for n, v in x.items():
+            r["launches"][n] = r["launches"].get(n, 0) + v
+    return r
+
+
+def golden_path(dev, report):
+    """Phase (k): the golden flow on the card, (k1) and (k2); OpenCV must
+    import (the flow decodes, augments and draws with it); each kernel's
+    launches over the phase summed."""
+    import cv2
+    import torch
+
+    print(f"golden flow: OpenCV {cv2.__version__}", flush=True)
+    try:
+        import matplotlib
+
+        plots = True
+        print(f"golden flow: matplotlib {matplotlib.__version__}", flush=True)
+    except ImportError:
+        plots = False
+        print("golden flow: matplotlib is absent: the plots are reported "
+              "failed and the runs go on", flush=True)
+    kernels = _named_kernels()
+    t = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_golden_"))
+    r = {"cv2": cv2.__version__, "plots": plots}
+    try:
+        r["k1"] = golden_k1(dev, kernels, tmp)
+        torch.cuda.empty_cache()
+        r["k2"] = golden_k2(dev, kernels, tmp, plots)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r["phase_s"] = time.perf_counter() - t
+    k1, k2 = r["k1"], r["k2"]
+    tr = k1["train"]
+    launches = {}
+    for x in (k1["launches"], k2["launches"]):
+        for n, v in x.items():
+            launches[n] = launches.get(n, 0) + v
+    r["launches"] = launches
+    log(f"golden (k1): {k1['tiles']} tiles; merged OBB mAP "
+        f"{k1['golden_obb_map']}, HBB mAP50 {k1['hbb_map50']}, mAOE "
+        f"{k1['maoe_deg']}° (floors {GOLDEN_FLOORS}); train {tr['steps']} "
+        f"steps, {tr['imgs_per_s']:.2f} img/s over the run, per epoch "
+        f"min/median/max {[round(v, 2) for v in tr['epoch_imgs_per_s_min_median_max']]}"
+        f", first-batch wait s (first epoch, median) "
+        f"{[round(v, 4) for v in tr['first_batch_wait_s_first_median']]}; "
+        f"val {k1['val_ms_per_tile']:.2f} ms/tile; seconds {k1['seconds']}; "
+        f"launches {k1['launches']}")
+    for tag in ("f32_kernel", "f32_plain", "bf16_kernel", "bf16_plain",
+                *(f"bf16_control{seed}" for seed in CONTROL_SEEDS)):
+        x = k2[tag]
+        log(f"golden (k2) {tag}: merged OBB mAP {x['golden_obb_map']}, HBB "
+            f"mAP50 {x['hbb_map50']}, mAOE {x['maoe_deg']}°; val "
+            f"{x['val_ms_per_tile']:.2f} ms/tile; launches {x['launches']}")
+    log(f"golden (k2): {k2['tiles']} tiles (JAX {GOLDEN_REF}); stem+L1 "
+        f"against plain {k2['stem_l1_vs_plain']}; study rows "
+        f"{[[round(v, 4) for v in row] for row in k2['study_rows']]} in "
+        f"{k2['study_s']:.1f} s; launches {k2['launches']}")
+    log(f"golden flow: phase {r['phase_s']:.1f} s, launches {launches} on "
+        f"{card_line()}")
+    report["golden"] = r
+    return launches
+
+
 def pre_fmt(speed) -> str:
     return (f"{speed['pre']:.1f} ms pre-process + "
             f"{speed['inference_nms']:.1f} ms inference+NMS a image")
@@ -3883,6 +4324,7 @@ def main() -> int:
         log(f"run from the root of a checkout ({e})")
         return 1
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -3941,13 +4383,17 @@ def main() -> int:
                                       if k not in ("bound",)}))
         require(res["ok"], f"{name} disagrees with its plain version")
 
-    # (c) the inference path; each phase's launches add to the count
-    report = {}
+    # (c) the inference path; each phase's launches add to the count, and
+    # the script's wall time at each phase's end is logged
+    report = {"phase_end_s": {}}
     launches = {}
 
     def add(phase):
         for n, v in phase.items():
             launches[n] = launches.get(n, 0) + v
+        at = time.perf_counter() - t_script
+        report["phase_end_s"][len(report["phase_end_s"])] = at
+        log(f"phase done at {at:.1f} s")
 
     add(main_path(dev, report))
     results["neighbor"][1]["cases"]["main_path"] = \
@@ -3977,7 +4423,11 @@ def main() -> int:
     # (j) the model zoo: every config, yolov5m6 at 1280², its train step,
     # yolov5s-transformer
     add(zoo_path(dev, report))
-    log("main path: " + json.dumps(report))
+    torch.cuda.empty_cache()
+    # (k) the golden flow: training from PNG files to the merged OBB mAP,
+    # and the golden yolov5n against the JAX package's numbers
+    add(golden_path(dev, report))
+    log("main path: " + json.dumps(report, default=str))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "
             f"1024² on {card}; peak {report[pre + 'peak_mem_gib']:.2f} GiB; "
@@ -4020,7 +4470,8 @@ def main() -> int:
                if k in res},
         })
     print(json.dumps({"kernels": kernels, "main_path": report,
-                      "tensor_core_kernels": mma, "card": card}), flush=True)
+                      "tensor_core_kernels": mma, "card": card},
+                     default=str), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

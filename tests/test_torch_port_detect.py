@@ -319,7 +319,9 @@ def test_detect_cli_matches_jax(det, tmp_path, case, monkeypatch,
 def test_val_cli_augment_and_ensemble_match_jax(det, tmp_path, case,
                                                 no_jax_init):
     """The val CLI with ``--augment``, and with ``--weights w.pt,w2.pt``,
-    against the JAX val.py: the same metrics, JSON rows and label files."""
+    against the JAX val.py: the same metrics, JSON rows and label files;
+    the port draws its default plots from the augmented and the ensemble
+    runs too."""
     import val as jax_val
 
     weights = (str(det.root / "w") if case == "augment"
@@ -352,9 +354,9 @@ def test_val_cli_augment_and_ensemble_match_jax(det, tmp_path, case,
     for name in names:
         _same_rows(_read_rows(pdir / "labels" / name),
                    _read_rows(jdir / "labels" / name), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_val.main(["--data", str(det.data), "--device", "cpu",
-                       "--plots"])
+    assert sorted(p.name for p in pdir.glob("*.png")) == [
+        "F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
+        "confusion_matrix.png"]
 
 
 def test_detect_cli_skips_an_empty_file(det, tmp_path, capsys):

@@ -146,3 +146,33 @@ def test_packed_stem_layer_refuses_eval_mode():
     ghost, _ = create_model("yolov5s-ghost.yaml", nc=15, device="cpu",
                             packed_stem=True)
     assert ghost.packed_stem and not ghost.packed_l1
+
+
+_IMPORT_GOLDEN = """
+import sys
+import yolov5_obb_tpu_torch.tools.golden_e2e
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yolov5_obb_tpu",
+                                    "cv2", "matplotlib", "orbax"))
+print(bad)
+"""
+
+
+def test_golden_harness_stands_alone(tmp_path):
+    """tools/golden_e2e.py imports nothing of JAX or the JAX package (nor
+    OpenCV or matplotlib before a call needs them), and its CLI stops
+    before writing anything when no card is visible and the CPU was not
+    asked for."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_GOLDEN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    src = (PKG / "tools" / "golden_e2e.py").read_text()
+    assert "yolov5_obb_tpu." not in src.replace("yolov5_obb_tpu_torch", "")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is allowed to run")
+    from yolov5_obb_tpu_torch.tools import golden_e2e
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        golden_e2e.main(["--out", str(tmp_path / "g"), "--quick"])
+    assert not (tmp_path / "g").exists()

@@ -114,6 +114,12 @@ def test_train_cli_matches_jax(runs):
     assert pm == jm  # epoch, best fitness, names, cfg, imgsz, anchors
     assert np.array(pm["anchors"]).shape == (3, 3, 2)
     assert not np.allclose(pm["anchors"], weights_anchors)
+    # the label, first-batch and results plots, at the JAX CLI's sizes
+    import cv2
+
+    for name in ("labels.png", "train_batch0.png", "results.png"):
+        g, w = (cv2.imread(str(d / name)) for d in (pdir, jdir))
+        assert g is not None and w is not None and g.shape == w.shape, name
 
 
 def test_val_cli_on_a_best_directory_matches_jax(cli, runs, monkeypatch):
@@ -132,7 +138,8 @@ def test_val_cli_on_a_best_directory_matches_jax(cli, runs, monkeypatch):
                                      "--name", "jax"])
     want = jax_val.run(jax_val.parse_opt())
     got = port_val.main(common + ["--weights", str(pdir / "best"),
-                                  "--name", "port", "--device", "cpu"])
+                                  "--name", "port", "--device", "cpu",
+                                  "--no-plots"])
     for k in ("mp", "mr", "map50", "map"):
         assert abs(got[k] - want[k]) <= 1e-6, k
     rows = [json.loads((cli.tmp / "val" / n / "best_obb_predictions.json")
@@ -257,6 +264,31 @@ def test_more_than_one_process_is_refused(cli, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         port_train.main(cli.argv + ["--device", "cpu", "--name", "refused"])
+
+
+@pytest.mark.parametrize("dtype, packed", [("float32", False),
+                                           ("bfloat16", True)])
+def test_train_cli_packs_the_stem_on_the_card_in_bfloat16_only(
+        cli, monkeypatch, dtype, packed):
+    """On the card the packed stem (whose kernels compute bf16) is the
+    default in bfloat16; a float32 run keeps the stock stem, as the JAX
+    package's float32 model takes XLA's conv."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_create_model(*a, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(port_train, "resolve_device",
+                        lambda d: torch.device("cuda"))
+    monkeypatch.setattr(port_train, "create_model", fake_create_model)
+    with pytest.raises(Stop):
+        port_train.main(cli.argv + ["--name", "packed", "--epochs", "1",
+                                    "--dtype", dtype])
+    assert seen["packed_stem"] is packed and seen["device"].type == "cuda"
 
 
 def test_train_cli_needs_the_card_unless_cpu_is_asked(cli):

@@ -296,17 +296,23 @@ def _same_json_rows(got, want):
 
 def test_evaluate_matches_jax(val_setup, tmp_path):
     """evaluate: multi-label, conf 0.01, IoU 0.4 on the CPU; the same
-    metrics, detections and JSON rows as the JAX package's evaluate."""
+    metrics, detections and JSON rows as the JAX package's evaluate, and
+    with ``plots_dir`` the same plot files of the same image sizes."""
     vs = val_setup
     jds = JaxDataset(vs.root / "images", DOTA_V1_NAMES, img_size=S,
                      max_labels=100)
     pds = DotaDataset(vs.root / "images", DOTA_V1_NAMES, img_size=S,
                       max_labels=100)
     want = jax_evaluate(vs.jm, jax_fuse(vs.v), vs.jmeta, jds, batch_size=3,
-                        save_json=str(tmp_path / "jax.json"))
+                        save_json=str(tmp_path / "jax.json"),
+                        plots_dir=str(tmp_path / "jax_plots"))
     got = evaluate(vs.port, vs.meta, pds, batch_size=3,
-                   save_json=str(tmp_path / "port.json"))
+                   save_json=str(tmp_path / "port.json"),
+                   plots_dir=str(tmp_path / "port_plots"))
     assert set(got) == set(want)
+    _same_pngs(tmp_path / "port_plots", tmp_path / "jax_plots", [
+        "F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
+        "confusion_matrix.png"])
     assert 0.05 < want["map50"] < 1.0
     for k in ("mp", "mr", "map50", "map"):
         assert abs(got[k] - want[k]) <= 1e-6, k
@@ -322,8 +328,103 @@ def test_evaluate_matches_jax(val_setup, tmp_path):
     assert sum(len(d["conf"]) for d in got["detections"]) > 40
     _same_json_rows(json.loads((tmp_path / "port.json").read_text()),
                     json.loads((tmp_path / "jax.json").read_text()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate(vs.port, vs.meta, pds, plots_dir=str(tmp_path / "plots"))
+
+
+def _same_pngs(got_dir, want_dir, names):
+    """The same PNG files in both directories, each of the same size."""
+    import cv2
+
+    assert sorted(p.name for p in Path(want_dir).glob("*.png")) == names
+    assert sorted(p.name for p in Path(got_dir).glob("*.png")) == names
+    for n in names:
+        g = cv2.imread(str(Path(got_dir) / n))
+        w = cv2.imread(str(Path(want_dir) / n))
+        assert g is not None and g.shape == w.shape, n
+
+
+def _seeded_batches(seed, n_img=6, nc=4):
+    """Per image: detections (the ground truth jittered, some relabelled,
+    plus strays) and ground truth, xyxy with confidences and classes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_img):
+        ng = int(rng.integers(0, 7)) if i else 0  # an unlabelled image
+        xy = rng.uniform(0, 200, (ng, 2))
+        gt = np.c_[xy, xy + rng.uniform(10, 60, (ng, 2))]
+        gcls = rng.integers(0, nc, ng).astype(float)
+        det = np.concatenate([gt + rng.normal(0, 4, gt.shape),
+                              np.c_[xy[:2], xy[:2] + 30]])
+        dcls = np.concatenate([np.where(rng.uniform(size=ng) < 0.2,
+                                        rng.integers(0, nc, ng), gcls),
+                               rng.integers(0, nc, len(xy[:2]))])
+        conf = rng.uniform(0.05, 1.0, len(det))
+        if i == 1:  # an image without detections
+            det, dcls, conf = det[:0], dcls[:0], conf[:0]
+        out.append((det, conf, dcls.astype(float), gt, gcls))
+    return out
+
+
+@pytest.mark.parametrize("conf, iou", [(0.25, 0.45), (0.6, 0.2)])
+def test_confusion_matrix_matches_jax(conf, iou):
+    """ConfusionMatrix equals the JAX package's exactly on seeded
+    detections (unlabelled images, images without detections, class
+    swaps, strays)."""
+    got = pmetrics.ConfusionMatrix(nc=4, conf=conf, iou_thres=iou)
+    want = jmetrics.ConfusionMatrix(nc=4, conf=conf, iou_thres=iou)
+    for b in _seeded_batches(11):
+        got.process_batch(*b)
+        want.process_batch(*b)
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+    assert got.matrix[:4, :4].trace() > 0 and got.matrix[4].sum() > 0
+    assert got.matrix[:, 4].sum() > 0
+
+
+def test_plot_functions_match_jax(tmp_path):
+    """Each plot of utils/plots.py writes its file from the JAX package's
+    inputs at the JAX image size: the PR and metric curves, the confusion
+    matrix, the results curves, the label distribution, the train-batch
+    mosaic and the evolve scatter."""
+    import cv2
+
+    from yolov5_obb_tpu.utils import plots as jplots
+    from yolov5_obb_tpu_torch.utils import plots as pplots
+
+    rng = np.random.default_rng(2)
+    px = np.linspace(0, 1, 1000)
+    py = [np.sort(rng.uniform(size=1000))[::-1] for _ in range(3)]
+    ap = rng.uniform(size=(3, 10))
+    curves = rng.uniform(size=(3, 1000))
+    csv_text = "epoch,train/box_loss,metrics/recall,x/lr0\n" + "".join(
+        f"{e},{0.1 / (e + 1)},{e / 10},{0.01}\n" for e in range(4))
+    (tmp_path / "results.csv").write_text(csv_text)
+    (tmp_path / "evolve.csv").write_text(
+        "lr0,momentum,fitness\n0.01,0.9,0.2\n0.02,0.93,0.3\n0.015,0.95,0.25\n")
+    rb = np.c_[rng.uniform(0, 100, (20, 2)), rng.uniform(10, 40, (20, 2)),
+               rng.uniform(-1.5, 1.5, 20)]
+    images = rng.integers(0, 255, (3, 64, 64, 3), dtype=np.uint8)
+    targets = np.zeros((3, 4, 6), np.float32)
+    targets[:, :2] = np.c_[rng.integers(0, 4, (6, 1)), rb[:6, :5]].reshape(
+        3, 2, 6)
+    mask = np.zeros((3, 4), bool)
+    mask[:, :2] = True
+    names = ["a", "b", "c", "d"]
+    cm = rng.integers(0, 9, (5, 5))
+    for tag, mod in (("jax", jplots), ("port", pplots)):
+        d = tmp_path / tag
+        d.mkdir()
+        mod.plot_pr_curve(px, py, ap, d / "pr.png", names[:3])
+        mod.plot_mc_curve(px, curves, d / "mc.png", names[:3], ylabel="F1")
+        mod.plot_confusion_matrix(cm, names, d / "cm.png")
+        mod.plot_results(tmp_path / "results.csv", d / "results.png")
+        mod.plot_labels(rb, rng.integers(0, 4, 20).astype(float), names, d)
+        mod.plot_images(images, targets, mask, names, d / "batch.png")
+        mod.plot_evolve(tmp_path / "evolve.csv", d / "evolve.png")
+    files = ["batch.png", "cm.png", "evolve.png", "labels.png", "mc.png",
+             "pr.png", "results.png"]
+    _same_pngs(tmp_path / "port", tmp_path / "jax", files)
+    # the mosaic draws with OpenCV alone: the same pixels
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "port/batch.png")),
+                                  cv2.imread(str(tmp_path / "jax/batch.png")))
 
 
 def _read_rows(path):
@@ -367,7 +468,7 @@ def test_val_cli_writes_the_same_files_as_jax(val_setup, tmp_path):
         "--data", str(vs.data), "--imgsz", str(S), "--batch-size", "2",
         "--max-det", "300", "--save-json", "--save-txt", "--save-conf",
         "--save-task1", "--device", "cpu", "--project", str(tmp_path),
-        "--name", "port", "--exist-ok"])
+        "--name", "port", "--exist-ok", "--no-plots"])
     for k in ("mp", "mr", "map50", "map"):
         assert abs(got[k] - want[k]) <= 1e-6, k
     jdir, pdir = tmp_path / "jax", tmp_path / "port"
@@ -380,9 +481,62 @@ def test_val_cli_writes_the_same_files_as_jax(val_setup, tmp_path):
             _same_rows(_read_rows(pdir / sub / name),
                        _read_rows(jdir / sub / name), num_from)
     assert not list(pdir.glob("*.png"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_val.main(["--data", str(vs.data), "--device", "cpu",
-                       "--plots"])
+    # without --no-plots the run directory gets the JAX val.py's plots
+    port_val.main(["--data", str(vs.data), "--device", "cpu", "--imgsz",
+                   "64", "--max-images", "2", "--project", str(tmp_path),
+                   "--name", "plots"])
+    assert sorted(p.name for p in (tmp_path / "plots").glob("*.png")) == [
+        "F1_curve.png", "PR_curve.png", "P_curve.png", "R_curve.png",
+        "confusion_matrix.png"]
+
+
+def test_val_cli_study_writes_the_jax_study_file(val_setup, tmp_path,
+                                                 monkeypatch):
+    """``--task study``: the val task at each of ``--study-sizes`` into
+    ``sz<size>/``, then ``study_<data>_<cfg>.txt``; the JAX val.py's study
+    branch, fed the port's per-size results, writes the same bytes."""
+    import val as jax_val
+    from yolov5_obb_tpu_torch import val as port_val
+
+    vs = val_setup
+    port_run, subs = port_val.run, {}
+
+    def spy(opt):
+        r = port_run(opt)
+        if opt.task == "val":
+            subs[opt.imgsz] = r
+        return r
+
+    monkeypatch.setattr(port_val, "run", spy)
+    rows = port_val.main([
+        "--data", str(vs.data), "--task", "study", "--study-sizes", "64",
+        "96", "--batch-size", "2", "--device", "cpu", "--no-plots",
+        "--project", str(tmp_path), "--name", "port"])
+    assert sorted(subs) == [64, 96] and [r[0] for r in rows] == [64, 96]
+    assert {p.name for p in (tmp_path / "port").iterdir()} == {
+        "sz64", "sz96", "study_data_yolov5n.txt"}
+    jax_run = jax_val.run
+    monkeypatch.setattr(jax_val, "run", lambda sub: subs[sub.imgsz])
+    jax_run(types.SimpleNamespace(
+        weights="", cfg="yolov5n.yaml", data=str(vs.data), task="study",
+        study_sizes=[64, 96], hyp=None, conf_thres=None,
+        project=str(tmp_path), name="jax", exist_ok=True))
+    name = "study_data_yolov5n.txt"
+    assert (tmp_path / "port" / name).read_bytes() == (
+        tmp_path / "jax" / name).read_bytes()
+    assert len((tmp_path / "port" / name).read_text().splitlines()) == 2
+
+
+@pytest.mark.parametrize("argv", [["--mesh", "2"], ["--weights", "m.onnx"]],
+                         ids=["mesh", "artifact"])
+def test_val_cli_refuses_what_item_9_ports(val_setup, tmp_path, argv):
+    from yolov5_obb_tpu_torch import val as port_val
+
+    (tmp_path / "m.onnx").write_bytes(b"")
+    argv = [a.replace("m.onnx", str(tmp_path / "m.onnx")) for a in argv]
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        port_val.main(["--data", str(val_setup.data), "--device", "cpu",
+                       *argv])
 
 
 def test_val_cli_coco_eval_matches_jax(val_setup, tmp_path):
@@ -410,7 +564,7 @@ def test_val_cli_coco_eval_matches_jax(val_setup, tmp_path):
     argv = ["--weights", str(tmp_path / "w.pt"), "--data", str(vs.data),
             "--imgsz", str(S), "--batch-size", "2", "--max-det", "300",
             "--device", "cpu", "--project", str(tmp_path), "--name", "port",
-            "--exist-ok", "--coco-eval"]
+            "--exist-ok", "--coco-eval", "--no-plots"]
     got = port_val.main(argv + ["--save-json"])["coco"]
     assert got.keys() == want.keys()
     for k in ("map", "map50", "map75"):

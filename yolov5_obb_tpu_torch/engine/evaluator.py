@@ -29,7 +29,7 @@ from ..ops.rotated_nms import (
 )
 from ..utils.checkpoint import load_model_weights
 from ..utils.fuse import fuse_conv_bn
-from ..utils.metrics import ap_per_class, process_batch_hbb
+from ..utils.metrics import ConfusionMatrix, ap_per_class, process_batch_hbb
 
 
 def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
@@ -167,8 +167,12 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
     plain versions; ``tta`` the augmented inference of
     :func:`make_predict_fn`).  ``predict_fn`` (``images_u8 -> (dets,
     num)`` with a ``device``, e.g. :func:`make_ensemble_predict_fn`'s)
-    replaces the model's; ``model`` may then be None.  ``mesh`` and
-    ``plots_dir`` are not ported (ROADMAP.md queue 1 items 6 and 9).
+    replaces the model's; ``model`` may then be None.  ``plots_dir``:
+    the confusion matrix (fed from each image's HBB matches) drawn as
+    ``confusion_matrix.png``, and ``PR_curve.png``, ``F1_curve.png``,
+    ``P_curve.png``, ``R_curve.png`` there (flat curves without
+    detections); a plot that fails is reported and the evaluation goes
+    on.  ``mesh`` is not ported (ROADMAP.md queue 1 item 9).
 
     Returns the JAX package's result dict: mp, mr, map50, map, per-class
     p/r/ap50/ap, ``speed_ms_per_img`` (the timed loop over the batches
@@ -178,11 +182,10 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
     if mesh is not None:
         raise NotImplementedError("multi-device evaluation is not ported "
                                   "(ROADMAP.md queue 1 item 9)")
-    if plots_dir is not None:
-        raise NotImplementedError("the confusion matrix and PR-curve plots "
-                                  "are not ported (ROADMAP.md queue 1 item 6)")
     names = dataset.names
     iouv = np.linspace(0.5, 0.95, 10)
+    confusion = (ConfusionMatrix(nc=len(names)) if plots_dir is not None
+                 else None)
     predict = predict_fn or make_predict_fn(
         model, meta, conf_thres, iou_thres, max_det, multi_label=True,
         plain=plain, tta=tta)
@@ -249,6 +252,8 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
 
             tp = process_batch_hbb(det_xyxy, conf, cls, gt_xyxy, gt_cls, iouv)
             stats.append((tp, conf, cls, gt_cls))
+            if confusion is not None:
+                confusion.process_batch(det_xyxy, conf, cls, gt_xyxy, gt_cls)
             path = dataset.img_files[s["index"]]
             all_dets.append({"path": path, "polys": polys, "conf": conf,
                              "cls": cls, "hw": (h0, w0)})
@@ -275,14 +280,21 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
         tp = np.zeros((0, 10), bool)
         conf = cls = tcls = np.zeros(0)
 
+    curves = None
     if tp.size and tcls.size:
-        p, r, ap, _, cls_idx = ap_per_class(tp, conf, cls, tcls)
+        p, r, ap, _, cls_idx, curves = ap_per_class(tp, conf, cls, tcls,
+                                                    return_curves=True)
         ap50, ap_mean = ap[:, 0], ap.mean(1)
         mp, mr, map50, map_ = p.mean(), r.mean(), ap50.mean(), ap_mean.mean()
     else:
         p = r = ap50 = ap_mean = np.zeros(0)
+        ap = np.zeros((0, 10))
         cls_idx = np.zeros(0, int)
         mp = mr = map50 = map_ = 0.0
+
+    if plots_dir is not None:
+        _plot_eval(Path(plots_dir), confusion.matrix, names, curves, ap,
+                   cls_idx)
 
     if save_json is not None:
         Path(save_json).parent.mkdir(parents=True, exist_ok=True)
@@ -306,6 +318,38 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
               f"HBBmAP@.5:.95={map_:.4f} "
               f"({result['speed_ms_per_img']:.1f} ms/img)")
     return result
+
+
+def _plot_eval(pdir: Path, matrix, names, curves, ap, cls_idx) -> None:
+    """``confusion_matrix.png`` and the PR, F1, P and R curves in ``pdir``
+    (JAX evaluator.py:343-373); without detections (or labels) flat
+    curves, so that a run always leaves the same files.  A plot that fails
+    is printed: it never fails the evaluation."""
+    from ..utils.plots import (
+        plot_confusion_matrix,
+        plot_mc_curve,
+        plot_pr_curve,
+    )
+
+    pdir.mkdir(parents=True, exist_ok=True)
+    try:
+        plot_confusion_matrix(matrix, list(names),
+                              pdir / "confusion_matrix.png")
+        if curves is None:
+            px = np.linspace(0, 1, 1000)
+            z = np.zeros((1, px.size))
+            curves = {"px": px, "pr_py": [z[0]], "f1": z, "p": z, "r": z}
+            ap = np.zeros((1, 10))
+        cnames = [names[int(c)] for c in cls_idx]
+        plot_pr_curve(curves["px"], list(curves["pr_py"]), ap,
+                      pdir / "PR_curve.png", cnames)
+        for key, ylab, fname in (("f1", "F1", "F1_curve.png"),
+                                 ("p", "Precision", "P_curve.png"),
+                                 ("r", "Recall", "R_curve.png")):
+            plot_mc_curve(curves["px"], curves[key], pdir / fname, cnames,
+                          ylabel=ylab)
+    except Exception as e:
+        print(f"eval plots failed: {e}")
 
 
 def save_dota_task1(detections, names, out_dir):

@@ -16,11 +16,16 @@ and the callbacks.
 
 Runs on the card unless ``--device cpu``.  On the card the model takes the
 packed uint8 image and its stem and downsample train kernels
-(``--packed-stem``, default on there, off on the CPU); ``--fused-train``
-(layers 0-3 as the fused pass chain) stays opt-in; bfloat16 is the default
-dtype.  A machine without OpenCV trains from the pre-augmented shard cache
+(``--packed-stem``, default on there in bfloat16, the default dtype; off
+in float32, whose stem the kernels cannot compute, and on the CPU);
+``--fused-train`` (layers 0-3 as the fused pass chain) stays opt-in.  A
+machine without OpenCV trains from the pre-augmented shard cache
 (``--cache shards``, built once where OpenCV is, under
-``<project>/<name>/cache/shards``).
+``<project>/<name>/cache/shards``).  As in the JAX CLI, ``labels.png`` (the
+label distribution), ``train_batch0.png`` (the first batch with its
+boxes) and ``results.png`` (the ``results.csv`` curves) are drawn where
+matplotlib and OpenCV import; a plot that fails is reported and the run
+goes on.
 
 As in the JAX CLI, ``--weights`` gives the parameters and BatchNorm
 buffers alone (the config's anchors stay until autoanchor runs; ``--resume``
@@ -28,9 +33,8 @@ restores a checkpoint's anchors), and the logged ``x/lr0`` is the learning
 rate at the micro-step count.  ``--bn-half`` sets ``YOLO_BN_HALF=1``
 (train-mode BN output and SiLU in bfloat16, ``models/layers.bn_dtype``);
 the default is off, as in the JAX CLI off the TPU.  Not ported (each raises
-``NotImplementedError``): ``--remat`` and more than one process (ROADMAP.md
-queue 1 item 7), ``--evolve`` (item 7); the label, batch and results plots
-wait for item 6.
+``NotImplementedError``): ``--remat``, more than one process and
+``--evolve`` (ROADMAP.md queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -113,7 +117,8 @@ def parse_opt(args=None):
     p.add_argument("--packed-stem", dest="packed_stem", default=None,
                    action="store_true",
                    help="the packed uint8 image and the stem/downsample "
-                        "train kernels (default: on for CUDA)")
+                        "train kernels (default: on for CUDA in "
+                        "bfloat16)")
     p.add_argument("--no-packed-stem", dest="packed_stem",
                    action="store_false")
     p.add_argument("--fused-train", dest="fused_train", default=None,
@@ -222,11 +227,26 @@ def run(opt, callbacks=None):
             single_cls=single_cls, cache_images=cache_images)
     steps_per_epoch = max(len(train_ds) // opt.batch_size, 1)
 
+    # the label distribution at the start (JAX train.py:208-220)
+    try:
+        from .ops.geometry import poly2rbox
+        from .utils.plots import plot_labels
+
+        all_polys = [p for p in train_ds.polys if len(p)]
+        if all_polys:
+            rb = poly2rbox(np.concatenate(all_polys).astype(np.float64))
+            plot_labels(rb, np.concatenate([c for c in train_ds.cls
+                                            if len(c)]), names, save_dir)
+    except Exception as e:
+        print(f"plot_labels failed: {e}")
+
     # --- model / loss / optimizer -------------------------------------
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
     packed = opt.packed_stem
     if packed is None:
-        packed = device.type == "cuda"
+        # the stem kernels compute bf16: a float32 run keeps the stock stem
+        # (the JAX package's float32 model takes XLA's conv there too)
+        packed = device.type == "cuda" and dtype == torch.bfloat16
     fused_train = bool(opt.fused_train) and packed
     # bf16 BN/SiLU on the train path (JAX train.py:234-238; off unless
     # asked, as the JAX CLI is off the TPU)
@@ -308,6 +328,15 @@ def run(opt, callbacks=None):
             mloss_dev = None
             nb = 0
             for batch in loader:
+                if epoch == start_epoch and nb == 0:
+                    try:  # the first batch with its boxes (JAX :378-387)
+                        from .utils.plots import plot_images
+
+                        plot_images(batch.image, batch.targets,
+                                    batch.target_mask, names,
+                                    save_dir / "train_batch0.png")
+                    except Exception as e:
+                        print(f"train-batch plot failed: {e}")
                 callbacks.run("on_train_batch_start", epoch=epoch, step=nb)
                 m = step_fn(state, *_to_device(batch, device,
                                                model.packed_stem))
@@ -389,6 +418,12 @@ def run(opt, callbacks=None):
         loggers.finish()
         if workers is not None:
             workers.close()
+    try:  # the results.csv curves (JAX train.py:486-492)
+        from .utils.plots import plot_results
+
+        plot_results(save_dir / "results.csv")
+    except Exception as e:
+        print(f"plot_results failed: {e}")
     print(f"training complete; best fitness {best_fit:.4f}; results in "
           f"{save_dir}")
     return save_dir, best_fit, final_metrics or dict(ZERO_METRICS)

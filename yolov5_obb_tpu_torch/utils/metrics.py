@@ -1,9 +1,9 @@
-"""Detection metrics on the host (numpy): HBB TP matching, per-class AP.
+"""Detection metrics on the host (numpy): HBB TP matching, per-class AP,
+the confusion matrix.
 
-Copies of ``yolov5_obb_tpu/utils/metrics.py`` (metrics.py:13-118), the
+Copies of ``yolov5_obb_tpu/utils/metrics.py`` (metrics.py:13-155), the
 reference's in-train metric: HBB mAP over the rotated boxes' axis-aligned
-covers at 10 IoU thresholds.  The confusion matrix and the plots (which need
-matplotlib) are not ported (ROADMAP.md queue 1 item 6).
+covers at 10 IoU thresholds.  The plots are in ``utils/plots.py``.
 """
 
 from __future__ import annotations
@@ -117,3 +117,45 @@ def process_batch_hbb(det_xyxy, det_conf, det_cls, gt_xyxy, gt_cls, iouv):
             gi, di = gi[np.sort(ug)], di[np.sort(ug)]
             correct[di, j] = True
     return correct
+
+
+class ConfusionMatrix:
+    """Confusion matrix with a background row and column: rows are the
+    predicted class, columns the true one (reference metrics.py:117-198)."""
+
+    def __init__(self, nc: int, conf: float = 0.25, iou_thres: float = 0.45):
+        self.matrix = np.zeros((nc + 1, nc + 1))
+        self.nc = nc
+        self.conf = conf
+        self.iou_thres = iou_thres
+
+    def process_batch(self, det_xyxy, det_conf, det_cls, gt_xyxy, gt_cls):
+        """One image: detections above ``conf`` matched one-to-one to the
+        ground truth, best IoU first, at IoU > ``iou_thres`` of any class."""
+        keep = det_conf > self.conf
+        det_xyxy, det_cls = det_xyxy[keep], det_cls[keep].astype(int)
+        gt_cls = gt_cls.astype(int)
+        if len(gt_xyxy) == 0:
+            for dc in det_cls:
+                self.matrix[dc, self.nc] += 1  # false positive
+            return
+        if len(det_xyxy) == 0:
+            for gc in gt_cls:
+                self.matrix[self.nc, gc] += 1  # false negative
+            return
+        iou = box_iou_np(gt_xyxy, det_xyxy)
+        gi, di = np.where(iou > self.iou_thres)
+        matched_g, matched_d = set(), set()
+        order = np.argsort(-iou[gi, di])
+        for g, d in zip(gi[order], di[order]):
+            if g in matched_g or d in matched_d:
+                continue
+            matched_g.add(g)
+            matched_d.add(d)
+            self.matrix[det_cls[d], gt_cls[g]] += 1
+        for g in range(len(gt_cls)):
+            if g not in matched_g:
+                self.matrix[self.nc, gt_cls[g]] += 1
+        for d in range(len(det_cls)):
+            if d not in matched_d:
+                self.matrix[det_cls[d], self.nc] += 1

@@ -18,8 +18,12 @@ with the COCO bbox metrics against the split's labels
 (``devkit/coco_eval.py``).  ``--augment`` runs test-time augmentation
 (three scales, one flipped; never on the packed path), and ``--weights
 a,b`` a model ensemble: every member's decoded rows go through one NMS.
-Not ported yet: ``--task study``, exported artifacts as ``--weights``,
-``--mesh`` and the plots (ROADMAP.md queue 1).
+The confusion matrix and the PR, F1, P and R curves are drawn into the run
+directory (``--no-plots`` skips them; a machine without matplotlib reports
+them failed and goes on).  ``--task study`` runs the val task at each of
+``--study-sizes`` and writes ``study_<data>_<cfg>.txt`` (a row per size:
+size, P, R, mAP50, mAP, ms per image).  Not ported yet: exported artifacts
+as ``--weights`` and ``--mesh`` (ROADMAP.md queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -54,6 +58,9 @@ def parse_opt(argv=None):
     p.add_argument("--data", type=str, required=True)
     p.add_argument("--task", type=str, default="val",
                    choices=["train", "val", "test", "speed", "study"])
+    p.add_argument("--study-sizes", type=int, nargs="+",
+                   default=list(range(256, 1536 + 1, 128)),
+                   help="image sizes of --task study")
     p.add_argument("--imgsz", type=int, default=1024)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--conf-thres", type=float, default=None,
@@ -85,20 +92,17 @@ def parse_opt(argv=None):
     p.add_argument("--coco-eval", action="store_true",
                    help="COCO bbox AP of the --save-json predictions")
     p.add_argument("--augment", action="store_true", help="TTA inference")
-    # not ported: each raises NotImplementedError when asked for
+    p.add_argument("--no-plots", action="store_true",
+                   help="skip the confusion-matrix and curve PNGs")
+    # not ported: raises NotImplementedError when asked for
     p.add_argument("--mesh", type=int, default=0)
-    p.add_argument("--plots", action="store_true")
     return p.parse_args(argv)
 
 
 def _refuse_unported(opt) -> None:
-    if opt.task == "study":
-        raise NotImplementedError("--task study is not ported "
-                                  "(ROADMAP.md queue 1 item 6)")
-    for flag, what, item in (("mesh", "--mesh", 9), ("plots", "the plots", 6)):
-        if getattr(opt, flag):
-            raise NotImplementedError(f"{what} is not ported "
-                                      f"(ROADMAP.md queue 1 item {item})")
+    if opt.mesh:
+        raise NotImplementedError("--mesh is not ported "
+                                  "(ROADMAP.md queue 1 item 9)")
     for w in filter(None, (w.strip() for w in opt.weights.split(","))):
         path = Path(w)
         if not path.exists():
@@ -112,8 +116,34 @@ def _refuse_unported(opt) -> None:
                 "item 9)")
 
 
+def study(opt):
+    """``--task study``: the val task at each of ``--study-sizes`` into
+    ``<save_dir>/sz<size>``, then ``study_<data>_<cfg>.txt`` (JAX
+    val.py:84-104) → the rows."""
+    rows = []
+    save_dir = increment_path(Path(opt.project) / opt.name,
+                              exist_ok=opt.exist_ok)
+    for sz in opt.study_sizes:
+        sub = argparse.Namespace(**{
+            **vars(opt), "task": "val", "imgsz": sz, "save_json": False,
+            "save_task1": False, "coco_eval": False,
+            "project": str(save_dir), "name": f"sz{sz}", "exist_ok": True})
+        r = run(sub)
+        rows.append([sz, r["mp"], r["mr"], r["map50"], r["map"],
+                     r["speed_ms_per_img"]])
+        print(f"study imgsz={sz}: mAP50={r['map50']:.4f} "
+              f"{r['speed_ms_per_img']:.2f} ms/img")
+    out = save_dir / f"study_{Path(opt.data).stem}_{Path(opt.cfg).stem}.txt"
+    out.write_text("\n".join(" ".join(f"{v:.5g}" for v in row)
+                             for row in rows) + "\n")
+    print(f"study results saved to {out}")
+    return rows
+
+
 def run(opt):
     _refuse_unported(opt)
+    if opt.task == "study":
+        return study(opt)
     speed = opt.task == "speed"
     if opt.coco_eval and not (opt.save_json and not speed):
         raise ValueError("--coco-eval scores the --save-json predictions: "
@@ -163,7 +193,8 @@ def run(opt):
         save_json=(str(save_dir / "best_obb_predictions.json")
                    if opt.save_json and not speed else None),
         max_images=(opt.max_images or 64) if speed else opt.max_images,
-        tta=opt.augment, predict_fn=predict_fn)
+        tta=opt.augment, predict_fn=predict_fn,
+        plots_dir=None if speed or opt.no_plots else save_dir)
     if speed:
         print(f"speed: {res['speed_ms_per_img']:.2f} ms/img "
               f"(bs={opt.batch_size}, conf={conf}, iou={iou})")
