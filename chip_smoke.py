@@ -168,6 +168,29 @@ Phases, each fatal on failure:
       stem+L1 output at that budget), the five
       val plots where matplotlib imports, and ``--task study`` at 128,
       160, 192 (three rows, 192's mAP50 the val run's).
+  (l) scale-out and training support: (l1) phase (d)'s shape and seed-0
+      weights and batches, cuDNN deterministic, three steps of the stock
+      and of the fused step without remat, again (the repeat), with full
+      and with selective remat: loss items, parameters and BN running
+      statistics against the run without remat, bit for bit where the
+      repeat is, else within the repeat's difference; peak memory, img/s
+      and the train kernels' launches (full remat: every forward kernel
+      twice a step); (l2 i) the data-parallel stock and fused steps in a
+      world of one through NCCL against (l1)'s, by the same bar; (l2 ii)
+      two processes on the card through gloo (``--dp-worker``), 8 rows a
+      rank, three stock and three fused steps against (l1)'s one-process
+      steps (the first step's loss items within 1e-2; after updates the
+      items within 1e-2 or a one-ulp control's difference, the parameter
+      moves no less aligned than the control's), the ranks' parameters
+      and statistics bit for bit, and in float32 at yolov5n 256² b4 with the
+      stock stem (loss within 2e-4, parameter moves within 2e-2 of the
+      largest), also under full remat; (l2 iii) the train CLI in those two
+      processes for one epoch on a seeded shard set (yolov5n 512² b8, 15
+      images, val on rank 0): rank 0 alone writes ``results.csv``,
+      ``last/`` and ``best/``, each rank takes 15 // 8 steps, the ranks
+      end with the same parameters; the times are of one shared
+      card; (l3) ``--evolve 2`` at yolov5n 256² b4: ``evolve.csv``'s two
+      rows, generation 0's hyps ``mutate``'s re-run here.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -176,6 +199,7 @@ without a CUDA device or outside a checkout.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -4279,6 +4303,658 @@ def golden_path(dev, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# (l) scale-out and training support: remat, data parallelism, --evolve
+# ---------------------------------------------------------------------------
+
+# (l1): three steps a run, in each remat mode; "repeat" is the no-remat run
+# again, whose difference from the first is the bar where it is not 0
+REMAT_STEPS = 3
+REMAT_RUNS = ("none", "repeat", "full", "selective")
+# the train kernels of a forward: full remat runs the forward twice a step
+FORWARD_KERNELS = ("stem_train_fwd", "down_train_fwd", "pass_1x1_fwd",
+                   "pass_3x3s1", "pass_3x3s2")
+# (l2 ii b) the float32 case: yolov5n, stock stem, 256², batch 4
+DP_F32 = {"cfg": "yolov5n.yaml", "imgsz": 256, "batch": 4}
+# (l2 iii), (l3): the seeded set of the CLI runs; an image count that leaves
+# a remainder, of which every rank takes the one-process images // batch
+# steps
+DP_CLI = {"images": 15, "imgsz": 512, "batch": 8}
+EVOLVE = {"imgsz": 256, "batch": 4, "gens": 2, "seed": 5}
+DP_TIMEOUT_S = 420
+
+
+def remat_launches(expected, mode) -> dict:
+    """The train kernels' launches a step under ``mode``."""
+    return {n: v * (2 if mode == "full" and n in FORWARD_KERNELS else 1)
+            for n, v in expected.items()}
+
+
+def seeded_steps(model, meta, sd0, batches, steps, dev, remat=False,
+                 mesh=None, batch=None, imgsz=None, counted=()):
+    """``steps`` train steps of ``model`` from the state dict ``sd0`` over
+    ``batches`` in turn (a mesh takes its rows), with a fresh optimizer (SGD,
+    one update a step) and train state: the loss and items of each step,
+    the final state dict, img/s over the steps after the first, peak
+    memory, and the launches of the ``counted`` kernels (set to 0 just
+    before).  ``batch`` and ``imgsz`` (the global batch, for the optimizer
+    and the loss gains) default to phase (d)'s."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
+    from yolov5_obb_tpu_torch.engine.optim import build_optimizer
+    from yolov5_obb_tpu_torch.engine.trainer import (
+        create_train_state,
+        make_train_step,
+        put_batch,
+    )
+    from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
+
+    batch, imgsz = batch or BATCH, imgsz or IMGSZ
+    with torch.no_grad():
+        model.load_state_dict(sd0)
+    hyp = load_hyp()
+    loss_fn = ComputeLoss(meta, scale_hyp_gains(hyp, meta.nl, meta.nc, imgsz))
+    opt, _ = build_optimizer(model, hyp, epochs=10, steps_per_epoch=100,
+                             batch_size=batch, nominal_batch=batch)
+    state = create_train_state(opt)
+    step = make_train_step(model, loss_fn, opt, mesh=mesh, remat=remat,
+                           device=dev)
+    kernels = {n: k for n, k in _named_kernels().items() if n in counted}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    out, t = [], None
+    for i in range(steps):
+        if i == 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        out.append(step(state, *put_batch(batches[i % len(batches)], mesh)))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    rows = batch if mesh is None else batch // mesh.world
+    return {"loss": [float(m["loss"]) for m in out],
+            "items": [m["items"].float().tolist() for m in out],
+            "sd": {k: v.detach().clone()
+                   for k, v in model.state_dict().items()},
+            "imgs_per_s": (steps - 1) * rows / dt,
+            "step_ms": dt * 1e3 / (steps - 1),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {n: k.launches for n, k in kernels.items()}}
+
+
+def run_diff(a, b) -> dict:
+    """Largest absolute differences of two runs: the loss items of every
+    step, the parameters, the BN running statistics."""
+    items = float(np.abs(np.asarray(a["items"])
+                         - np.asarray(b["items"])).max())
+    params = stats = 0.0
+    for k, t in b["sd"].items():
+        if "num_batches" in k:
+            continue
+        d = float((a["sd"][k].double() - t.double()).abs().max())
+        if "running" in k:
+            stats = max(stats, d)
+        else:
+            params = max(params, d)
+    return {"items": items, "params": params, "stats": stats}
+
+
+def within_repeat(diff, bar) -> bool:
+    """Bit for bit where the repeat is; else within the repeat's own
+    difference."""
+    return all(diff[k] <= bar[k] for k in bar)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms for the block: phase (l)'s
+    comparisons want a repeat of a step to be the step bit for bit, and
+    the default algorithms of the stock step's high-resolution convs are
+    not (their repeat moved parameters by 0.12 after three steps)."""
+    import torch
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def remat_path(dev, report, fused):
+    """(l1) at phase (d)'s shape (yolov5m b16 1024², bf16, packed stem, the
+    seed-0 weights and batches), ``fused`` with the fused train region:
+    three steps without remat, again (the repeat), with full and with
+    selective remat, cuDNN deterministic; each against the first run, peak
+    memory, img/s and the train kernels' launches.  Returns the launches
+    and the first run (the reference of (l2))."""
+    import torch
+
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.general import load_hyp
+
+    expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
+    model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
+                               device=dev, seed=0, packed_stem=True,
+                               fused_train=fused)
+    sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = train_batches(dev, load_hyp()["csl_radius"])
+    runs, launches = {}, {}
+    for name in REMAT_RUNS:
+        mode = {"none": False, "repeat": False}.get(name, name)
+        with cudnn_deterministic():
+            r = seeded_steps(model, meta, sd0, batches, REMAT_STEPS, dev,
+                             remat=mode, counted=expected)
+        want = {n: REMAT_STEPS * v
+                for n, v in remat_launches(expected, mode).items()}
+        require(r["launches"] == want,
+                f"remat {name}{' fused' if fused else ''}: launches "
+                f"{r['launches']}, expected {want}")
+        require(bool(np.isfinite(r["items"]).all()),
+                f"remat {name}: non-finite items {r['items']}")
+        for n, v in r["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+        runs[name] = r
+    bar = run_diff(runs["repeat"], runs["none"])
+    res = {"repeat_diff": bar}
+    for name in REMAT_RUNS:
+        r = runs[name]
+        res[name] = {"peak_mem_gib": r["peak_mem_gib"],
+                     "imgs_per_s": r["imgs_per_s"], "step_ms": r["step_ms"],
+                     "items": r["items"], "launches": r["launches"]}
+        if name in ("full", "selective"):
+            d = run_diff(r, runs["none"])
+            res[name]["diff"] = d
+            require(within_repeat(d, bar),
+                    f"remat {name}{' fused' if fused else ''} differs from "
+                    f"the step without remat by {d}, the repeat by {bar}")
+    tag = "fused_" if fused else ""
+    log(f"(l1) {tag}remat: " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "items"}
+         if isinstance(v, dict) and "items" in v else v
+         for k, v in res.items()}))
+    report[f"{tag}remat"] = res
+    ref = runs["none"]
+    del runs, model
+    torch.cuda.empty_cache()
+    return launches, ref, sd0, batches, bar
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def world_of_one(dev, ref, sd0, batches, bar, fused):
+    """(l2 i) the data-parallel step in a world of one through NCCL, three
+    steps from (l1)'s weights and batches, cuDNN deterministic, ``fused``
+    with the fused train region (whose statistics go through the mesh's
+    all-reduce): bit for bit (l1)'s step without remat where its repeat
+    is, else within the repeat's difference; the train kernels' launches
+    a step as without a mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from yolov5_obb_tpu_torch.engine.distributed import make_mesh
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+
+    expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
+    model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
+                               device=dev, seed=0, packed_stem=True,
+                               fused_train=fused)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        require(dist.get_backend() == backend, "the world of one's backend")
+        with cudnn_deterministic():
+            r = seeded_steps(model, meta, sd0, batches, REMAT_STEPS, dev,
+                             mesh=make_mesh(), counted=expected)
+    finally:
+        dist.destroy_process_group()
+    d = run_diff(r, ref)
+    tag = "fused " if fused else ""
+    res = {"diff": d, "repeat_diff": bar, "imgs_per_s": r["imgs_per_s"],
+           "launches": r["launches"]}
+    log(f"(l2 i) {tag}NCCL world of one: " + json.dumps(res))
+    require(within_repeat(d, bar), f"a {tag}world of one differs from the "
+            f"step by {d}, the repeat by {bar}")
+    want = {n: REMAT_STEPS * v for n, v in expected.items()}
+    require(r["launches"] == want, f"(l2 i) {tag}launches {r['launches']}, "
+            f"expected {want}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _to_cpu(obj):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def _moves_vs(a, b, sd0) -> dict:
+    """Parameter moves from ``sd0`` of run ``a`` against run ``b``: the
+    largest difference over the largest move of ``b`` (phase (d)'s dW bar
+    form), and the cosine of the two runs' moves."""
+    import torch
+
+    names = [k for k in sd0 if "running" not in k and "num_batches" not in k]
+    ma = torch.cat([(a["sd"][k].double() - sd0[k].double().to(
+        a["sd"][k].device)).flatten() for k in names])
+    mb = torch.cat([(b["sd"][k].double() - sd0[k].double().to(
+        b["sd"][k].device)).flatten() for k in names])
+    return {"max_diff_over_max_move": float((ma - mb).abs().max()
+                                            / mb.abs().max()),
+            "cos": _cos(ma, mb)}
+
+
+def launch_workers(tmp, jobs, dev, world=2):
+    """``world`` processes of ``chip_smoke.py --dp-worker`` on ``dev``, the
+    one card (gloo: NCCL takes one rank a device), each running ``jobs``;
+    waits with a limit, stops any left, and returns each rank's results."""
+    spec = tmp / "jobs.json"
+    spec.write_text(json.dumps({"port": _free_port(), "world": world,
+                                "device": dev.type, "jobs": jobs}))
+    procs, logs = [], []
+    for rank in range(world):
+        env = {**__import__("os").environ, "LOCAL_RANK": "0",
+               "RANK": str(rank), "WORLD_SIZE": str(world)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+             str(spec), str(rank)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        log(f"--- dp worker {rank} (exit {p.returncode}), last lines:\n"
+            + "\n".join(text.splitlines()[-12:]))
+        require(p.returncode == 0, f"dp worker {rank} failed")
+    import torch
+
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def dp_worker(spec_path, rank) -> int:
+    """One rank of (l2 ii)/(iii): joins the gloo group (both ranks on
+    ``cuda:0``, or the CPU where the spec says so) and runs the jobs of
+    ``spec_path``; writes its results to ``rank{r}.pt`` beside it."""
+    import torch
+    import torch.distributed as dist
+
+    from yolov5_obb_tpu_torch.engine.distributed import make_mesh
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+
+    spec = json.loads(Path(spec_path).read_text())
+    tmp = Path(spec_path).parent
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":  # as main() sets them
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{spec['port']}", world_size=spec["world"],
+                            rank=rank)
+    out = {}
+    try:
+        for job in spec["jobs"]:
+            if job["kind"] == "step":
+                data = torch.load(job["input"], weights_only=False)
+                dtype = getattr(torch, job["dtype"])
+                fused = job.get("fused", False)
+                model, meta = create_model(
+                    job["cfg"], nc=15, dtype=dtype, device=dev, seed=0,
+                    packed_stem=job["packed"], fused_train=fused)
+                batches = [tuple(t.to(dev) for t in b)
+                           for b in data["batches"]]
+                r = seeded_steps(model, meta, data["sd"], batches,
+                                 REMAT_STEPS, dev, mesh=make_mesh(),
+                                 remat=job.get("remat", False),
+                                 batch=job["batch"], imgsz=job["imgsz"],
+                                 counted=FUSED_LAUNCHES if fused
+                                 else TRAIN_LAUNCHES)
+                out[job["name"]] = _to_cpu(r)
+                del model, batches
+                torch.cuda.empty_cache()
+            else:
+                out[job["name"]] = dp_cli_rank(job["argv"])
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, tmp / f"rank{rank}.pt")
+    return 0
+
+
+def dp_cli_rank(argv) -> dict:
+    """The train CLI in this rank (the group is joined: ``train.run``'s
+    ``maybe_initialize`` keeps it): its final state dict, the checkpoint
+    writes it made, its train kernels' launches and the run's seconds."""
+    import torch
+
+    from yolov5_obb_tpu_torch import train
+
+    made, writes = [], []
+    real_step = train.make_train_step
+
+    def capture(model, *a, **k):
+        made.append(model)
+        return real_step(model, *a, **k)
+
+    def recorded(name):
+        fn = getattr(train, name)
+
+        def wrapper(*a, **k):
+            writes.append(name)
+            return fn(*a, **k)
+        return wrapper
+
+    train.make_train_step = capture
+    for name in ("save_checkpoint", "save_weights"):
+        setattr(train, name, recorded(name))
+    kernels = {n: k for n, k in _named_kernels().items()
+               if n in TRAIN_LAUNCHES}
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    save_dir, fit, _ = train.run(train.parse_opt(argv))
+    torch.cuda.synchronize()
+    return {"sd": _to_cpu(made[-1].state_dict()), "writes": writes,
+            "save_dir": str(save_dir), "fitness": fit,
+            "run_s": time.perf_counter() - t,
+            "launches": {n: k.launches for n, k in kernels.items()}}
+
+
+def dp_path(dev, report, refs, tmp, card):
+    """(l2 ii) two processes on the one card through gloo, 8 rows a rank of
+    (l1)'s b16 batches, three steps, against (l1)'s one-process step, the
+    stock step and the fused train region (``refs``: each one's first
+    (l1) run, weights and batches), the ranks' parameters and BatchNorm
+    statistics bit for bit (a rank that kept its own statistics would
+    store other running statistics than the other rank).  The first step
+    (both from the same state) within phase (d)'s 1e-2 on the loss items.
+    After updates a bf16 step's parameters carry rounding noise that the
+    summed statistics move (PERF.md, Findings: whole-step bf16 gradients are
+    held by direction): the control, the one-process step with the stem
+    weights scaled by 1 + 2^-8 (one bf16 ulp, phase (d)'s), measures it.
+    The three steps' items within 1e-2, or the control's difference where
+    it is larger; the parameter moves no less aligned with the one-process
+    moves than the control's; their largest elementwise difference is
+    reported (the control's exceeds the largest move).  The fused region
+    runs in bf16 only on the card (its stem kernel computes bf16), so the
+    float32 case is the stock step's.  The same in float32 at
+    yolov5n 256² b4 with the stock stem: loss and items within 2e-4, the
+    parameter moves within 2e-2 of the largest (phase (d)'s dW bar); and
+    so under full remat (the statistics' all-reduces run again in the
+    backward's recompute).  (l2 iii)
+    the train CLI in the same two processes for one epoch on a seeded
+    shard set (yolov5n 512², b8): only rank 0 writes, both ranks end
+    equal.  The times are of two processes sharing one card: they measure
+    no scale-out."""
+    import torch
+
+    from yolov5_obb_tpu_torch.data.shards import write_shards
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.utils.general import load_hyp
+
+    # the bf16 controls: (l1)'s one-process steps, the stem one ulp off
+    stem, ctls = "model.0.conv.weight", {}
+    for name, (_, sd0, batches) in refs.items():
+        model, meta = create_model(
+            "yolov5m.yaml", nc=15, dtype=torch.bfloat16, device=dev, seed=0,
+            packed_stem=True, fused_train=name == "bf16_fused")
+        ctls[name] = seeded_steps(
+            model, meta, {**sd0, stem: sd0[stem] * (1 + 2.0**-8)}, batches,
+            REMAT_STEPS, dev)
+        del model
+        torch.save({"sd": _to_cpu(sd0), "batches": _to_cpu(batches)},
+                   tmp / f"{name}.pt")
+    # the float32 case's weights, batches and one-process reference
+    f = DP_F32
+    m32, meta32 = create_model(f["cfg"], nc=15, dtype=torch.float32,
+                               device=dev, seed=0, packed_stem=False)
+    sd32 = {k: v.detach().clone() for k, v in m32.state_dict().items()}
+    # NHWC images; the boxes of phase (d)'s batches scaled to 256²
+    b32 = []
+    for img, tg, mk in train_batches(dev, load_hyp()["csl_radius"],
+                                     batch=f["batch"], imgsz=f["imgsz"]):
+        tg = tg.clone()
+        tg[..., 1:5] *= f["imgsz"] / IMGSZ
+        b32.append((img.reshape(img.shape[0], img.shape[1], -1, 3), tg, mk))
+    ref32 = seeded_steps(m32, meta32, sd32, b32, REMAT_STEPS, dev,
+                         batch=f["batch"], imgsz=f["imgsz"])
+    del m32
+    torch.save({"sd": _to_cpu(sd32), "batches": _to_cpu(b32)},
+               tmp / "f32.pt")
+
+    # (iii)'s set: written from memory, its shards packed, linked into the
+    # run's cache as phase (g) does
+    names = [f"c{i}" for i in range(15)]
+    c = DP_CLI
+    data, images = write_seeded_dota(tmp / "dota", c["images"], c["imgsz"],
+                                     13, names)
+    shards = write_shards(seeded_train_set(data, images, MAX_LABELS,
+                                           load_hyp()),
+                          tmp / "shards", aug_epochs=1, seed=0,
+                          verbose=False)
+    del images
+    proj = tmp / "runs"
+    (proj / "dp" / "cache").mkdir(parents=True)
+    (proj / "dp" / "cache" / "shards").symlink_to(shards)
+    argv = ["--cfg", "yolov5n.yaml", "--data", str(data), "--imgsz",
+            str(c["imgsz"]), "--batch-size", str(c["batch"]),
+            "--nominal-batch", str(c["batch"]), "--max-labels",
+            str(MAX_LABELS), "--cache", "shards", "--workers", "0",
+            "--epochs", "1", "--noautoanchor", "--val-images", "8",
+            "--device", dev.type, "--exist-ok", "--project", str(proj),
+            "--name", "dp"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = launch_workers(tmp, [
+        {"kind": "step", "name": "bf16", "input": str(tmp / "bf16.pt"),
+         "cfg": "yolov5m.yaml", "dtype": "bfloat16", "packed": True,
+         "batch": BATCH, "imgsz": IMGSZ},
+        {"kind": "step", "name": "bf16_fused",
+         "input": str(tmp / "bf16_fused.pt"), "cfg": "yolov5m.yaml",
+         "dtype": "bfloat16", "packed": True, "fused": True,
+         "batch": BATCH, "imgsz": IMGSZ},
+        {"kind": "step", "name": "f32", "input": str(tmp / "f32.pt"),
+         "cfg": f["cfg"], "dtype": "float32", "packed": False,
+         "batch": f["batch"], "imgsz": f["imgsz"]},
+        {"kind": "step", "name": "f32_full_remat",
+         "input": str(tmp / "f32.pt"), "cfg": f["cfg"], "dtype": "float32",
+         "packed": False, "batch": f["batch"], "imgsz": f["imgsz"],
+         "remat": "full"},
+        {"kind": "cli", "name": "cli", "argv": argv}], dev)
+    wall = time.perf_counter() - t
+    launches = {}
+    res = {"card": f"{card}, one card shared by both ranks (no scale-out)",
+           "workers_wall_s": wall}
+    for name, one, bar in (("bf16", refs["bf16"][0], 1e-2),
+                           ("bf16_fused", refs["bf16_fused"][0], 1e-2),
+                           ("f32", ref32, 2e-4),
+                           ("f32_full_remat", ref32, 2e-4)):
+        a, b = (r[name] for r in ranks)
+        bf16 = name in refs
+        sd_ref = refs[name][1] if bf16 else sd32
+        items = np.asarray(one["items"])
+        err = float((np.abs(np.asarray(a["items"]) - items)
+                     / np.abs(items)).max())
+        loss_err = float(np.abs(np.asarray(a["loss"]) - np.asarray(
+            one["loss"])).max() / np.abs(one["loss"]).max())
+        moves = _moves_vs(a, _to_cpu(one), _to_cpu(sd_ref))
+        if bf16:
+            ctl = ctls[name]
+            c_items = np.asarray(ctl["items"])
+            c_err = float((np.abs(c_items - items) / np.abs(items)).max())
+            c_moves = _moves_vs(_to_cpu(ctl), _to_cpu(one), _to_cpu(sd_ref))
+        same = all(torch.equal(a["sd"][k], b["sd"][k]) for k in a["sd"])
+        per_step = {n: v // REMAT_STEPS for n, v in a["launches"].items()}
+        err0 = float((np.abs(np.asarray(a["items"][0]) - items[0])
+                      / np.abs(items[0])).max())
+        res[name] = {"first_step_items_max_rel_err": err0,
+                     "items_max_rel_err": err, "loss_max_rel_err": loss_err,
+                     "moves": moves, "ranks_equal": same,
+                     "step_ms_rank": [r[name]["step_ms"] for r in ranks],
+                     "imgs_per_s_rank": [r[name]["imgs_per_s"] for r in ranks],
+                     "peak_mem_gib_rank": [r[name]["peak_mem_gib"]
+                                           for r in ranks],
+                     "one_process_step_ms": one["step_ms"],
+                     "launches_rank0": a["launches"]}
+        require(same, f"(l2 ii) {name}: the ranks' parameters differ")
+        if bf16:
+            res[name]["control"] = {"items_max_rel_err": c_err,
+                                    "moves": c_moves}
+            require(err0 <= bar and err <= max(bar, c_err)
+                    and moves["cos"] >= c_moves["cos"],
+                    f"(l2 ii) {name} two ranks against one process: "
+                    f"{res[name]}")
+            want = FUSED_LAUNCHES if name == "bf16_fused" else TRAIN_LAUNCHES
+            require(per_step == want,
+                    f"(l2 ii) {name} launches {a['launches']}")
+        else:
+            require(loss_err <= bar and err <= bar
+                    and moves["max_diff_over_max_move"] <= 2e-2,
+                    f"(l2 ii) float32 two ranks against one process: "
+                    f"{res[name]}")
+        for r in ranks:
+            for n, v in r[name]["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+    # (iii) the CLI
+    a, b = (r["cli"] for r in ranks)
+    run = Path(a["save_dir"])
+    rows = _csv_rows(run / "results.csv")
+    steps = c["images"] // c["batch"]
+    want = {"stem_train_fwd": steps, "stem_train_wgrad": steps,
+            "down_train_fwd": steps, "down_train_wgrad": steps}
+    res["cli"] = {"writes": [a["writes"], b["writes"]],
+                  "run_s": [a["run_s"], b["run_s"]],
+                  "fitness": [a["fitness"], b["fitness"]],
+                  "launches": [a["launches"], b["launches"]],
+                  "results_rows": len(rows)}
+    log("(l2 ii, iii) two ranks on one card: " + json.dumps(res))
+    require(a["save_dir"] == b["save_dir"] and len(rows) == 1
+            and (run / "last" / "state.pt").is_file()
+            and (run / "best" / "state.pt").is_file()
+            and sorted(set(a["writes"])) == ["save_checkpoint",
+                                             "save_weights"]
+            and b["writes"] == [] and a["fitness"] == b["fitness"],
+            f"(l2 iii) rank 0 alone writes: {res['cli']}")
+    require(all(torch.equal(a["sd"][k], b["sd"][k]) for k in a["sd"]),
+            "(l2 iii) the CLI's ranks end with other parameters")
+    require(a["launches"] == b["launches"] == want,
+            f"(l2 iii) launches {res['cli']['launches']}, expected {want}")
+    for r in (a, b):
+        for n, v in r["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    report["data_parallel"] = res
+    return launches, data
+
+
+def evolve_path(dev, report, data, tmp):
+    """(l3) ``--evolve 2`` of the train CLI on the card at a tiny size
+    (yolov5n 256², b4, one epoch a generation, ``--noval``): evolve.csv
+    with a header and two rows, generation 0's hyps ``mutate`` of the
+    default hyps by the seed's generator, re-run here."""
+    import torch
+
+    from yolov5_obb_tpu_torch import train
+    from yolov5_obb_tpu_torch.engine.evolve import mutate
+    from yolov5_obb_tpu_torch.utils.general import load_hyp
+
+    e = EVOLVE
+    kernels = {n: k for n, k in _named_kernels().items()
+               if n in TRAIN_LAUNCHES}
+    for k in kernels.values():
+        k.launches = 0
+    t = time.perf_counter()
+    train.main(["--cfg", "yolov5n.yaml", "--data", str(data), "--imgsz",
+                str(e["imgsz"]), "--batch-size", str(e["batch"]),
+                "--nominal-batch", str(e["batch"]), "--max-labels",
+                str(MAX_LABELS), "--workers", "0", "--epochs", "1",
+                "--noval", "--noautoanchor", "--seed", str(e["seed"]),
+                "--device", dev.type, "--project", str(tmp / "evolve"),
+                "--name", "ev", "--evolve", str(e["gens"])])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {n: k.launches for n, k in kernels.items()}
+    lines = (tmp / "evolve" / "ev_evolve" / "evolve.csv").read_text(
+        ).strip().splitlines()
+    header = lines[0].split(",")
+    gen0 = dict(zip(header, lines[1].split(",")))
+    want = mutate(load_hyp(), np.random.default_rng(e["seed"]), None)
+    bad = [k for k in header[3:] if gen0[k] != f"{want[k]:.6g}"]
+    # the stem train kernels a step (at 256² no downsample passes the
+    # gate), 4 steps a generation
+    steps = e["gens"] * (DP_CLI["images"] // e["batch"])
+    want = {"stem_train_fwd": steps, "stem_train_wgrad": steps,
+            "down_train_fwd": 0, "down_train_wgrad": 0}
+    res = {"rows": len(lines) - 1, "seconds": secs, "gen0": gen0,
+           "mismatched_keys": bad, "launches": launches}
+    log("(l3) --evolve: " + json.dumps(res))
+    require(len(lines) == 1 + e["gens"] and not bad,
+            f"(l3) evolve.csv: {res}")
+    require(launches == want, f"(l3) launches {launches}, expected {want}")
+    report["evolve"] = res
+    return launches
+
+
+def scale_out_path(dev, report, card):
+    """Phase (l): (l1) remat, stock and fused; (l2) data parallelism; (l3)
+    --evolve.  Returns the launches of its runs on the card, the workers'
+    included."""
+    import torch
+
+    launches = {}
+
+    def add(phase):
+        for n, v in phase.items():
+            launches[n] = launches.get(n, 0) + v
+
+    t0 = time.perf_counter()
+    refs, bars = {}, {}
+    for name, fused in (("bf16_fused", True), ("bf16", False)):
+        lr, ref, sd0, batches, bars[name] = remat_path(dev, report, fused)
+        add(lr)
+        refs[name] = (ref, sd0, batches)
+    t1 = time.perf_counter()
+    for name, fused in (("bf16", False), ("bf16_fused", True)):
+        one = world_of_one(dev, *refs[name], bars[name], fused)
+        add(one["launches"])
+        report["fused_world_of_one" if fused else "world_of_one"] = one
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        ldp, data = dp_path(dev, report, refs, tmp, card)
+        add(ldp)
+        del refs
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        add(evolve_path(dev, report, data, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["scale_out_s"] = {"l1": t1 - t0, "l2": t2 - t1,
+                             "l3": time.perf_counter() - t2}
+    return launches
+
+
 def pre_fmt(speed) -> str:
     return (f"{speed['pre']:.1f} ms pre-process + "
             f"{speed['inference_nms']:.1f} ms inference+NMS a image")
@@ -4427,6 +5103,11 @@ def main() -> int:
     # (k) the golden flow: training from PNG files to the merged OBB mAP,
     # and the golden yolov5n against the JAX package's numbers
     add(golden_path(dev, report))
+    torch.cuda.empty_cache()
+    # (l) scale-out and training support: remat, data parallelism (one
+    # world through NCCL, two processes on the card through gloo, the
+    # train CLI in both), --evolve
+    add(scale_out_path(dev, report, card))
     log("main path: " + json.dumps(report, default=str))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "
@@ -4480,4 +5161,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase (l2)
+        sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

@@ -93,9 +93,15 @@ def test_train_step_needs_the_card_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(model, ComputeLoss(meta), opt, device="cuda")
     make_train_step(model, ComputeLoss(meta), opt, device="cpu")
-    for kw in ({"remat": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            make_train_step(model, ComputeLoss(meta), opt, device="cpu", **kw)
+    # remat runs on the CPU; a data-parallel mesh needs a process group
+    for remat in (True, "full", "selective"):
+        make_train_step(model, ComputeLoss(meta), opt, device="cpu",
+                        remat=remat)
+    from yolov5_obb_tpu_torch.engine.distributed import make_mesh
+
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        make_train_step(model, ComputeLoss(meta), opt, device="cpu",
+                        mesh=make_mesh())
 
 
 def test_fused_train_model_needs_the_card_unless_cpu_is_asked():

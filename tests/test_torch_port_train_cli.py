@@ -1,7 +1,7 @@
 """The port's train CLI and checkpoints against the JAX package's on the
 CPU: ``results.csv`` and the anchors of one epoch from the same weights,
 resume against an uninterrupted run, the val CLI on a ``best/`` directory,
-the golden checkpoint converter, and the flags the port refuses."""
+the golden checkpoint converter, and the flag the port refuses."""
 
 import csv
 import json
@@ -250,20 +250,13 @@ def test_val_cli_names_a_missing_weights_path(cli):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--remat"], 7), (["--evolve", "2"], 7),
     (["--weights", "wandb-artifact://e/p/m:best"], 9)],
-    ids=["remat", "evolve", "wandb_artifact"])
+    ids=["wandb_artifact"])
 def test_refused_flags_name_their_roadmap_item(cli, argv, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item}"):
         port_train.main(cli.argv + ["--device", "cpu", "--name", "refused",
                                     "--epochs", "1", *argv])
-
-
-def test_more_than_one_process_is_refused(cli, monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port_train.main(cli.argv + ["--device", "cpu", "--name", "refused"])
 
 
 @pytest.mark.parametrize("dtype, packed", [("float32", False),

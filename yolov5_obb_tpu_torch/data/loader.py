@@ -124,7 +124,12 @@ def create_dataloader(dataset, batch_size: int, shuffle: bool = True,
     every sample, shuffled by one generator seeded from ``seed`` when
     ``shuffle``, then the strided ``order[shard_index::shard_count]`` slice
     (the reference's DistributedSampler semantics); ``batch_size`` is per
-    process.
+    process.  With ``drop_remainder`` the order is first cut to whole
+    global batches (``batch_size * shard_count``), so every shard yields
+    the one-process run's ``len(order) // global batch`` batches and the
+    processes of a data-parallel step take their steps together (the JAX
+    package's in-process path drops each shard's own remainder, so its
+    shards can differ by a batch).
 
     In-process (``workers`` None): the JAX package's path draw for draw —
     that one generator shuffles and then augments the samples in order, so
@@ -149,6 +154,9 @@ def create_dataloader(dataset, batch_size: int, shuffle: bool = True,
         if shuffle:
             rng.shuffle(order)
         if shard_count > 1:
+            if drop_remainder:  # every shard the same number of batches
+                order = order[:len(order) // (batch_size * shard_count)
+                              * batch_size * shard_count]
             order = order[shard_index::shard_count]
         stop = (len(order) // batch_size * batch_size if drop_remainder
                 else len(order))

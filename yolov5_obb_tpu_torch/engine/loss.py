@@ -28,6 +28,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..models import step_context
+
 THETA_BINS = 180
 
 DEFAULT_HYP = {
@@ -140,9 +142,20 @@ def _assign_level(t_xyls, t_mask, anchors_ft, stride, ny, nx, anchor_t):
             "twh": gwh}
 
 
-def _masked_mean(x, mask):
+def _masked_mean(x, mask, mesh=None):
+    """Mean of ``x`` where ``mask``; under a data-parallel step (``mesh``)
+    this rank's sum over the global count."""
     m = mask.to(x.dtype)
-    return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+    if mesh is None:
+        return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (x * m).sum() / torch.clamp(mesh.sum_(m.sum()), min=1.0)
+
+
+def _cell_mean(x, mesh=None):
+    """Mean of ``x`` over every element; under a data-parallel step this
+    rank's share of the global batch's mean (the ranks hold equal
+    slices)."""
+    return x.mean() if mesh is None else x.mean() / mesh.world
 
 
 def compute_loss(maps, targets, t_mask, anchors_grid, nc: int, strides,
@@ -153,7 +166,17 @@ def compute_loss(maps, targets, t_mask, anchors_grid, nc: int, strides,
     levels) or ``(B, ny, nx, na, no)``; ``targets (B, M, 186)``; ``t_mask
     (B, M)`` bool; ``anchors_grid (nl, na, 2)`` anchors in feature units.
     Returns ``(total, items)``: ``total = Σ items · B`` and the ``(4,)``
-    tensor ``[lbox lobj lcls ltheta]``."""
+    tensor ``[lbox lobj lcls ltheta]``.
+
+    Under a data-parallel step (``models/step_context.mesh``) the
+    loss is the JAX step's over the global batch: each rank takes its own
+    numerators over the global counts (the masked means' counts summed
+    over the ranks, the objectness mean over every cell of the global
+    batch, the global ``B``), so the ranks' ``total`` and ``items`` add up
+    to the one-process values and the summed gradients are its
+    gradients."""
+    mesh = step_context.mesh()
+    world = 1 if mesh is None else mesh.world
     cp, cn = smooth_bce(hyp.get("label_smoothing", 0.0))
     gamma = hyp.get("fl_gamma", 0.0)
     qgamma = hyp.get("qfl_gamma", 0.0)
@@ -233,16 +256,18 @@ def compute_loss(maps, targets, t_mask, anchors_grid, nc: int, strides,
             pxy = torch.sigmoid(pf[..., 0:2]) * 2.0 - 0.5
             pwh = (torch.sigmoid(pf[..., 2:4]) * 2.0) ** 2 * anch_rows
             iou = ciou_xywh(torch.cat([pxy, pwh], -1), dense_t[..., 0:4])
-            lbox = lbox + _masked_mean(1.0 - iou, d_mask)
+            lbox = lbox + _masked_mean(1.0 - iou, d_mask, mesh)
 
             tobj = torch.clamp(iou.detach(), min=0.0) * dm
-            lobj = lobj + bce(pf[..., 4], tobj, hyp["obj_pw"]).mean() * balance[li]
+            lobj = lobj + _cell_mean(bce(pf[..., 4], tobj, hyp["obj_pw"]),
+                                     mesh) * balance[li]
 
             if nc > 1:
                 t_onehot = torch.where(
                     F.one_hot(dense_t[..., 4].long(), nc) > 0, cp, cn)
                 cls_l = bce(pf[..., 5:5 + nc], t_onehot, hyp["cls_pw"])
-                lcls = lcls + _masked_mean(cls_l, d_mask[..., None].expand_as(cls_l))
+                lcls = lcls + _masked_mean(
+                    cls_l, d_mask[..., None].expand_as(cls_l), mesh)
 
             # CSL targets regenerated analytically on the grid
             # (ops/geometry.csl_gaussian_labels, truncating peak snap)
@@ -253,7 +278,8 @@ def compute_loss(maps, targets, t_mask, anchors_grid, nc: int, strides,
             th_l = modulate(bce_with_logits(pf[..., 5 + nc:], tth,
                                             hyp["theta_pw"]),
                             pf[..., 5 + nc:], tth)
-            ltheta = ltheta + _masked_mean(th_l, d_mask[..., None].expand_as(th_l))
+            ltheta = ltheta + _masked_mean(
+                th_l, d_mask[..., None].expand_as(th_l), mesh)
             continue
 
         ps = torch.gather(pf, 1, flat_idx[..., None].expand(B, K, no))
@@ -264,31 +290,35 @@ def compute_loss(maps, targets, t_mask, anchors_grid, nc: int, strides,
         pxy = torch.sigmoid(ps[..., 0:2]) * 2.0 - 0.5
         pwh = (torch.sigmoid(ps[..., 2:4]) * 2.0) ** 2 * anch
         iou = ciou_xywh(torch.cat([pxy, pwh], -1), torch.cat([txy, twh], -1))
-        lbox = lbox + _masked_mean(1.0 - iou, mflat)
+        lbox = lbox + _masked_mean(1.0 - iou, mflat, mesh)
 
         # objectness target grid: scatter-max of the matched IoUs
         score = torch.where(mflat, torch.clamp(iou.detach(), min=0.0), 0.0)
         tobj = torch.zeros(B, ny * nx * na, device=dev).scatter_reduce(
             1, flat_idx, score, "amax")
-        lobj = lobj + bce(pf[..., 4], tobj, hyp["obj_pw"]).mean() * balance[li]
+        lobj = lobj + _cell_mean(bce(pf[..., 4], tobj, hyp["obj_pw"]),
+                                     mesh) * balance[li]
 
         if nc > 1:
             t_onehot = torch.where(F.one_hot(tcls, nc) > 0, cp, cn)
             cls_l = bce(ps[..., 5:5 + nc], t_onehot, hyp["cls_pw"])
-            lcls = lcls + _masked_mean(cls_l, mflat[..., None].expand_as(cls_l))
+            lcls = lcls + _masked_mean(
+                cls_l, mflat[..., None].expand_as(cls_l), mesh)
 
         tth = t_csl[:, :, None, None].expand(
             B, M, na, 5, THETA_BINS).reshape(B, K, THETA_BINS)
         th_logit = ps[..., 5 + nc:]
         th_l = modulate(bce_with_logits(th_logit, tth, hyp["theta_pw"]),
                         th_logit, tth)
-        ltheta = ltheta + _masked_mean(th_l, mflat[..., None].expand_as(th_l))
+        ltheta = ltheta + _masked_mean(
+            th_l, mflat[..., None].expand_as(th_l), mesh)
 
     lbox = lbox * hyp["box"]
     lobj = lobj * hyp["obj"]
     lcls = lcls * hyp["cls"]
     ltheta = ltheta * hyp["theta"]
-    total = (lbox + lobj + lcls + ltheta) * B  # the reference scales by bs
+    # the reference scales by the batch size (the global one)
+    total = (lbox + lobj + lcls + ltheta) * (B * world)
     return total, torch.stack([lbox, lobj, lcls, ltheta])
 
 

@@ -14,7 +14,9 @@ import dataclasses
 
 import torch
 
+from ..models import step_context
 from ..utils.device import resolve_device
+from .distributed import DataMesh
 from .optim import OptState, Optimizer, ema_update
 
 
@@ -76,7 +78,7 @@ def create_train_state(optimizer: Optimizer) -> TrainState:
 
 
 def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
-                    mesh=None, remat=False, device=None):
+                    mesh: DataMesh | None = None, remat=False, device=None):
     """The train step ``step(state, image, targets, t_mask) -> metrics``.
 
     ``image``: the packed ``(B, H, 3W)`` uint8 view for a packed-stem model
@@ -91,15 +93,54 @@ def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
     ``metrics`` holds ``loss`` and the ``(4,)`` ``items`` as device tensors:
     reading them synchronises, so read them only when needed.
 
-    ``remat`` and ``mesh`` (data-parallel) are not ported yet."""
-    if remat:
-        raise NotImplementedError("rematerialisation (remat) is not ported "
-                                  "yet")
-    if mesh is not None:
-        raise NotImplementedError("the data-parallel step (mesh) is not "
-                                  "ported yet")
+    ``remat`` (JAX trainer.py:75-102):
+
+    - ``True`` / ``"full"``: the forward runs under non-reentrant
+      ``torch.utils.checkpoint``s (``autograd.grad`` rules out the
+      reentrant one) and again in the backward: one checkpoint a layer of
+      the graph (the fused train region is one), so the step keeps the
+      layers' inputs and the backward recomputes one layer at a time.  One
+      checkpoint over the whole forward would recompute every saved tensor
+      at once when the backward starts, which is the stock step's peak;
+      the JAX step's single ``jax.checkpoint`` leaves that schedule to
+      XLA.  Every forward kernel launches twice a step;
+    - ``"selective"``: every conv block's train-mode BatchNorm + SiLU chain
+      runs under a checkpoint of its own that keeps its input, the conv
+      output, and recomputes the float32 chain in the backward
+      (``models/layers._bn_act``); the convs, the kernels and the fused
+      train region run as without remat.  The JAX step keeps only
+      the conv outputs (its policy recomputes the next conv's input too);
+      here the next conv keeps its input for its weight gradient, a tensor
+      in the model dtype, and what goes is the chain's float32 tensors.
+      A policy over the whole forward (``create_selective_checkpoint_
+      contexts``) would see only ATen ops: the ctypes kernels would run
+      again in the recompute and their outputs could not be kept.
+
+    Either way the recompute runs BatchNorm in train mode again, which
+    updates the running statistics in place: the step keeps them as the
+    forward left them and puts them back after the backward, so they move
+    once a step, as in the JAX step.
+
+    ``mesh`` (a :class:`~.distributed.DataMesh`, JAX trainer.py:165-196):
+    the data-parallel step, one process per card, each fed its slice of the
+    global batch (:func:`put_batch`).  At build the parameters and the
+    BatchNorm buffers are broadcast from rank 0.  In the step BatchNorm and
+    the loss take the global batch (``engine/distributed.py``), the
+    gradients are summed over the ranks in one all-reduce per dtype before
+    the optimizer, so every rank applies the same update and EMA, and
+    ``metrics`` are the global batch's.  Without a process group
+    (``distributed.make_mesh``) there is no mesh."""
+    if remat not in (False, None, "", True, "full", "selective"):
+        raise ValueError(f"remat={remat!r}: expected full or selective")
+    if mesh is not None and not isinstance(mesh, DataMesh):
+        raise TypeError(f"mesh must be a distributed.DataMesh, got "
+                        f"{type(mesh).__name__}")
     dev = resolve_device(device)
     params = list(optimizer.params)
+    buffers = [b for _, b in model.named_buffers()]
+    if mesh is not None:
+        mesh.broadcast_([p.data for p in model.parameters()] + buffers)
+    mode = "selective" if remat == "selective" else "full" if remat else None
 
     def step(state: TrainState, image, targets, t_mask):
         image, targets, t_mask = (t.to(dev, non_blocking=True)
@@ -108,16 +149,37 @@ def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
         training = model.training
         model.train()
         try:
-            maps = model(x)
-            total, items = loss_fn(maps, targets, t_mask)
-            grads = torch.autograd.grad(total, params)
+            with step_context.train_step(mesh, mode):
+                maps = model(x)
+                total, items = loss_fn(maps, targets, t_mask)
+                kept = [b.clone() for b in buffers] if remat else None
+                grads = torch.autograd.grad(total, params)
         finally:
             model.train(training)
+        if kept is not None:  # the recompute's second update undone
+            with torch.no_grad():
+                for b, k in zip(buffers, kept):
+                    b.copy_(k)
+        total, items = total.detach(), items.detach()
+        if mesh is not None:
+            mesh.sum_tensors_(grads)
+            mesh.sum_tensors_([total, items])
         optimizer.apply(state.opt_state, grads)
         if use_ema:
             state.ema_updates += 1
             ema_update(state.ema.values(), params, state.ema_updates)
         state.step += 1
-        return {"loss": total.detach(), "items": items.detach()}
+        return {"loss": total, "items": items}
 
     return step
+
+
+def put_batch(batch, mesh: DataMesh | None = None):
+    """This process's rows of a global batch ``(image, targets, t_mask)``:
+    all of it without a mesh, else the strided slice ``[rank::world]``, as
+    a contiguous copy (the loader's ``order[shard_index::shard_count]``;
+    JAX ``put_batch`` :175)."""
+    if mesh is None:
+        return tuple(batch)
+    r, w = mesh.rank, mesh.world
+    return tuple(t[r::w].contiguous() for t in batch)

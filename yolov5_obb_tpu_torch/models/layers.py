@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.c3_kernel import fold_c3_params, fused_c3, fused_c3_plain
 from ..ops.kernels.down_kernel import (
@@ -43,6 +44,7 @@ from ..ops.kernels.stem_kernel import (
     fused_stem_plain,
     stem_conv_train,
 )
+from . import step_context
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # flax momentum 0.97
@@ -77,15 +79,31 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def batch_stats(zf):
+    """``(E[z], E[z²])`` per channel of a float32 NHWC tensor over the
+    batch.  Under a data-parallel step (``step_context.mesh``) over the
+    global batch, as the JAX step's mean over a batch-sharded array: each
+    rank's moments, weighted by its share ``1/world`` of the global pixel
+    count (the ranks hold equal slices), are summed over the ranks —
+    ``Σz`` and ``Σz²`` over the global count; with one rank every value is
+    the one-process value bit for bit."""
+    m1, m2 = zf.mean((0, 1, 2)), (zf * zf).mean((0, 1, 2))
+    mesh = step_context.mesh()
+    if mesh is not None:
+        m1, m2 = mesh.sum(torch.stack([m1, m2]) / mesh.world).unbind(0)
+    return m1, m2
+
+
 def batch_norm_train(bn: nn.BatchNorm2d, z):
     """Train-mode BatchNorm of an NHWC conv output, flax semantics: the
     batch mean and the biased variance ``E[z²] - E[z]²`` (clamped at 0)
-    in float32, normalise in float32, and the running statistics updated as
-    ``0.97·old + 0.03·batch`` with that biased variance (``F.batch_norm``
-    would store the unbiased one).  Returns the float32 normalised ``z``."""
+    in float32 (:func:`batch_stats`), normalise in float32, and the running
+    statistics updated as ``0.97·old + 0.03·batch`` with that biased
+    variance (``F.batch_norm`` would store the unbiased one).  Returns the
+    float32 normalised ``z``."""
     zf = z.float()
-    mean = zf.mean((0, 1, 2))
-    var = torch.clamp((zf * zf).mean((0, 1, 2)) - mean * mean, min=0.0)
+    mean, sq = batch_stats(zf)
+    var = torch.clamp(sq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(0.97 * bn.running_mean + 0.03 * mean)
         bn.running_var.copy_(0.97 * bn.running_var + 0.03 * var)
@@ -124,12 +142,20 @@ def _norm(bn, z):
     return (z.float() - bn.running_mean) * mul + bn.bias
 
 
-def _bn_act(m, z, dtype):
-    """BatchNorm (batch statistics in train mode, running ones in eval) +
-    SiLU in :func:`bn_dtype` → ``dtype``."""
+def _bn_act_chain(m, z, dtype):
     y = _norm(m.bn, z)
     y = silu(y) if m.act else y
     return y.to(dtype)
+
+
+def _bn_act(m, z, dtype):
+    """BatchNorm (batch statistics in train mode, running ones in eval) +
+    SiLU in :func:`bn_dtype` → ``dtype``; in train mode under selective
+    remat (``step_context.remat``) as a checkpoint that saves ``z``
+    alone."""
+    if step_context.remat() == "selective" and m.bn.training:
+        return checkpoint(_bn_act_chain, m, z, dtype, use_reentrant=False)
+    return _bn_act_chain(m, z, dtype)
 
 
 def _conv(conv: nn.Conv2d, x):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import yaml
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import train_fused as TF
 from ..ops.kernels.stem_kernel import (
@@ -38,6 +39,7 @@ from ..ops.kernels.stem_kernel import (
 )
 from ..utils.device import resolve_device
 from . import layers as L
+from . import step_context
 
 THETA_BINS = 180
 
@@ -348,8 +350,13 @@ class YoloModel(nn.Module):
         m0, m1, c3, m3 = self.model[:4]
         c_ = c3.cv1.conv.out_channels
         updates = []
+        mesh = step_context.mesh()
 
         def fin(st, conv_bn, n):
+            if mesh is not None:
+                # a data-parallel step: (Σz, Σz²) and the pixel count of
+                # the global batch (ranks hold equal slices)
+                st, n = mesh.sum(st), n * mesh.world
             g, b, mean, var = TF.finalize_gb(st[0], st[1], conv_bn.bn.weight,
                                              conv_bn.bn.bias, n)
             updates.append((conv_bn.bn, mean, var))
@@ -416,12 +423,23 @@ class YoloModel(nn.Module):
         return L.silu(h).to(self.dtype)
 
     def forward(self, x, plain: bool = False):
-        """Image batch → list of flat Detect maps ``(B, n_l, no)``."""
+        """Image batch → list of flat Detect maps ``(B, n_l, no)``.  In
+        train mode under full remat (``step_context.remat``, the train
+        step's ``remat``) each layer runs under a non-reentrant
+        checkpoint: the backward recomputes one layer at a time from the
+        layers' inputs."""
+        remat = self.training and step_context.remat() == "full"
+
+        def call(m, h):
+            if remat:
+                return checkpoint(m, h, plain, use_reentrant=False)
+            return m(h, plain)
+
         y: list = []
         skip = 0
         if (self.training and self.fused_train and x.dim() == 3
                 and _fused_train_specs_ok(self.specs)):
-            y = [None, None, None, self._fused_train_region(x, plain)]
+            y = [None, None, None, call(self._fused_train_region, x)]
             skip = 4
         elif self.packed_l1 and not self.training:
             y = [None, self._stem_l1(x, plain)]
@@ -438,9 +456,9 @@ class YoloModel(nn.Module):
             h = fetch(f) if isinstance(f, int) else [fetch(j) for j in f]
             if isinstance(m, nn.Sequential):
                 for r in m:
-                    h = r(h, plain)
+                    h = call(r, h)
             else:
-                h = m(h, plain)
+                h = call(m, h)
             if spec.name == "Detect":
                 out = h
                 h = None

@@ -267,7 +267,8 @@ def run_flow(out: Path, *, n_images=8, raw_size=768, subsize=384, gap=128,
              "--log-interval", str(10**9), "--label-smoothing", "0.0",
              "--project", str(out / "train"), "--name", "run", "--exist-ok",
              *(["--device", device] if device else [])]
-    save_dir, _, _ = train_cli.run(train_cli.parse_opt(targv), callbacks)
+    save_dir, _, _ = train_cli.run(train_cli.parse_opt(targv),
+                                   callbacks=callbacks)
     secs["train"] = time.perf_counter() - t
 
     # short runs: the EMA is still ~the initial weights; take the raw

@@ -32,9 +32,23 @@ buffers alone (the config's anchors stay until autoanchor runs; ``--resume``
 restores a checkpoint's anchors), and the logged ``x/lr0`` is the learning
 rate at the micro-step count.  ``--bn-half`` sets ``YOLO_BN_HALF=1``
 (train-mode BN output and SiLU in bfloat16, ``models/layers.bn_dtype``);
-the default is off, as in the JAX CLI off the TPU.  Not ported (each raises
-``NotImplementedError``): ``--remat``, more than one process and
-``--evolve`` (ROADMAP.md queue 1 item 7).
+the default is off, as in the JAX CLI off the TPU.  ``--remat full`` or
+``--remat selective`` rematerialises the forward in the backward
+(``engine/trainer.make_train_step``).  ``--evolve N`` evolves the hyps over
+N short runs (``evolve``, ``engine/evolve.py``; ``evolve.csv`` under
+``<project>/<name>_evolve``).
+
+Several cards: one process per card under torchrun
+(``torchrun --nproc-per-node 4 -m yolov5_obb_tpu_torch.train ...``; the JAX
+CLI's one process over a mesh of devices has no eager counterpart).  The
+process group is joined before the card is touched
+(``engine/distributed.maybe_initialize``: NCCL on the card, gloo on the
+CPU; a caller that joined one already keeps it), ``--batch-size`` is the
+global batch and must divide by the processes, each loads its strided
+shard at ``batch_size / world``, and the step takes the global batch
+(``make_train_step(mesh=...)``).  Rank 0 alone validates, logs, plots and
+writes checkpoints; the fitness is broadcast, so patience and the best
+checkpoint agree on every rank.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from .data.dota import DotaDataset
 from .data.loader import WorkerPool, create_dataloader
 from .data.shards import ShardDataset, write_shards
 from .data.tools import labels_to_class_weights, labels_to_image_weights
+from .engine import distributed as D
 from .engine.evaluator import evaluate
 from .engine.loss import ComputeLoss
 from .engine.optim import build_optimizer
@@ -80,7 +95,10 @@ from .utils.metrics import fitness
 ZERO_METRICS = {"mp": 0.0, "mr": 0.0, "map50": 0.0, "map": 0.0}
 
 
-def parse_opt(args=None):
+def parse_opt(args=None, known: bool = False):
+    """The CLI's options; ``known`` tolerates extra arguments (the W&B sweep
+    agent appends ``--key=value`` pairs, which ``tools/sweep.py`` reads
+    from ``wandb.config`` instead)."""
     p = argparse.ArgumentParser(prog="python -m yolov5_obb_tpu_torch.train")
     p.add_argument("--cfg", type=str, default="yolov5n.yaml")
     p.add_argument("--data", type=str, required=True)
@@ -153,22 +171,14 @@ def parse_opt(args=None):
                    help="train-mode BN output and SiLU in bfloat16 "
                         "(YOLO_BN_HALF=1; statistics stay float32)")
     p.add_argument("--no-bn-half", dest="bn_half", action="store_false")
-    # not ported: each raises NotImplementedError when asked for
     p.add_argument("--remat", nargs="?", const="full", default="",
-                   choices=["", "full", "selective"])
-    p.add_argument("--evolve", type=int, default=0)
-    return p.parse_args(args)
-
-
-def _refuse_unported(opt) -> None:
-    for flag, what, item in (("remat", "--remat", 7),
-                             ("evolve", "--evolve", 7)):
-        if getattr(opt, flag):
-            raise NotImplementedError(f"{what} is not ported "
-                                      f"(ROADMAP.md queue 1 item {item})")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training in more than one process is not "
-                                  "ported (ROADMAP.md queue 1 item 7)")
+                   choices=["", "full", "selective"],
+                   help="rematerialisation: 'full' (the whole forward again "
+                        "in the backward) or 'selective' (the BN+SiLU chains "
+                        "again, the conv outputs kept)")
+    p.add_argument("--evolve", type=int, default=0,
+                   help="hyp-evolution generations")
+    return p.parse_known_args(args)[0] if known else p.parse_args(args)
 
 
 def _to_device(batch, device, packed: bool):
@@ -182,16 +192,24 @@ def _to_device(batch, device, packed: bool):
                  for t in (image, targets, mask))
 
 
-def run(opt, callbacks=None):
+def run(opt, hyp_override: dict | None = None, callbacks=None):
     """Train as ``opt`` says → ``(save_dir, best_fitness, metrics of the
-    best epoch)``."""
-    _refuse_unported(opt)
+    best epoch)``.  ``hyp_override``: the hyps to train with in place of
+    ``--hyp``'s (``evolve``, ``tools/sweep.py``)."""
+    # join the process group before the card is touched (reference
+    # train.py:519-526)
+    multi = D.maybe_initialize(opt.device)
     device = resolve_device(opt.device)
+    if multi:
+        device = D.local_device(device)
+    main, n_proc, rank = D.is_main(), D.process_count(), D.process_index()
+    # each process's share of the global batch; raises unless it divides
+    local_batch = D.local_batch_size(opt.batch_size)
     callbacks = callbacks or Callbacks()
     callbacks.run("on_pretrain_routine_start")
     init_seeds(opt.seed)
     d = load_dataset_config(opt.data)
-    hyp = load_hyp(opt.hyp)
+    hyp = hyp_override or load_hyp(opt.hyp)
     if opt.label_smoothing is not None:
         hyp["label_smoothing"] = float(opt.label_smoothing)
     # --single-cls: the annotations parse with the dataset's class names
@@ -199,32 +217,37 @@ def run(opt, callbacks=None):
     single_cls = opt.single_cls
     nc = 1 if single_cls else d["nc"]
     names = ["item"] if single_cls and len(d["names"]) != 1 else d["names"]
-    save_dir = increment_path(Path(opt.project) / opt.name,
-                              exist_ok=opt.exist_ok)
-    print(f"run dir: {save_dir}; device: {device}")
+    # rank 0 names (and makes) the run directory, every rank uses it
+    save_dir = D.broadcast_object(
+        increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok)
+        if main else None)
+    print(f"run dir: {save_dir}; device: {device}"
+          + (f"; rank {rank} of {n_proc}" if multi else ""))
 
     # --- data ---------------------------------------------------------
-    use_shards = opt.cache == "shards"
-    cache_images = None if use_shards else opt.cache
-    train_ds = DotaDataset(
-        d["train"], d["names"], img_size=opt.imgsz, hyp=hyp, augment=True,
-        max_labels=opt.max_labels, cache_dir=save_dir / "cache",
-        single_cls=single_cls, cache_images=cache_images)
-    shard_ds = None
-    if use_shards:
-        sdir = save_dir / "cache" / "shards"
-        if not (sdir / "meta.json").exists():
-            print(f"building pre-augmented shard cache ({opt.aug_epochs} "
-                  "variants/sample)...")
-            write_shards(train_ds, sdir, aug_epochs=opt.aug_epochs,
-                         seed=opt.seed)
-        shard_ds = ShardDataset(sdir)
-    val_ds = None
-    if not opt.noval and d.get("val"):
-        val_ds = DotaDataset(
-            d["val"], d["names"], img_size=opt.imgsz, hyp=hyp, augment=False,
-            max_labels=1000, cache_dir=save_dir / "cache",
+    # rank 0 writes the label and shard caches, the others then read them
+    with D.main_first():
+        use_shards = opt.cache == "shards"
+        cache_images = None if use_shards else opt.cache
+        train_ds = DotaDataset(
+            d["train"], d["names"], img_size=opt.imgsz, hyp=hyp, augment=True,
+            max_labels=opt.max_labels, cache_dir=save_dir / "cache",
             single_cls=single_cls, cache_images=cache_images)
+        shard_ds = None
+        if use_shards:
+            sdir = save_dir / "cache" / "shards"
+            if not (sdir / "meta.json").exists():
+                print(f"building pre-augmented shard cache ({opt.aug_epochs} "
+                      "variants/sample)...")
+                write_shards(train_ds, sdir, aug_epochs=opt.aug_epochs,
+                             seed=opt.seed)
+            shard_ds = ShardDataset(sdir)
+        val_ds = None
+        if not opt.noval and d.get("val"):
+            val_ds = DotaDataset(
+                d["val"], d["names"], img_size=opt.imgsz, hyp=hyp,
+                augment=False, max_labels=1000, cache_dir=save_dir / "cache",
+                single_cls=single_cls, cache_images=cache_images)
     steps_per_epoch = max(len(train_ds) // opt.batch_size, 1)
 
     # the label distribution at the start (JAX train.py:208-220)
@@ -232,7 +255,7 @@ def run(opt, callbacks=None):
         from .ops.geometry import poly2rbox
         from .utils.plots import plot_labels
 
-        all_polys = [p for p in train_ds.polys if len(p)]
+        all_polys = [p for p in train_ds.polys if len(p)] if main else []
         if all_polys:
             rb = poly2rbox(np.concatenate(all_polys).astype(np.float64))
             plot_labels(rb, np.concatenate([c for c in train_ds.cls
@@ -262,9 +285,9 @@ def run(opt, callbacks=None):
     # live in meta, so an update reaches the loss and the decode.  A resumed
     # run takes the checkpoint's anchors instead, before the loss reads them.
     if not opt.resume and not opt.noautoanchor:
-        meta.anchors_px = check_anchors(train_ds, meta,
-                                        thr=hyp.get("anchor_t", 4.0),
-                                        imgsz=opt.imgsz)
+        # every rank trains with rank 0's anchors
+        meta.anchors_px = D.broadcast_object(check_anchors(
+            train_ds, meta, thr=hyp.get("anchor_t", 4.0), imgsz=opt.imgsz))
     optimizer, opt_info = build_optimizer(
         model, hyp, epochs=opt.epochs, steps_per_epoch=steps_per_epoch,
         batch_size=opt.batch_size, nominal_batch=opt.nominal_batch,
@@ -285,9 +308,14 @@ def run(opt, callbacks=None):
     hyp_scaled = scale_hyp_gains(hyp, meta.nl, meta.nc, opt.imgsz)
     # dense None: YOLO_DENSE_LOSS from the environment decides (off)
     loss_fn = ComputeLoss(meta, hyp_scaled, dense=opt.dense_loss or None)
-    step_fn = make_train_step(model, loss_fn, optimizer, device=device)
-    # evaluation runs a copy of the model with the EMA parameters
-    eval_model = copy.deepcopy(model) if val_ds is not None else None
+    mesh = D.make_mesh() if multi else None
+    step_fn = make_train_step(model, loss_fn, optimizer, mesh=mesh,
+                              remat=opt.remat, device=device)
+    if mesh is not None:  # every rank's EMA starts as rank 0's
+        mesh.broadcast_(list(state.ema.values()))
+    # evaluation (rank 0) runs a copy of the model with the EMA parameters
+    eval_model = (copy.deepcopy(model) if val_ds is not None and main
+                  else None)
 
     # --- loop ----------------------------------------------------------
     class_weights = (labels_to_class_weights(train_ds.cls, meta.nc)
@@ -299,8 +327,8 @@ def run(opt, callbacks=None):
     loader_ds = shard_ds if shard_ds is not None else train_ds
     use_wandb = opt.wandb or bool(os.environ.get("WANDB_API_KEY"))
     loggers = Loggers(save_dir, hyp=hyp, opt=opt,
-                      include=("csv", "tb", "wandb") if use_wandb
-                      else ("csv", "tb"))
+                      include=() if not main else ("csv", "tb", "wandb")
+                      if use_wandb else ("csv", "tb"))
     workers = WorkerPool(loader_ds, opt.workers) if opt.workers > 0 else None
     try:
         loggers.log_dataset_artifact(opt.data)
@@ -319,16 +347,18 @@ def run(opt, callbacks=None):
                 # an epoch: a fresh pre-augmented variant of each source
                 indices = shard_ds.epoch_indices(epoch, seed=opt.seed,
                                                  source_indices=indices)
+            # each process loads its strided shard of the epoch
             loader = create_dataloader(
-                loader_ds, opt.batch_size, shuffle=shard_ds is None,
-                augment=True, seed=opt.seed + epoch, num_epochs=1,
-                indices=indices, workers=workers)
+                loader_ds, local_batch,
+                shuffle=shard_ds is None, augment=True, seed=opt.seed + epoch,
+                num_epochs=1, indices=indices, shard_index=rank,
+                shard_count=n_proc, workers=workers)
             # the loss items add up on the device; reading them syncs, so
             # the host reads them only at log points
             mloss_dev = None
             nb = 0
             for batch in loader:
-                if epoch == start_epoch and nb == 0:
+                if main and epoch == start_epoch and nb == 0:
                     try:  # the first batch with its boxes (JAX :378-387)
                         from .utils.plots import plot_images
 
@@ -353,8 +383,10 @@ def run(opt, callbacks=None):
                      if mloss_dev is not None else np.zeros(4))
             callbacks.run("on_train_epoch_end", epoch=epoch)
 
+            # rank 0 validates; its fitness is broadcast, so every rank
+            # takes the same patience and best-checkpoint branches
             metrics = dict(ZERO_METRICS)
-            if val_ds is not None:
+            if eval_model is not None:
                 callbacks.run("on_val_start")
                 eval_model.load_state_dict(state.ema_state_dict(model))
                 metrics = evaluate(eval_model, meta, val_ds,
@@ -362,8 +394,9 @@ def run(opt, callbacks=None):
                                    conf_thres=0.01, iou_thres=0.4,
                                    verbose=True, max_images=opt.val_images)
                 callbacks.run("on_val_end", metrics=metrics)
-            fit = fitness(metrics["mp"], metrics["mr"], metrics["map50"],
-                          metrics["map"])
+            fit = D.broadcast_scalar(fitness(
+                metrics["mp"], metrics["mr"], metrics["map50"],
+                metrics["map"]))
             callbacks.run("on_fit_epoch_end", epoch=epoch, fitness=fit,
                           metrics=metrics)
             if fit >= best_fit or final_metrics is None:
@@ -384,6 +417,11 @@ def run(opt, callbacks=None):
                   f"loss(box,obj,cls,theta)={np.round(mloss, 4).tolist()}  "
                   f"HBBmAP@.5={metrics['map50']:.4f} fitness={fit:.4f}")
 
+            # the best fitness and the patience move with or without
+            # --nosave (reference train.py; the JAX CLI keeps both inside
+            # its save branch, so --nosave and --evolve's runs report -1
+            # and never stop early): only the files wait on it
+            improved = fit > best_fit or val_ds is None
             if not opt.nosave:
                 ckpt_meta = {
                     "epoch": epoch, "best_fitness": max(best_fit, fit),
@@ -391,23 +429,28 @@ def run(opt, callbacks=None):
                     # evolved anchors travel with the weights
                     "anchors": np.asarray(meta.anchors_px).tolist(),
                 }
-                save_checkpoint(save_dir / "last", model, state, ckpt_meta)
-                if fit > best_fit or (opt.save_period > 0
-                                      and epoch % opt.save_period == 0):
+                if main:
+                    save_checkpoint(save_dir / "last", model, state,
+                                    ckpt_meta)
+                if main and (fit > best_fit or (
+                        opt.save_period > 0
+                        and epoch % opt.save_period == 0)):
                     loggers.log_model_artifact(save_dir / "last", epoch, fit,
                                                best=fit > best_fit)
                 callbacks.run("on_model_save", epoch=epoch,
                               path=save_dir / "last")
-                if fit > best_fit or val_ds is None:
-                    best_fit = max(best_fit, fit)
-                    patience_left = opt.patience
+                if improved and main:
                     save_weights(save_dir / "best",
                                  state.ema_state_dict(model), ckpt_meta)
-                else:
-                    patience_left -= 1
-                if opt.save_period > 0 and epoch % opt.save_period == 0:
+                if (main and opt.save_period > 0
+                        and epoch % opt.save_period == 0):
                     save_checkpoint(save_dir / f"epoch{epoch}", model, state,
                                     ckpt_meta)
+            if improved:
+                best_fit = max(best_fit, fit)
+                patience_left = opt.patience
+            else:
+                patience_left -= 1
             if patience_left <= 0:
                 print(f"early stopping at epoch {epoch} "
                       f"(patience {opt.patience})")
@@ -421,7 +464,8 @@ def run(opt, callbacks=None):
     try:  # the results.csv curves (JAX train.py:486-492)
         from .utils.plots import plot_results
 
-        plot_results(save_dir / "results.csv")
+        if main:
+            plot_results(save_dir / "results.csv")
     except Exception as e:
         print(f"plot_results failed: {e}")
     print(f"training complete; best fitness {best_fit:.4f}; results in "
@@ -429,8 +473,58 @@ def run(opt, callbacks=None):
     return save_dir, best_fit, final_metrics or dict(ZERO_METRICS)
 
 
+def evolve(opt):
+    """Hyp evolution (JAX train.py:499-536, reference train.py:536-620):
+    ``opt.evolve`` generations, each a mutation of the best earlier ones
+    (``engine/evolve.py``) trained by :func:`run` without checkpoints;
+    ``evolve.csv`` and ``evolve.png`` under ``<project>/<name>_evolve``."""
+    from .engine.evolve import log_generation, mutate, read_population
+
+    # under torchrun every rank trains each generation's one data-parallel
+    # run: rank 0 names the directory and draws the hyps, the others take
+    # them
+    D.maybe_initialize(opt.device)
+    main = D.is_main()
+    base_hyp = load_hyp(opt.hyp)
+    evolve_dir = D.broadcast_object(
+        increment_path(Path(opt.project) / f"{opt.name}_evolve",
+                       exist_ok=opt.exist_ok) if main else None)
+    evolve_csv = evolve_dir / "evolve.csv"
+    rng = np.random.default_rng(opt.seed)
+    gens = opt.evolve
+    opt.evolve = 0
+    opt.exist_ok = True
+    opt.nosave = True
+    for gen in range(gens):
+        hyp = None
+        if main:
+            parents = read_population(evolve_csv)
+            hyp = mutate(base_hyp, rng, parents or None)
+        hyp = D.broadcast_object(hyp)
+        opt.name = f"gen{gen}"
+        opt.project = str(evolve_dir)
+        _, fit, gen_metrics = run(opt, hyp_override=hyp)
+        if main:
+            log_generation(evolve_csv, hyp, gen_metrics, fit)
+        print(f"evolve gen {gen}: fitness {fit:.4f}")
+    try:
+        from .utils.plots import plot_evolve
+
+        if main:
+            plot_evolve(evolve_csv)
+    except Exception as e:
+        print(f"evolve plot failed: {e}")
+    print(f"evolution complete → {evolve_csv}")
+
+
 def main(argv=None):
-    return run(parse_opt(argv))
+    """The CLI: train, or evolve with ``--evolve N``; leaves the process
+    group that torchrun's environment made it join."""
+    opt = parse_opt(argv)
+    try:
+        return evolve(opt) if opt.evolve else run(opt)
+    finally:
+        D.shutdown()
 
 
 if __name__ == "__main__":
