@@ -191,6 +191,32 @@ Phases, each fatal on failure:
       end with the same parameters; the times are of one shared
       card; (l3) ``--evolve 2`` at yolov5n 256² b4: ``evolve.csv``'s two
       rows, generation 0's hyps ``mutate``'s re-run here.
+  (m) export and the exported-model backend: (m1) phase (c)'s
+      density-tuned weights exported by ``export.build_forward`` and
+      ``export_pt2`` (yolov5m 1024², float32, TF32 off; timed) and loaded
+      through ``models/backend.MultiBackend``: at batch 16 and 8 (traced
+      at 2) bit for bit the eager float32 forward; (m2) ``make_backend_predict_fn`` on phase (c)'s three
+      batches (row 4 launched, 0 keep-mask mismatches against the plain
+      NMS on the same candidates), its ms/img beside the eager float32
+      predict's; (m3) the val CLI from the .pt2 and from the float32
+      checkpoint on phase (f)'s 48 images labelled by the float32 model's
+      own conf-0.25 detections and written as files, and ``evaluate`` of
+      that set in memory (mAP within 1e-4 of each other, mAP50 above
+      0.05; the float32 model on phase (f)'s bf16 labels recorded beside
+      them), ``--task speed`` from the .pt2, the detect CLI from both on
+      phase (i)'s PNGs (the same label rows); (m4) ``evaluate(mesh=)``
+      on the packed bf16 path, cuDNN deterministic (rows 1-4 launched):
+      an NCCL world of one bit for bit the run without a mesh, two gloo
+      processes on the card at global batch 16 (each loading, predicting
+      and matching its own rows) bit for bit one process at batch 8, the
+      ms/img of each run recorded; (m6) ``utils/profiler.trace`` of three packed predicts
+      naming the stem+L1, C3, downsample, records and neighbour kernels,
+      ``model_info``'s GFLOPs of yolov5m b16 1024² and the packed bf16
+      forward's achieved TFLOP/s; (m5) ``autobatch_cuda`` for the packed
+      bf16 train step at 1024² (probed through the step's loss) beside
+      the analytic ``autobatch``, and one
+      train step at its batch under 0.85 of the card's memory; (m7) the
+      port's hubconf through ``torch.hub.load`` on the card.
 
 Prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -253,6 +279,7 @@ DENSITY = 300  # target dets/img for the density bisection
 # the val path (val.py's regime): multi-label, conf 0.01, IoU 0.4, 4096
 # candidates; 48 seeded images in three batches, <= 100 labels each
 VAL_CONF, VAL_IOU, VAL_MAXC, VAL_IMAGES, VAL_LABELS = 0.01, 0.4, 4096, 48, 100
+VAL_MAP_FLOOR = 0.05  # (f), (m3): the least val mAP50 on self-made labels
 # train path (tools/bench_train.py): label slots, live targets, timed steps
 MAX_LABELS, LIVE, TRAIN_ITERS, SYNC_EVERY = 64, 8, 12, 4
 # the train kernels' launches per train step at yolov5m 1024²
@@ -2268,7 +2295,7 @@ def val_path(dev, report, delta):
     require(abs(res["map50"] - res_p["map50"]) <= 0.01
             and abs(res["map"] - res_p["map"]) <= 0.01,
             f"val mAP differs from the plain run: {metrics}")
-    require(res["map50"] > 0.05, f"trivial val mAP: {metrics}")
+    require(res["map50"] > VAL_MAP_FLOOR, f"trivial val mAP: {metrics}")
     diff = _count_diff(nk, npl)
     require(diff == 0, f"detection counts differ by > 1% on {diff} images")
     ev_unmatched, ev_total, ev_same = _evaluate_diff(res, res_p, dev)
@@ -3267,6 +3294,32 @@ def _f32_reference(preds, meta):
     return mism, counts
 
 
+class StepCounter:
+    """A phase's steps, each driven by :meth:`run` with every kernel's
+    count at 0 just before it and read just after: ``r[<step>_launches]``
+    the step's launches, ``steps[<step>]`` its seconds, ``launches`` the
+    phase's sum."""
+
+    def __init__(self, kernels, r, steps):
+        self.kernels, self.r, self.steps, self.launches = kernels, r, steps, {}
+
+    def run(self, step, fn):
+        import torch
+
+        for k in self.kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.steps[step] = time.perf_counter() - t
+        got = {n: k.launches for n, k in self.kernels.items()}
+        for n, v in got.items():
+            self.launches[n] = self.launches.get(n, 0) + v
+        self.r[f"{step}_launches"] = got
+        return out
+
+
 def detect_surface(dev, report, delta, cfg="yolov5m.yaml"):
     """Phase (i): the detect CLI, TTA, the ensemble, the Python API and the
     REST server on the port, each against its plain run."""
@@ -3297,23 +3350,9 @@ def detect_surface(dev, report, delta, cfg="yolov5m.yaml"):
     names = list(DOTA_V1_NAMES)
     card = card_line()
     kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
-    launches, r, steps = {}, {}, {}
-
-    def counted(step, fn):
-        """``fn()`` with every count at 0 before it; returns its result and
-        adds its launches to the phase's."""
-        for k in kernels.values():
-            k.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        steps[step] = time.perf_counter() - t
-        got = {n: k.launches for n, k in kernels.items()}
-        for n, v in got.items():
-            launches[n] = launches.get(n, 0) + v
-        r[f"{step}_launches"] = got
-        return out
+    r, steps = {}, {}
+    counter = StepCounter(kernels, r, steps)
+    counted, launches = counter.run, counter.launches
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_detect_"))
     try:
@@ -4595,7 +4634,7 @@ def launch_workers(tmp, jobs, dev, world=2):
 
 
 def dp_worker(spec_path, rank) -> int:
-    """One rank of (l2 ii)/(iii): joins the gloo group (both ranks on
+    """One rank of (l2 ii)/(iii) or (m4): joins the gloo group (both ranks on
     ``cuda:0``, or the CPU where the spec says so) and runs the jobs of
     ``spec_path``; writes its results to ``rank{r}.pt`` beside it."""
     import torch
@@ -4636,6 +4675,8 @@ def dp_worker(spec_path, rank) -> int:
                 out[job["name"]] = _to_cpu(r)
                 del model, batches
                 torch.cuda.empty_cache()
+            elif job["kind"] == "val_mesh":
+                out[job["name"]] = mesh_val_rank(job, dev)
             else:
                 out[job["name"]] = dp_cli_rank(job["argv"])
     finally:
@@ -4954,6 +4995,407 @@ def scale_out_path(dev, report, card):
                              "l3": time.perf_counter() - t2}
     return launches
 
+# ---------------------------------------------------------------------------
+# (m) export and the exported-model backend, val --mesh, autobatch, the
+# profiler, the hubconf
+# ---------------------------------------------------------------------------
+
+# (m1): the batches the .pt2 (traced at 2) runs, bit for bit the eager forward
+EXPORT_BATCHES = (16, 8)
+# (m3): val from the .pt2 and from the float32 checkpoint against evaluate
+# in memory
+EXPORT_MAP_TOL = 1e-4
+# (m5): the share of the card's memory autobatch_cuda may fill
+AUTOBATCH_FRACTION = 0.85
+# (m6): each inference entry point → a substring of its kernels' names
+TRACE_KERNELS = {"stem_l1": "stem_l1_kernel", "c3": "c3_kernel",
+                 "down": "conv3x3_mma", "neighbor": "neighbor_scan_kernel",
+                 "riou_boxes": "riou_boxes_kernel"}
+
+
+def _eval_record(res) -> dict:
+    """``evaluate``'s metrics, per-image detections and host ms/img."""
+    return {"metrics": {k: res[k] for k in ("mp", "mr", "map50", "map")},
+            "dets": [(d["polys"], d["conf"], d["cls"])
+                     for d in res["detections"]],
+            "ms_per_img": res["speed_ms_per_img"],
+            "pre_ms_per_img": res["speed_pre_ms_per_img"]}
+
+
+def _same_eval(a, b) -> bool:
+    """The same metrics and per-image detections, bit for bit."""
+    return (a["metrics"] == b["metrics"] and len(a["dets"]) == len(b["dets"])
+            and all(np.array_equal(x, y) for da, db in zip(a["dets"],
+                                                          b["dets"])
+                    for x, y in zip(da, db)))
+
+
+def mesh_val_rank(job, dev) -> dict:
+    """One rank of (m4): phase (c)'s density-tuned model, packed bf16,
+    ``evaluate`` of phase (f)'s val set over the mesh (this rank's rows of
+    every batch), cuDNN deterministic; its record and launches."""
+    import torch
+
+    from yolov5_obb_tpu_torch.engine.distributed import make_mesh
+    from yolov5_obb_tpu_torch.engine.evaluator import evaluate
+
+    data = torch.load(job["input"], weights_only=False)
+    model, meta, set_obj = density_model(dev)
+    set_obj(job["delta"])
+    ds = SeededValSet(data["images"], data["labels"], data["names"])
+    kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+    for k in kernels.values():
+        k.launches = 0
+    with cudnn_deterministic():
+        res = evaluate(model, meta, ds, batch_size=job["batch"],
+                       conf_thres=VAL_CONF, iou_thres=VAL_IOU,
+                       max_det=job["max_det"], mesh=make_mesh())
+    return {**_eval_record(res),
+            "launches": {n: k.launches for n, k in kernels.items()}}
+
+
+def _write_val_files(root, val_set):
+    """Phase (f)'s val set as files (BMP images, DOTA label files, a
+    data.yaml with its class names) for the val CLI."""
+    import cv2
+
+    from yolov5_obb_tpu_torch.ops.geometry import rbox2poly
+
+    (root / "images").mkdir(parents=True)
+    (root / "labelTxt").mkdir()
+    for i, (img, lab) in enumerate(zip(val_set.images, val_set.labels)):
+        cv2.imwrite(str(root / "images" / f"v{i:02d}.bmp"),
+                    np.ascontiguousarray(img[..., ::-1]))
+        polys = rbox2poly(lab[:, 1:6]) if len(lab) else np.zeros((0, 8))
+        (root / "labelTxt" / f"v{i:02d}.txt").write_text("\n".join(
+            " ".join(f"{v:.1f}" for v in poly)
+            + f" {val_set.names[int(c)]} 0"
+            for poly, c in zip(polys, lab[:, 0])))
+    data = root / "data.yaml"
+    data.write_text(f"path: {root}\ntrain: images\nval: images\n"
+                    f"nc: {len(val_set.names)}\n"
+                    f"names: {json.dumps(list(val_set.names))}\n")
+    return data
+
+
+def export_path(dev, report, val_set, card):
+    """Phase (m): (m1) the export of yolov5m at 1024² against the eager
+    float32 forward, (m2) the exported model's predict, (m3) the val and
+    detect CLIs from the .pt2, (m4) ``evaluate(mesh=)``, (m5)
+    ``autobatch_cuda``, (m6) the profiler, (m7) the port's hubconf.
+    Returns its launches, the workers' included."""
+    import torch
+    import torch.distributed as dist
+
+    from yolov5_obb_tpu_torch import export, val
+    from yolov5_obb_tpu_torch.engine.distributed import make_mesh
+    from yolov5_obb_tpu_torch.engine.evaluator import (
+        evaluate,
+        make_predict_fn,
+    )
+    from yolov5_obb_tpu_torch.models.backend import (
+        MultiBackend,
+        make_backend_predict_fn,
+    )
+    from yolov5_obb_tpu_torch.models.yolo import create_model
+    from yolov5_obb_tpu_torch.ops import rotated_nms as R
+    from yolov5_obb_tpu_torch.utils import profiler
+    from yolov5_obb_tpu_torch.utils.autobatch import autobatch, autobatch_cuda
+    from yolov5_obb_tpu_torch.utils.checkpoint import save_weights
+    from yolov5_obb_tpu_torch.utils.fuse import model_info
+    from yolov5_obb_tpu_torch.utils.general import load_hyp
+
+    t_phase = time.perf_counter()
+    cfg, nc, delta = "yolov5m.yaml", 15, report["obj_delta"]
+    kernels = {n: k for n, k in _named_kernels().items() if n in INFER}
+    r, steps = {}, {}
+    counter = StepCounter(kernels, r, steps)
+    counted, launches = counter.run, counter.launches
+
+    def rows_moved(step, names):
+        got = r[f"{step}_launches"]
+        require(all(got[n] > 0 for n in names),
+                f"{step}: {names} not all launched: {got}")
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_export_"))
+    try:
+        # (m1) the export of phase (c)'s density-tuned weights in float32
+        model_p, meta_p, set_obj = density_model(dev)
+        set_obj(delta)
+        save_weights(tmp / "w", model_p.state_dict(), {
+            "cfg": cfg, "names": list(val_set.names),
+            "anchors": np.asarray(meta_p.anchors_px).tolist()})
+        opt = export.parse_opt(["--weights", str(tmp / "w"), "--cfg", cfg,
+                                "--nc", str(nc), "--imgsz", str(IMGSZ),
+                                "--out", str(tmp / "export")])
+        (tmp / "export").mkdir()
+        t = time.perf_counter()
+        fwd, model32, meta32 = export.build_forward(opt)
+        pt2 = export.export_pt2(fwd, opt, tmp / "export")
+        steps["m1_export"] = time.perf_counter() - t
+        t = time.perf_counter()
+        backend = MultiBackend(pt2, imgsz=IMGSZ)
+        steps["m1_load"] = time.perf_counter() - t
+        gen = torch.Generator(device=dev).manual_seed(2)
+        m1 = {}
+        for b in EXPORT_BATCHES:
+            x = torch.rand(b, IMGSZ, IMGSZ, 3, device=dev, generator=gen)
+            got = backend(x)
+            with torch.no_grad():
+                want = fwd(x)
+            require(got.shape == want.shape and bool(torch.isfinite(got)
+                                                     .all()),
+                    f"(m1) the .pt2 at batch {b}: {tuple(got.shape)}")
+            m1[b] = {"max_abs_err": float((got - want).abs().max()),
+                     "max_abs_out": float(want.abs().max())}
+            require(torch.equal(got, want),
+                    f"(m1) the .pt2 differs from the eager forward: {m1[b]}")
+            del x, got, want
+        r["m1"] = {"export_s": steps["m1_export"], "load_s": steps["m1_load"],
+                   "pt2_mb": pt2.stat().st_size / 2**20, "batches": m1}
+        log(f"(m1) export of yolov5m {IMGSZ}² float32 {steps['m1_export']:.1f} "
+            f"s, load {steps['m1_load']:.1f} s, against eager {m1} on {card}")
+
+        # (m2) the exported model's predict on phase (c)'s three batches
+        gen = torch.Generator(device=dev).manual_seed(1)
+        xs = [torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ * 3), generator=gen,
+                            device=dev, dtype=torch.uint8) for _ in range(3)]
+        nhwc = [x.view(BATCH, IMGSZ, IMGSZ, 3) for x in xs]
+        predict, _ = make_backend_predict_fn(pt2, cfg, nc, IMGSZ, CONF, IOU,
+                                             MAX_DET)
+        outs = counted("m2_predict", lambda: [predict(x) for x in nhwc])
+        rows_moved("m2_predict", ("riou_boxes", "neighbor"))
+        mism = 0
+        with torch.inference_mode():
+            for x in nhwc:
+                rb, sc, cid = R.obb_candidates(backend(x.float() / 255.0),
+                                               nc, CONF, 4096, True)
+                kk = R._tier(sc.shape[1], int((sc > 0).sum(1).max()))
+                mism += _keep_masks(rb, sc, cid, kk)
+        require(mism == 0, f"(m2) {mism} keep-mask mismatches")
+        eager = make_predict_fn(model32, meta32, CONF, IOU, MAX_DET,
+                                multi_label=True)
+        r["m2"] = {
+            "keep_mask_mismatches": mism,
+            "dets_per_img": float(torch.stack([n for _, n in outs])
+                                  .float().mean()),
+            "pt2_ms_per_img": cuda_time(lambda: predict(nhwc[0]), 3, 1)
+            / BATCH,
+            "eager_f32_ms_per_img": cuda_time(lambda: eager(nhwc[0]), 3, 1)
+            / BATCH}
+        log(f"(m2) the .pt2's predict: {r['m2']} on {card}")
+        del outs, predict, eager
+
+        # (m3) the val CLI from the .pt2 and from the float32 checkpoint on
+        # phase (f)'s images labelled by the float32 model's own conf-0.25
+        # detections (phase (f)'s labels are the bf16 model's: the float32
+        # NMS keeps other boxes of their dense lattice), written as files,
+        # beside evaluate of the same set in memory; --task speed; the
+        # detect CLI on phase (i)'s PNGs, from the .pt2 and from the
+        # checkpoint
+        labeler = make_predict_fn(model32, meta32, CONF, IOU, VAL_LABELS,
+                                  multi_label=False, max_candidates=MAXC,
+                                  plain=True)
+        labels32 = []
+        for i in range(0, len(val_set), BATCH):
+            d, n = labeler(torch.from_numpy(
+                val_set.images[i:i + BATCH]).to(dev))
+            labels32 += [d[j, :int(n[j])][:, [6, 0, 1, 2, 3, 4]].cpu().numpy()
+                         for j in range(len(n))]
+        set32 = SeededValSet(val_set.images, labels32, val_set.names)
+        data = _write_val_files(tmp / "valset", set32)
+        kw = dict(batch_size=BATCH, conf_thres=VAL_CONF, iou_thres=VAL_IOU,
+                  max_det=MAX_DET)
+        res_m = evaluate(model32, meta32, set32, **kw)
+        res_f = evaluate(model32, meta32, val_set, **kw)
+        vargs = ["--cfg", cfg, "--data", str(data), "--imgsz", str(IMGSZ),
+                 "--batch-size", str(BATCH), "--no-plots", "--project",
+                 str(tmp / "val"), "--exist-ok"]
+        res_a = counted("m3_val_pt2", lambda: val.main(
+            ["--weights", str(pt2), "--name", "pt2", *vargs]))
+        res_b = counted("m3_val_ckpt", lambda: val.main(
+            ["--weights", str(tmp / "w"), "--name", "ckpt", *vargs]))
+        rows_moved("m3_val_pt2", ("riou_boxes", "neighbor"))
+        maps = {k: (res_a[k], res_b[k], res_m[k]) for k in ("map50", "map")}
+        require(all(abs(a - b) <= EXPORT_MAP_TOL and abs(m - b)
+                    <= EXPORT_MAP_TOL for a, b, m in maps.values())
+                and res_b["map50"] > VAL_MAP_FLOOR,
+                f"(m3) val from the .pt2 and the checkpoint against evaluate "
+                f"in memory: {maps}")
+        spd = counted("m3_speed", lambda: val.main(
+            ["--weights", str(pt2), "--task", "speed", "--name", "speed",
+             *vargs]))
+        (tmp / "png").mkdir()
+        detect_images(tmp / "png")
+        dargs = ["--cfg", cfg, "--data", str(data), "--source",
+                 str(tmp / "png"), "--imgsz", str(IMGSZ), "--conf-thres",
+                 str(CONF), "--iou-thres", str(IOU), "--nosave", "--save-txt",
+                 "--save-conf", "--project", str(tmp / "detect"),
+                 "--exist-ok"]
+        la, pre_a, inf_a, _ = counted("m3_detect_pt2", lambda: _detect_cli(
+            ["--weights", str(pt2), "--name", "pt2", *dargs]))
+        lb, pre_b, inf_b, _ = counted("m3_detect_ckpt", lambda: _detect_cli(
+            ["--weights", str(tmp / "w"), "--name", "ckpt", *dargs]))
+        rows_moved("m3_detect_pt2", ("riou_boxes", "neighbor"))
+        # the same rows in every file: boxes of bit-equal scores may come
+        # in either order (the checkpoint's NMS selects from the Detect
+        # maps, the .pt2's from the decoded rows)
+        rows = lambda labels: {k: sorted(v.splitlines())  # noqa: E731
+                               for k, v in labels.items()}
+        require(rows(la) == rows(lb) and len(la) == len(DETECT_SIZES),
+                "(m3) the detect CLI's labels from the .pt2 differ from the "
+                "checkpoint's")
+        r["m3"] = {
+            "labels": sum(len(t) for t in labels32),
+            "val_maps_pt2_ckpt_memory": maps,
+            "f32_on_bf16_labels": {k: res_f[k] for k in ("mp", "mr", "map50",
+                                                         "map")},
+            "val_ms_per_img": (res_a["speed_ms_per_img"],
+                               res_b["speed_ms_per_img"]),
+            "speed_task_ms_per_img": spd["speed_ms_per_img"],
+            "detect_rows": sum(len(t.splitlines()) for t in la.values()),
+            "detect_speed_ms": {"pt2": {"pre": pre_a, "inference_nms": inf_a},
+                                "ckpt": {"pre": pre_b,
+                                         "inference_nms": inf_b}}}
+        log(f"(m3) val and detect from the .pt2: {r['m3']} on {card}")
+        del backend, fwd, model32
+        torch.cuda.empty_cache()
+
+        # (m4) evaluate(mesh=) on the packed bf16 path, cuDNN deterministic
+        kw = dict(conf_thres=VAL_CONF, iou_thres=VAL_IOU, max_det=MAX_DET)
+        with cudnn_deterministic():
+            ref = _eval_record(counted("m4_b16", lambda: evaluate(
+                model_p, meta_p, val_set, batch_size=BATCH, **kw)))
+            dist.init_process_group(
+                "nccl" if dev.type == "cuda" else "gloo",
+                init_method=f"tcp://127.0.0.1:{_free_port()}", world_size=1,
+                rank=0)
+            try:
+                one = _eval_record(counted("m4_world_of_one", lambda:
+                                           evaluate(model_p, meta_p, val_set,
+                                                    batch_size=BATCH,
+                                                    mesh=make_mesh(), **kw)))
+            finally:
+                dist.destroy_process_group()
+            ref8 = _eval_record(counted("m4_b8", lambda: evaluate(
+                model_p, meta_p, val_set, batch_size=BATCH // 2, **kw)))
+        for step in ("m4_b16", "m4_world_of_one", "m4_b8"):
+            rows_moved(step, INFER)
+        require(_same_eval(one, ref), "(m4) an NCCL world of one differs "
+                "from evaluate without a mesh")
+        torch.save({"images": val_set.images, "labels": val_set.labels,
+                    "names": val_set.names}, tmp / "valset.pt")
+        t = time.perf_counter()
+        ranks = launch_workers(tmp, [{
+            "kind": "val_mesh", "name": "val_mesh", "delta": delta,
+            "input": str(tmp / "valset.pt"), "batch": BATCH,
+            "max_det": MAX_DET}], dev)
+        steps["m4_two_ranks"] = time.perf_counter() - t
+        for rank, out in enumerate(ranks):
+            got = out["val_mesh"]
+            for n, v in got["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+            require(all(got["launches"][n] > 0 for n in INFER),
+                    f"(m4) rank {rank}: {got['launches']}")
+            require(_same_eval(got, ref8), f"(m4) rank {rank} of two at "
+                    "global batch 16 differs from one process at batch 8")
+        speed = lambda rec: {k: rec[k] for k in (  # noqa: E731
+            "ms_per_img", "pre_ms_per_img")}
+        r["m4"] = {"metrics": ref["metrics"], "b8_metrics": ref8["metrics"],
+                   "two_ranks_s": steps["m4_two_ranks"],
+                   "speed": {"b16": speed(ref), "world_of_one": speed(one),
+                             "b8": speed(ref8),
+                             "two_ranks_b16": [speed(o["val_mesh"])
+                                               for o in ranks]}}
+        log(f"(m4) evaluate(mesh=): world of one and two gloo ranks bit for "
+            f"bit: {r['m4']} on {card}")
+
+        # (m6) the profiler: a trace of three packed predicts, model_info's
+        # GFLOPs and the achieved rate of the eager forwards
+        pk = make_predict_fn(model_p, meta_p, CONF, IOU, MAX_DET,
+                             multi_label=False, max_candidates=MAXC)
+        pk(xs[0])
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)  # CUPTI loses a profile's first kernels
+        with profiler.trace(str(tmp / "trace")) as d:
+            counted("m6_trace", lambda: [pk(x) for x in xs])
+        files = list(Path(d).glob("*.pt.trace.json"))
+        require(len(files) == 1, f"(m6) trace files {files}")
+        names = {e.get("name", "") for e in json.loads(files[0].read_text())
+                 ["traceEvents"] if e.get("cat") == "kernel"}
+        found = {k: any(v in n for n in names)
+                 for k, v in TRACE_KERNELS.items()}
+        require(all(found.values()), f"(m6) kernels in the trace: {found}")
+        x16 = torch.rand(BATCH, IMGSZ, IMGSZ, 3, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+        model_u, _ = create_model(cfg, nc=nc, dtype=torch.bfloat16,
+                                  device=dev)
+        info = model_info(model_u, imgsz=IMGSZ, example=(x16,))
+        del model_u
+        with torch.inference_mode():
+            fwd_ms = profiler.block_and_time(model_p, xs[1], iters=5) * 1e3
+        r["m6"] = {"trace_kernels": found, "trace_mb":
+                   files[0].stat().st_size / 2**20, "model_info": info,
+                   "forward_bf16_packed_ms": fwd_ms,
+                   "tflops_bf16_packed": info["gflops"] / fwd_ms}
+        log(f"(m6) profiler: {r['m6']} on {card}")
+        del model_p, pk, xs, nhwc, x16
+        torch.cuda.empty_cache()
+
+        # (m5) autobatch_cuda for the packed bf16 train step, one step there
+        model_t, meta_t = create_model(cfg, nc=nc, dtype=torch.bfloat16,
+                                       device=dev, seed=0, packed_stem=True)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        hyp = load_hyp()
+        t = time.perf_counter()
+        b = autobatch_cuda(model_t, imgsz=IMGSZ, train=True,
+                           fraction=AUTOBATCH_FRACTION, meta=meta_t)
+        steps["m5_autobatch"] = time.perf_counter() - t
+        n_params = sum(p.numel() for p in model_t.parameters())
+        analytic = autobatch(n_params, imgsz=IMGSZ, width_multiple=0.75,
+                             depth_multiple=0.67, hbm_bytes=total, train=True,
+                             fraction=AUTOBATCH_FRACTION)
+        sd0 = {k: v.clone() for k, v in model_t.state_dict().items()}
+        step = seeded_steps(model_t, meta_t, sd0, train_batches(
+            dev, hyp["csl_radius"], batch=b, imgsz=IMGSZ), 2, dev,
+            batch=b, imgsz=IMGSZ, counted=TRAIN_LAUNCHES)
+        for n, v in step["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+        r["m5"] = {"batch": b, "analytic_batch": analytic,
+                   "total_gib": total / 2**30,
+                   "step_peak_gib": step["peak_mem_gib"],
+                   "step_imgs_per_s": step["imgs_per_s"],
+                   "probe_s": steps["m5_autobatch"]}
+        log(f"(m5) autobatch: {r['m5']} on {card}")
+        require(all(np.isfinite(step["loss"])), "(m5) non-finite loss")
+        require(step["peak_mem_gib"] * 2**30 < AUTOBATCH_FRACTION * total,
+                f"(m5) a step at batch {b} peaks above "
+                f"{AUTOBATCH_FRACTION} of the card: {r['m5']}")
+        del model_t, step, sd0
+        torch.cuda.empty_cache()
+
+        # (m7) the port's hubconf on the card
+        hub = torch.hub.load(str(Path(__file__).resolve().parent
+                                 / "yolov5_obb_tpu_torch"), "yolov5n_obb",
+                             source="local", imgsz=IMGSZ,
+                             dtype=torch.bfloat16, verbose=False)
+        require(next(hub.model.parameters()).device.type == dev.type,
+                "(m7) the hub model is off the card")
+        img = np.random.default_rng(4).integers(0, 256, (IMGSZ, IMGSZ, 3),
+                                                dtype=np.uint8)
+        dets = counted("m7_hub", lambda: hub(img))
+        # random weights clear no threshold: the forward's kernels only
+        rows_moved("m7_hub", ("stem_l1", "c3", "down"))
+        r["m7"] = {"dets": len(dets.rows()[0])}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r["steps_s"] = steps
+    r["phase_s"] = time.perf_counter() - t_phase
+    report["export"] = r
+    log(f"export phase on {card}: {r['phase_s']:.1f} s, launches "
+        f"{launches}")
+    return launches
+
 
 def pre_fmt(speed) -> str:
     return (f"{speed['pre']:.1f} ms pre-process + "
@@ -5108,6 +5550,10 @@ def main() -> int:
     # world through NCCL, two processes on the card through gloo, the
     # train CLI in both), --evolve
     add(scale_out_path(dev, report, card))
+    torch.cuda.empty_cache()
+    # (m) export and the exported-model backend, evaluate(mesh=), autobatch,
+    # the profiler, the hubconf
+    add(export_path(dev, report, val_set, card))
     log("main path: " + json.dumps(report, default=str))
     for pre, what in (("train_", "train"), ("fused_train_", "fused train")):
         log(f"{what}: {report[pre + 'imgs_per_s']:.2f} img/s at yolov5m b16 "
@@ -5161,6 +5607,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase (l2)
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase (l2) or (m4)
         sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

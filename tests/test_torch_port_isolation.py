@@ -78,6 +78,36 @@ def test_entry_points_need_the_card_unless_cpu_is_asked():
     assert dets.shape == (1, 100, 7) and num.shape == (1,)
 
 
+def test_export_backend_autobatch_and_hub_need_the_card(tmp_path):
+    """The export's model, the exported-model backend, the memory probe and
+    the hubconf's entries run on the card unless the CPU is asked for."""
+    from yolov5_obb_tpu_torch import export, hubconf
+    from yolov5_obb_tpu_torch.models.backend import MultiBackend
+    from yolov5_obb_tpu_torch.utils.autobatch import autobatch_cuda
+    from yolov5_obb_tpu_torch.utils.checkpoint import save_weights
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is allowed to run")
+    opt = export.parse_opt(["--cfg", "yolov5n.yaml", "--imgsz", "64"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.build_forward(opt)
+    opt.device = "cpu"
+    fwd, model, _ = export.build_forward(opt)
+    assert next(fwd.parameters()).device.type == "cpu"
+    save_weights(tmp_path / "w", model.state_dict())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiBackend(tmp_path / "w", cfg="yolov5n.yaml", nc=15)
+    backend = MultiBackend(tmp_path / "w", cfg="yolov5n.yaml", nc=15,
+                           device="cpu")
+    assert backend(torch.zeros(1, 64, 64, 3)).shape == (1, 252, 200)
+    with pytest.raises(RuntimeError, match="probes the card"):
+        autobatch_cuda(model, train=False)
+    for entry in (hubconf.yolov5n_obb, hubconf.yolov5s_obb):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()
+    assert hubconf.custom("yolov5n.yaml", device="cpu").device.type == "cpu"
+
+
 def test_train_step_needs_the_card_unless_cpu_is_asked():
     from yolov5_obb_tpu_torch.engine.loss import ComputeLoss
     from yolov5_obb_tpu_torch.engine.optim import build_optimizer

@@ -1,8 +1,10 @@
 """Worker of the port's two-process data-parallel tests
-(test_torch_port_distributed.py).  Imports nothing of JAX.
+(test_torch_port_distributed.py, test_torch_port_val_mesh.py).  Imports
+nothing of JAX.
 
     python tests/torch_port_dp_worker.py step IN OUT
     python tests/torch_port_dp_worker.py cli OUT -- <train argv>
+    python tests/torch_port_dp_worker.py val OUT -- <val argv>
 
 Each process joins the group from torchrun's environment (``WORLD_SIZE``,
 ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) through
@@ -21,6 +23,10 @@ versions.
   the model's final state dict to ``OUT/rank{RANK}.pt`` and to
   ``OUT/record{RANK}.json`` the checkpoint writes this rank made, the
   steps it took and the hyps each of its runs trained with.
+- ``val``: the val CLI (``val.main``, which joins and leaves the group
+  itself under ``--mesh``) on the argv after ``--``; writes its result
+  (metrics and per-image detections), the rows of each predict call and
+  the images this rank loaded to ``OUT/val{RANK}.pt``.
 """
 
 import os
@@ -124,6 +130,36 @@ def _cli(out_dir, argv):
                   default=float)
 
 
+def _val(out_dir, argv):
+    from yolov5_obb_tpu_torch import val
+    from yolov5_obb_tpu_torch.data.dota import DotaDataset
+    from yolov5_obb_tpu_torch.engine import evaluator
+
+    rows, real = [], evaluator.make_predict_fn
+
+    def recorded(*a, **k):
+        predict = real(*a, **k)
+
+        def counted(images):
+            rows.append(len(images))
+            return predict(images)
+        counted.packed_stem, counted.device = predict.packed_stem, \
+            predict.device
+        return counted
+
+    loaded, sample = [], DotaDataset.get_eval_sample
+
+    def load(self, i):
+        loaded.append(i)
+        return sample(self, i)
+
+    evaluator.make_predict_fn = recorded
+    DotaDataset.get_eval_sample = load
+    res = val.main(argv)
+    res["predict_rows"], res["loaded"] = rows, loaded
+    torch.save(res, os.path.join(out_dir, f"val{os.environ['RANK']}.pt"))
+
+
 if __name__ == "__main__":
     from yolov5_obb_tpu_torch.models import layers
 
@@ -134,4 +170,5 @@ if __name__ == "__main__":
     if sys.argv[1] == "step":
         _step(sys.argv[2], sys.argv[3])
     else:
-        _cli(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])
+        run = _val if sys.argv[1] == "val" else _cli
+        run(sys.argv[2], sys.argv[sys.argv.index("--") + 1:])

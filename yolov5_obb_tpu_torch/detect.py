@@ -10,8 +10,10 @@ detect.py), with every flag and ``--device``.  Runs on the card unless
 ``--device cpu``; in bfloat16 on the card the model takes the packed uint8
 image and its kernels (never with ``--augment`` or an ensemble, which
 transform or decode the unpacked image).  ``--weights a,b`` is a model
-ensemble: every member's decoded rows go through one NMS.  Exported
-artifacts as ``--weights`` are not ported (ROADMAP.md queue 1 item 9).
+ensemble: every member's decoded rows go through one NMS.  An exported
+``.pt2`` as ``--weights`` (``python -m yolov5_obb_tpu_torch.export``) needs
+``--data`` for its names; its NMS runs here, and ``--classes`` filters the
+detections after it.
 
 Writes annotated images (and, for videos, ``<stem>_annotated.mp4``) unless
 ``--nosave``, label files ``cls x1 y1 .. x4 y4 [conf]`` with ``--save-txt``,
@@ -40,12 +42,17 @@ from .engine.evaluator import (
     make_predict_fn,
     pack_images,
 )
+from .models.backend import (
+    is_artifact,
+    make_backend_predict_fn,
+    refuse_jax_artifact,
+)
 from .models.yolo import create_model
 from .ops.geometry import rbox2poly, scale_polys
 from .utils import image_io
 from .utils.checkpoint import load_model_weights
 from .utils.device import resolve_device
-from .utils.fuse import fuse_conv_bn
+from .utils.fuse import fuse_for_inference
 from .utils.general import increment_path, load_dataset_config
 
 VID_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".webm"}
@@ -54,8 +61,9 @@ VID_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".m4v", ".webm"}
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(prog="python -m yolov5_obb_tpu_torch.detect")
     p.add_argument("--weights", type=str, default="",
-                   help="checkpoint directory or state-dict .pt; a,b: an "
-                        "ensemble; empty: random weights from --seed")
+                   help="checkpoint directory, state-dict .pt or exported "
+                        ".pt2; a,b: an ensemble; empty: random weights from "
+                        "--seed")
     p.add_argument("--cfg", type=str, default="yolov5n.yaml",
                    help="model config")
     p.add_argument("--source", type=str, required=True,
@@ -199,11 +207,15 @@ def _build_predict(opt, names, nc, device):
             members, opt.conf_thres, opt.iou_thres, opt.max_det,
             multi_label=True, agnostic=opt.agnostic_nms, classes=classes)
         return predict, None, names
-    w = Path(opt.weights) if opt.weights else None
-    if w is not None and (w.suffix in (".stablehlo", ".tflite", ".pt2")
-                          or (w / "saved_model.pb").exists()):
-        raise NotImplementedError("exported artifacts as --weights are not "
-                                  "ported (ROADMAP queue 1 item 9)")
+    if opt.weights and is_artifact(opt.weights):
+        refuse_jax_artifact(opt.weights)
+        if names is None:
+            raise ValueError("--data must provide the names for an exported "
+                             "model")
+        predict, _ = make_backend_predict_fn(
+            opt.weights, opt.cfg, len(names), opt.imgsz, opt.conf_thres,
+            opt.iou_thres, opt.max_det, tta=opt.augment, device=device)
+        return predict, None, names
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
     # the stem kernels compute bf16: the packed path only for a bf16 run on
     # the card, so a float32 run keeps its numerics
@@ -215,8 +227,7 @@ def _build_predict(opt, names, nc, device):
         wnames = load_model_weights(model, meta, opt.weights).get("names")
         names = names or wnames
     names = names or [str(i) for i in range(meta.nc)]
-    if not opt.no_fuse:
-        fuse_conv_bn(model)
+    fuse_for_inference(model, enable=not opt.no_fuse)
     predict = make_predict_fn(model, meta, opt.conf_thres, opt.iou_thres,
                               opt.max_det, multi_label=True, tta=opt.augment,
                               agnostic=opt.agnostic_nms, classes=classes)
@@ -230,6 +241,7 @@ def run(opt):
         d = load_dataset_config(opt.data)
         names, nc = d["names"], d["nc"]
     predict, model, names = _build_predict(opt, names, nc, device)
+    artifact = bool(opt.weights) and is_artifact(opt.weights)
 
     save_dir = increment_path(Path(opt.project) / opt.name,
                               exist_ok=opt.exist_ok)
@@ -270,6 +282,11 @@ def run(opt):
         t_inf += t2 - t1
 
         d = dets[0, :n]
+        if artifact and opt.classes:
+            # an exported model's NMS is class-aware, so keeping the
+            # classes after it keeps what filtering before it would
+            d = d[np.isin(d[:, 6].astype(int), opt.classes)]
+            n = len(d)
         polys = rbox2poly(d[:, :5]) if n else np.zeros((0, 8))
         if n:
             polys = scale_polys((opt.imgsz, opt.imgsz), polys, im0.shape[:2])

@@ -36,7 +36,8 @@ import torch
 import torch.distributed as dist
 
 
-def _initialized() -> bool:
+def joined() -> bool:
+    """True once this process is in a process group."""
     return dist.is_available() and dist.is_initialized()
 
 
@@ -51,7 +52,7 @@ def maybe_initialize(device=None) -> bool:
     caller has already called ``init_process_group`` (with any backend:
     this is how two processes share one card through gloo), nothing is
     initialised again and the answer is ``world_size > 1``."""
-    if _initialized():
+    if joined():
         return dist.get_world_size() > 1
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1:
@@ -77,15 +78,15 @@ def is_main() -> bool:
     """True on the process that owns the file-system side effects
     (checkpoints, logs, plots): rank 0, or the only process (the
     reference's ``RANK in (-1, 0)``, train.py:86)."""
-    return not _initialized() or dist.get_rank() == 0
+    return not joined() or dist.get_rank() == 0
 
 
 def process_count() -> int:
-    return dist.get_world_size() if _initialized() else 1
+    return dist.get_world_size() if joined() else 1
 
 
 def process_index() -> int:
-    return dist.get_rank() if _initialized() else 0
+    return dist.get_rank() if joined() else 0
 
 
 def local_batch_size(global_batch: int) -> int:
@@ -139,7 +140,7 @@ def main_first():
 
 def shutdown() -> None:
     """Leave the process group, if this process joined one."""
-    if _initialized():
+    if joined():
         dist.destroy_process_group()
 
 
@@ -206,6 +207,12 @@ class DataMesh:
         one all-reduce per dtype."""
         _flat_(tensors, dist.all_reduce)
 
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        out = [None] * self.world
+        dist.all_gather_object(out, obj)
+        return out
+
     @torch.no_grad()
     def broadcast_(self, tensors) -> None:
         """Rank 0's values of ``tensors`` on every rank, in place, one
@@ -231,7 +238,7 @@ def make_mesh() -> DataMesh:
     """The data-parallel handle over the default process group; raises
     without one (:func:`maybe_initialize`, or the caller's
     ``init_process_group``)."""
-    if not _initialized():
+    if not joined():
         raise RuntimeError("a data-parallel mesh needs a process group: "
                            "launch with torchrun (maybe_initialize) or call "
                            "torch.distributed.init_process_group first")

@@ -5,7 +5,8 @@ Counterpart of ``yolov5_obb_tpu/engine/evaluator.py``: ``make_predict_fn``
 (evaluator.py:27, test-time augmentation too), the model ensemble
 (``load_ensemble_members`` :89, ``make_ensemble_predict_fn`` :120),
 ``pack_images`` (:166), ``evaluate`` (:175) and ``save_dota_task1``
-(:403).  Decode + rotated NMS run on the model's
+(:403); ``evaluate(mesh=)`` splits each batch over the processes of a
+data mesh (:28-55, 188-250).  Decode + rotated NMS run on the model's
 device; per image on the host: rbox → poly, rescale to the native
 resolution, HBB-cover TP matching at 10 IoU thresholds, AP aggregation, and
 the DOTA JSON rows for the devkit merge step.
@@ -172,16 +173,28 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
     ``confusion_matrix.png``, and ``PR_curve.png``, ``F1_curve.png``,
     ``P_curve.png``, ``R_curve.png`` there (flat curves without
     detections); a plot that fails is reported and the evaluation goes
-    on.  ``mesh`` is not ported (ROADMAP.md queue 1 item 9).
+    on.  ``mesh`` (an ``engine/distributed.DataMesh`` of N processes, one
+    a card, the weights the same in each): rank r loads, predicts and
+    matches only rows ``[r·b/N, (r+1)·b/N)`` of every padded batch of ``b
+    = batch_size`` (which N must divide), and the per-image matches and
+    detections are gathered once, in dataset order, on every rank, so
+    every rank computes the one-process metrics; the caller lets one rank
+    write ``save_json`` and the plots.  ``speed_ms_per_img`` is then the
+    mesh's: a rank's wall time over all the images.
 
     Returns the JAX package's result dict: mp, mr, map50, map, per-class
     p/r/ap50/ap, ``speed_ms_per_img`` (the timed loop over the batches
     after one warm-up call), ``speed_pre_ms_per_img`` (host loading and
     letterboxing) and ``detections`` (native-resolution polys per image);
     ``save_json`` writes the DOTA JSON rows there."""
+    local = batch_size
+    rows = slice(0, batch_size)
     if mesh is not None:
-        raise NotImplementedError("multi-device evaluation is not ported "
-                                  "(ROADMAP.md queue 1 item 9)")
+        if batch_size % mesh.world:
+            raise ValueError(f"batch size {batch_size} is not divisible by "
+                             f"the mesh's {mesh.world} processes")
+        local = batch_size // mesh.world
+        rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
     names = dataset.names
     iouv = np.linspace(0.5, 0.95, 10)
     confusion = (ConfusionMatrix(nc=len(names)) if plots_dir is not None
@@ -191,22 +204,23 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
         plain=plain, tta=tta)
     device = predict.device
 
-    stats = []  # (tp, conf, cls, target_cls) per image
-    json_out = []
-    all_dets = []
     n_img = len(dataset) if max_images is None else min(max_images, len(dataset))
     canvas = int(getattr(dataset, "eval_canvas", dataset.img_size))
     t_pre = [0.0]  # host pre-processing (decode + letterbox) seconds
 
     # one-deep pipeline: load and dispatch batch N+1 before bringing batch
     # N's detections to the host (the rotated NMS's host syncs bound how far
-    # the card runs ahead)
+    # the card runs ahead).  A rank loads and predicts only its rows of the
+    # padded batch (the batch's last image repeated): the rows of one
+    # process at batch ``local``.
     def dispatch(start):
-        idxs = list(range(start, min(start + batch_size, n_img)))
+        idxs = list(range(start, min(start + batch_size, n_img)))[rows]
+        if not idxs:  # this rank's rows are all padding
+            return [], None, None
         t0 = time.perf_counter()
         samples = [dataset.get_eval_sample(i) for i in idxs]
         t_pre[0] += time.perf_counter() - t0
-        pad = batch_size - len(samples)
+        pad = local - len(samples)
         imgs = np.stack([s["image"] for s in samples + [samples[-1]] * pad])
         if predict.packed_stem:
             imgs = pack_images(imgs)
@@ -215,15 +229,19 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
 
     if n_img:  # warm-up (kernel builds, cuDNN plans) outside the timed loop
         _, d0, n0 = dispatch(0)
-        d0.cpu(), n0.cpu()
+        if d0 is not None:
+            d0.cpu(), n0.cpu()
         t_pre[0] = 0.0
 
+    records = []  # per image of this rank, in dataset order
     t_start = time.perf_counter()
     pending = dispatch(0) if n_img else None
     for start in range(0, n_img, batch_size):
         samples, dets_dev, num_dev = pending
         nxt = start + batch_size
         pending = dispatch(nxt) if nxt < n_img else None
+        if not samples:
+            continue
         dets, num = dets_dev.cpu().numpy(), num_dev.cpu().numpy()
 
         for bi, s in enumerate(samples):
@@ -250,26 +268,43 @@ def evaluate(model, meta, dataset, batch_size: int = 8,
                        else np.zeros((0, 4)))
             gt_cls = gt[:, 0]
 
-            tp = process_batch_hbb(det_xyxy, conf, cls, gt_xyxy, gt_cls, iouv)
-            stats.append((tp, conf, cls, gt_cls))
-            if confusion is not None:
-                confusion.process_batch(det_xyxy, conf, cls, gt_xyxy, gt_cls)
-            path = dataset.img_files[s["index"]]
-            all_dets.append({"path": path, "polys": polys, "conf": conf,
-                             "cls": cls, "hw": (h0, w0)})
-            if save_json is not None:
-                stem = Path(path).stem
-                for k in range(n):
-                    json_out.append({
-                        "image_id": stem,
-                        "category_id": int(cls[k]),
-                        "bbox": [round(float(v), 1) for v in hbb[k]],
-                        "score": round(float(conf[k]), 5),
-                        "poly": [round(float(v), 1) for v in polys[k]],
-                        "file_name": stem,
-                    })
+            records.append({
+                "index": int(s["index"]), "hbb": hbb, "gt_xyxy": gt_xyxy,
+                "tp": process_batch_hbb(det_xyxy, conf, cls, gt_xyxy, gt_cls,
+                                        iouv),
+                "gt_cls": gt_cls,
+                "det": {"path": dataset.img_files[s["index"]],
+                        "polys": polys, "conf": conf, "cls": cls,
+                        "hw": (h0, w0)}})
 
+    if mesh is not None:  # every rank's images, in dataset order
+        records = sorted((r for part in mesh.gather_objects(records)
+                          for r in part), key=lambda r: r["index"])
     t_infer = time.perf_counter() - t_start if n_img else 0.0
+
+    stats = []  # (tp, conf, cls, target_cls) per image
+    json_out = []
+    all_dets = []
+    for rec in records:
+        det = rec["det"]
+        conf, cls = det["conf"], det["cls"]
+        stats.append((rec["tp"], conf, cls, rec["gt_cls"]))
+        if confusion is not None:
+            confusion.process_batch(xywh2xyxy(rec["hbb"]), conf, cls,
+                                    rec["gt_xyxy"], rec["gt_cls"])
+        all_dets.append(det)
+        if save_json is not None:
+            stem = Path(det["path"]).stem
+            for k in range(len(conf)):
+                json_out.append({
+                    "image_id": stem,
+                    "category_id": int(cls[k]),
+                    "bbox": [round(float(v), 1) for v in rec["hbb"][k]],
+                    "score": round(float(conf[k]), 5),
+                    "poly": [round(float(v), 1) for v in det["polys"][k]],
+                    "file_name": stem,
+                })
+
 
     if stats:
         tp = np.concatenate([s[0] for s in stats])

@@ -394,6 +394,10 @@ def run(opt, hyp_override: dict | None = None, callbacks=None):
                                    conf_thres=0.01, iou_thres=0.4,
                                    verbose=True, max_images=opt.val_images)
                 callbacks.run("on_val_end", metrics=metrics)
+                # the W&B table of validation predictions (nothing
+                # without W&B)
+                loggers.log_val_predictions(epoch, metrics["detections"],
+                                            val_ds.names)
             fit = D.broadcast_scalar(fitness(
                 metrics["mp"], metrics["mr"], metrics["map50"],
                 metrics["map"]))

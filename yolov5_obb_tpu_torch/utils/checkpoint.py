@@ -29,6 +29,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .loggers import resolve_wandb_artifact
+
 STATE = "state.pt"
 META = "meta.json"
 
@@ -65,10 +67,9 @@ def _save(path, obj: dict, metadata: dict | None) -> Path:
 
 
 def _load(path) -> tuple:
-    path = Path(path)
-    if str(path).startswith("wandb-artifact:"):
-        raise NotImplementedError("W&B artifact references are not ported "
-                                  "(ROADMAP.md queue 1 item 9)")
+    # a wandb-artifact:// reference is downloaded first (JAX
+    # checkpoint.py:92-97)
+    path = Path(resolve_wandb_artifact(path))
     obj = torch.load(path / STATE, map_location="cpu", weights_only=True)
     meta = obj.pop("meta", None)
     mp = path / META
@@ -165,8 +166,8 @@ def load_model_weights(model, meta, path) -> dict:
     ``.pt`` in the reference model's names (:func:`load_state_dict`) →
     ``model`` and ``meta`` (``meta`` None: the weights alone, the config's
     anchors stay); returns the checkpoint's ``meta.json`` (empty for a
-    ``.pt``)."""
-    path = Path(path)
+    ``.pt``).  A ``wandb-artifact://`` reference is downloaded first."""
+    path = Path(resolve_wandb_artifact(path))
     if path.suffix == ".pt" and path.is_file():
         load_state_dict(model, path, meta)
         return {}

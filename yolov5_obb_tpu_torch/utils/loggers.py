@@ -4,8 +4,11 @@ Counterpart of ``yolov5_obb_tpu/utils/loggers.py`` (reference
 utils/loggers/__init__.py:37-175), with the same metric keys and the same
 ``results.csv`` header and rows.  TensorBoard writes through
 ``torch.utils.tensorboard`` when it imports (the JAX package tries
-``tensorflow``); W&B starts only when asked for and importable.  The W&B
-val-prediction table waits for the plots (ROADMAP.md queue 1 item 6).
+``tensorflow``); W&B starts only when asked for and importable, and
+``wandb`` is imported inside the calls that need it: the validation
+images with their predicted boxes as a table a epoch, the model and
+dataset artifacts, and ``wandb-artifact://`` references as weights
+(:func:`resolve_wandb_artifact`).
 """
 
 from __future__ import annotations
@@ -77,6 +80,37 @@ class Loggers:
         aliases = ["latest", f"epoch{epoch}"] + (["best"] if best else [])
         self.wandb.log_artifact(art, aliases=aliases)
 
+    def log_val_predictions(self, epoch: int, detections, names,
+                            max_images: int = 16):
+        """A W&B table of the first ``max_images`` validation images with
+        their predicted boxes drawn on them (JAX loggers.py:85-114; the
+        reference's val prediction tables, wandb_utils.py:138-252): W&B
+        overlays axis-aligned boxes only, so the rotated polygons are drawn
+        into the image.  ``detections``: ``evaluate``'s per-image records
+        (path, polys, conf, cls, hw); an unreadable image is skipped.
+        Nothing without W&B."""
+        if self.wandb is None or not detections:
+            return
+        import numpy as np
+        import wandb
+
+        from . import image_io
+        from .plots import annotate_detections
+
+        table = wandb.Table(
+            columns=["epoch", "id", "prediction", "n_det", "avg_conf"])
+        for d in detections[:max_images]:
+            img = image_io.imread(d["path"])
+            if img is None:
+                continue
+            conf = np.asarray(d["conf"], np.float32)
+            annotate_detections(img, d["polys"], conf, d["cls"], list(names))
+            table.add_data(epoch, Path(d["path"]).stem,
+                           wandb.Image(img[..., ::-1]),  # BGR → RGB
+                           int(len(conf)),
+                           float(conf.mean()) if len(conf) else 0.0)
+        self.wandb.log({"val/predictions": table}, step=epoch)
+
     def log_dataset_artifact(self, data_yaml):
         """Version the dataset yaml as a W&B artifact (reference
         wandb_utils.py:192-238); nothing without W&B."""
@@ -93,3 +127,16 @@ class Loggers:
             self.tb.close()
         if self.wandb is not None:
             self.wandb.finish()
+
+
+def resolve_wandb_artifact(path) -> str:
+    """``wandb-artifact://entity/project/name:alias`` → the directory W&B
+    downloads it to (JAX loggers.py:132-143; reference
+    wandb_utils.py:68-80); any other path as it is.  Without ``wandb``
+    such a reference raises ``ImportError``."""
+    prefix = "wandb-artifact://"
+    if not str(path).startswith(prefix):
+        return path
+    import wandb
+
+    return wandb.Api().artifact(str(path)[len(prefix):]).download()

@@ -22,8 +22,16 @@ The confusion matrix and the PR, F1, P and R curves are drawn into the run
 directory (``--no-plots`` skips them; a machine without matplotlib reports
 them failed and goes on).  ``--task study`` runs the val task at each of
 ``--study-sizes`` and writes ``study_<data>_<cfg>.txt`` (a row per size:
-size, P, R, mAP50, mAP, ms per image).  Not ported yet: exported artifacts
-as ``--weights`` and ``--mesh`` (ROADMAP.md queue 1 item 9).
+size, P, R, mAP50, mAP, ms per image).  ``--weights`` may also be an
+exported ``.pt2`` (``python -m yolov5_obb_tpu_torch.export``; its H and W
+are fixed, so not with ``--rect-pad``, and the names and ``nc`` come from
+``--data``).  ``--mesh N`` splits every batch over the N processes of a
+torchrun launch (one a card)::
+
+    torchrun --nproc-per-node 2 -m yolov5_obb_tpu_torch.val --mesh 2 ...
+
+each predicting its rows; every process then holds the one-process
+metrics, and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -36,24 +44,32 @@ import torch
 from .data.dota import DotaDataset
 from .devkit.coco_eval import coco_eval_bbox
 from .devkit.converters import dota_to_coco
+from .engine import distributed as D
 from .engine.evaluator import (
     evaluate,
     load_ensemble_members,
     make_ensemble_predict_fn,
     save_dota_task1,
 )
+from .models.backend import (
+    is_artifact,
+    make_backend_predict_fn,
+    refuse_jax_artifact,
+)
 from .models.yolo import create_model
 from .ops.geometry import poly2hbb
 from .utils.checkpoint import STATE, load_model_weights
-from .utils.fuse import fuse_conv_bn
+from .utils.device import resolve_device
+from .utils.fuse import fuse_for_inference
 from .utils.general import increment_path, load_dataset_config
 
 
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(prog="python -m yolov5_obb_tpu_torch.val")
     p.add_argument("--weights", type=str, default="",
-                   help="checkpoint directory or state-dict .pt (reference "
-                        "names); empty: random weights from --seed")
+                   help="checkpoint directory, state-dict .pt (reference "
+                        "names) or exported .pt2; a,b: an ensemble; empty: "
+                        "random weights from --seed")
     p.add_argument("--cfg", type=str, default="yolov5n.yaml")
     p.add_argument("--data", type=str, required=True)
     p.add_argument("--task", type=str, default="val",
@@ -94,26 +110,49 @@ def parse_opt(argv=None):
     p.add_argument("--augment", action="store_true", help="TTA inference")
     p.add_argument("--no-plots", action="store_true",
                    help="skip the confusion-matrix and curve PNGs")
-    # not ported: raises NotImplementedError when asked for
-    p.add_argument("--mesh", type=int, default=0)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="split each batch over N torchrun processes "
+                        "(0: one process)")
     return p.parse_args(argv)
 
 
-def _refuse_unported(opt) -> None:
-    if opt.mesh:
-        raise NotImplementedError("--mesh is not ported "
-                                  "(ROADMAP.md queue 1 item 9)")
-    for w in filter(None, (w.strip() for w in opt.weights.split(","))):
+def _check_weights(opt) -> None:
+    """Every ``--weights`` entry is a checkpoint directory, a state-dict
+    ``.pt`` or an exported ``.pt2``; the JAX package's artifacts are
+    refused by name, and a ``.pt2`` runs alone, on square images."""
+    ws = [w.strip() for w in opt.weights.split(",") if w.strip()]
+    for w in ws:
         path = Path(w)
         if not path.exists():
             raise FileNotFoundError(f"--weights {w}: no such file or "
                                     "directory")
-        if not ((path.suffix == ".pt" and path.is_file())
+        refuse_jax_artifact(w)
+        if not ((path.suffix in (".pt", ".pt2") and path.is_file())
                 or (path / STATE).is_file()):
-            raise NotImplementedError(
-                f"--weights {w}: not a checkpoint directory or state-dict "
-                ".pt; exported artifacts are not ported (ROADMAP.md queue 1 "
-                "item 9)")
+            raise ValueError(f"--weights {w}: not a checkpoint directory, "
+                             "state-dict .pt or exported .pt2")
+        if is_artifact(w) and len(ws) > 1:
+            raise ValueError(f"--weights {w}: an exported model cannot "
+                             "join an ensemble")
+        if is_artifact(w) and opt.rect_pad:
+            raise ValueError("--rect-pad with an exported model: its H and W "
+                             "are fixed at export")
+
+
+def _mesh(opt, device):
+    """``--mesh N``: this process's device and the data mesh over the
+    process group torchrun's environment names (None for a world of one
+    without a group); raises unless the world is N."""
+    D.maybe_initialize(device)
+    if D.process_count() != opt.mesh:
+        raise ValueError(f"--mesh {opt.mesh} needs {opt.mesh} processes "
+                         f"(torchrun --nproc-per-node {opt.mesh}); this run "
+                         f"has {D.process_count()}")
+    if opt.batch_size % opt.mesh:
+        raise ValueError(f"--batch-size {opt.batch_size} is not divisible "
+                         f"by --mesh {opt.mesh}")
+    mesh = D.make_mesh() if D.joined() else None
+    return D.local_device(device), mesh
 
 
 def study(opt):
@@ -141,7 +180,7 @@ def study(opt):
 
 
 def run(opt):
-    _refuse_unported(opt)
+    _check_weights(opt)
     if opt.task == "study":
         return study(opt)
     speed = opt.task == "speed"
@@ -160,9 +199,19 @@ def run(opt):
                           eval_pad=opt.rect_pad)
 
     dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
-    device = torch.device(opt.device or "cuda")
+    device = resolve_device(opt.device)
+    mesh = None
+    if opt.mesh:
+        device, mesh = _mesh(opt, device)
+    main = D.is_main()
     model = meta = predict_fn = None
-    if "," in opt.weights:
+    if opt.weights and is_artifact(opt.weights):
+        # the exported model's decoded rows, NMS here (the reference
+        # DetectMultiBackend in val)
+        predict_fn, _ = make_backend_predict_fn(
+            opt.weights, opt.cfg, nc, opt.imgsz, conf, iou, opt.max_det,
+            tta=opt.augment, device=device)
+    elif "," in opt.weights:
         # a model ensemble: unpacked members, one NMS over their rows
         if opt.augment:
             raise ValueError("--augment with an ensemble is not supported")
@@ -182,22 +231,24 @@ def run(opt):
                                    packed_stem=packed)
         if opt.weights:
             load_model_weights(model, meta, opt.weights)
-        if not opt.no_fuse:
-            fuse_conv_bn(model)
+        fuse_for_inference(model, enable=not opt.no_fuse)
 
-    save_dir = increment_path(Path(opt.project) / opt.name,
-                              exist_ok=opt.exist_ok)
+    # rank 0 names the run directory (and alone writes into it)
+    save_dir = D.broadcast_object(
+        increment_path(Path(opt.project) / opt.name, exist_ok=opt.exist_ok)
+        if main else None)
     res = evaluate(
         model, meta, dataset, batch_size=opt.batch_size, conf_thres=conf,
         iou_thres=iou, max_det=opt.max_det, verbose=True,
         save_json=(str(save_dir / "best_obb_predictions.json")
-                   if opt.save_json and not speed else None),
+                   if opt.save_json and not speed and main else None),
         max_images=(opt.max_images or 64) if speed else opt.max_images,
-        tta=opt.augment, predict_fn=predict_fn,
-        plots_dir=None if speed or opt.no_plots else save_dir)
+        tta=opt.augment, mesh=mesh, predict_fn=predict_fn,
+        plots_dir=None if speed or opt.no_plots or not main else save_dir)
     if speed:
         print(f"speed: {res['speed_ms_per_img']:.2f} ms/img "
               f"(bs={opt.batch_size}, conf={conf}, iou={iou})")
+    if speed or not main:
         return res
 
     print(f"{'Class':>22}{'P':>10}{'R':>10}{'HBBmAP@.5':>12}"
@@ -247,7 +298,11 @@ def run(opt):
 
 
 def main(argv=None):
-    return run(parse_opt(argv))
+    """The CLI; leaves the process group that ``--mesh`` joined."""
+    try:
+        return run(parse_opt(argv))
+    finally:
+        D.shutdown()
 
 
 if __name__ == "__main__":
