@@ -1,0 +1,10 @@
+"""The whole train step's share of the chip's bf16 peak: the FLOPs of a
+forward and backward (no recompute), counted on the plain reference,
+times the steps of the window, over the window's seconds and 989 TFLOP/s,
+in percent."""
+
+from benchmark.metrics_common import mfu
+
+
+def read(obs):
+    return mfu(obs, "train_step")
