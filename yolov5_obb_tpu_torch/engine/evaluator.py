@@ -31,6 +31,7 @@ from ..ops.rotated_nms import (
 from ..utils.checkpoint import load_model_weights
 from ..utils.fuse import fuse_conv_bn
 from ..utils.metrics import ConfusionMatrix, ap_per_class, process_batch_hbb
+from ..utils.profiler import span
 
 
 def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
@@ -48,6 +49,8 @@ def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
 
     The returned ``predict(images) -> (dets (B, max_det, 7), num (B,))``
     runs under ``torch.inference_mode``; ``predict.device`` is the model's.
+    In a ``torch.profiler`` trace a call is the span ``predict``, the
+    model's forward (TTA's three) ``predict.forward`` within it.
 
     ``multi_label`` (the default, as in the JAX package) lets every (box,
     class) pair above ``conf_thres`` compete for the ``max_candidates``
@@ -67,13 +70,17 @@ def make_predict_fn(model, meta, conf_thres, iou_thres, max_det,
 
     @torch.inference_mode()
     def predict(image_u8):
-        if tta:
-            pred = predict_tta(model, meta, image_u8.float() / 255.0,
-                               plain=plain)
-            return non_max_suppression_obb(pred, num_classes=meta.nc, **nms)
-        x = image_u8 if packed else image_u8.float() / 255.0
-        maps = model(x, plain=plain)
-        return non_max_suppression_from_maps(maps, meta, **nms)
+        with span("predict"):
+            if tta:
+                with span("predict.forward"):
+                    pred = predict_tta(model, meta, image_u8.float() / 255.0,
+                                       plain=plain)
+                return non_max_suppression_obb(pred, num_classes=meta.nc,
+                                               **nms)
+            with span("predict.forward"):
+                x = image_u8 if packed else image_u8.float() / 255.0
+                maps = model(x, plain=plain)
+            return non_max_suppression_from_maps(maps, meta, **nms)
 
     predict.packed_stem = packed
     predict.device = next(model.parameters()).device
@@ -128,15 +135,17 @@ def make_ensemble_predict_fn(members, conf_thres, iou_thres, max_det,
 
     @torch.inference_mode()
     def predict(image_u8):
-        x = image_u8.float() / 255.0
-        hw = tuple(x.shape[1:3])
-        pred = torch.cat([decode(m(x, plain=plain), meta, hw)
-                          for m, meta in members], 1)
-        return non_max_suppression_obb(
-            pred, num_classes=nc, conf_thres=conf_thres, iou_thres=iou_thres,
-            max_candidates=max_candidates, max_det=max_det,
-            multi_label=multi_label, agnostic=agnostic, classes=classes,
-            plain=plain)
+        with span("predict"):
+            with span("predict.forward"):
+                x = image_u8.float() / 255.0
+                hw = tuple(x.shape[1:3])
+                pred = torch.cat([decode(m(x, plain=plain), meta, hw)
+                                  for m, meta in members], 1)
+            return non_max_suppression_obb(
+                pred, num_classes=nc, conf_thres=conf_thres,
+                iou_thres=iou_thres, max_candidates=max_candidates,
+                max_det=max_det, multi_label=multi_label, agnostic=agnostic,
+                classes=classes, plain=plain)
 
     predict.packed_stem = False
     predict.device = next(members[0][0].parameters()).device

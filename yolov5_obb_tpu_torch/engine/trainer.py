@@ -16,6 +16,7 @@ import torch
 
 from ..models import step_context
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 from .distributed import DataMesh
 from .optim import OptState, Optimizer, ema_update
 
@@ -91,7 +92,11 @@ def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
     A model built with ``packed_stem`` and ``fused_train`` runs its layers
     0-3 in train mode as the fused pass chain (``models/yolo.py``).
     ``metrics`` holds ``loss`` and the ``(4,)`` ``items`` as device tensors:
-    reading them synchronises, so read them only when needed.
+    reading them synchronises, so read them only when needed.  In a
+    ``torch.profiler`` trace a step is the span ``train.step`` holding
+    ``train.h2d`` (the batch's copy), ``train.forward``, ``train.loss``,
+    ``train.backward`` (``autograd.grad``), ``train.optimizer`` and
+    ``train.ema``.
 
     ``remat`` (JAX trainer.py:75-102):
 
@@ -143,17 +148,25 @@ def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
     mode = "selective" if remat == "selective" else "full" if remat else None
 
     def step(state: TrainState, image, targets, t_mask):
-        image, targets, t_mask = (t.to(dev, non_blocking=True)
-                                  for t in (image, targets, t_mask))
-        x = image if image.dim() == 3 else image.float() / 255.0
+        with span("train.step"):
+            return _step(state, image, targets, t_mask)
+
+    def _step(state: TrainState, image, targets, t_mask):
+        with span("train.h2d"):
+            image, targets, t_mask = (t.to(dev, non_blocking=True)
+                                      for t in (image, targets, t_mask))
         training = model.training
         model.train()
         try:
             with step_context.train_step(mesh, mode):
-                maps = model(x)
-                total, items = loss_fn(maps, targets, t_mask)
+                with span("train.forward"):
+                    x = image if image.dim() == 3 else image.float() / 255.0
+                    maps = model(x)
+                with span("train.loss"):
+                    total, items = loss_fn(maps, targets, t_mask)
                 kept = [b.clone() for b in buffers] if remat else None
-                grads = torch.autograd.grad(total, params)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(total, params)
         finally:
             model.train(training)
         if kept is not None:  # the recompute's second update undone
@@ -164,10 +177,12 @@ def make_train_step(model, loss_fn, optimizer: Optimizer, use_ema: bool = True,
         if mesh is not None:
             mesh.sum_tensors_(grads)
             mesh.sum_tensors_([total, items])
-        optimizer.apply(state.opt_state, grads)
+        with span("train.optimizer"):
+            optimizer.apply(state.opt_state, grads)
         if use_ema:
             state.ema_updates += 1
-            ema_update(state.ema.values(), params, state.ema_updates)
+            with span("train.ema"):
+                ema_update(state.ema.values(), params, state.ema_updates)
         state.step += 1
         return {"loss": total, "items": items}
 

@@ -22,6 +22,13 @@ the best class per box (single-label) or of every (box, class) pair
 class) index, as the JAX ``compact_select`` + ``top_k`` pair does.  The
 greedy sweep is an eager loop with a convergence check, and the tier ladder
 is one host-side branch on the batch's largest candidate count.
+
+Post-processing runs under the spans ``postproc.decode`` (decode, candidate
+selection, gathers) and ``postproc.nms`` (tier, suppression, compaction) of
+``utils/profiler.py``, and counts ``postproc.calls`` and
+``postproc.host_syncs``: every point where the host waits for the device
+(each grid or anchor copy to the device, the class filter's two copies,
+the tier's read, each sweep's convergence read), counted on any device.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiler import count, span
 from .geometry import hbb_cover
 from .kernels.iou import sparse_rotated_iou, sparse_rotated_iou_plain
 from .kernels.neighbor_kernel import (
@@ -51,12 +59,24 @@ def _resolve_greedy(sup_in, nbr_idx, valid):
     flat_idx = nbr_idx.reshape(B, n * M).long()
     alive, prev = valid, ~valid
     it = 0
-    while it < n and bool((alive != prev).any()):
+    while it < n and _host_read(bool((alive != prev).any())):
         prev = alive
         hit = (torch.gather(alive, 1, flat_idx).reshape(B, n, M) & sup_in).any(-1)
         alive = valid & ~hit
         it += 1
     return alive
+
+
+def _host_read(value):
+    """``value``, a read the host waited on the device for, counted."""
+    count("postproc.host_syncs")
+    return value
+
+
+def _to_device(array, dev):
+    """A blocking host-to-device copy of ``array``, counted."""
+    count("postproc.host_syncs")
+    return torch.as_tensor(array, device=dev)
 
 
 def riou_upper_bound(boxes):
@@ -184,13 +204,14 @@ def _tier(k: int, max_count: int) -> int:
 
 def _suppress_compact_batch(rb, scores, cls_id, iou_thres: float,
                             agnostic: bool, max_det: int, plain: bool = False):
-    k = scores.shape[1]
-    kk = _tier(k, int((scores > 0).sum(1).max()) if k else 0)
-    rb, scores, cls_id = rb[:, :kk], scores[:, :kk], cls_id[:, :kk]
-    keep = nms_rotated(rb, scores, iou_thres,
-                       class_ids=None if agnostic else cls_id,
-                       presorted=True, plain=plain)
-    return _compact_dets(rb, scores, cls_id, keep, max_det)
+    with span("postproc.nms"):
+        k = scores.shape[1]
+        kk = _tier(k, _host_read(int((scores > 0).sum(1).max())) if k else 0)
+        rb, scores, cls_id = rb[:, :kk], scores[:, :kk], cls_id[:, :kk]
+        keep = nms_rotated(rb, scores, iou_thres,
+                           class_ids=None if agnostic else cls_id,
+                           presorted=True, plain=plain)
+        return _compact_dets(rb, scores, cls_id, keep, max_det)
 
 
 def _apply_class_filter(cls_conf, classes, nc: int):
@@ -199,7 +220,8 @@ def _apply_class_filter(cls_conf, classes, nc: int):
     if classes is None:
         return cls_conf
     keep = torch.zeros(nc, dtype=cls_conf.dtype, device=cls_conf.device)
-    keep[list(classes)] = 1.0
+    keep[_to_device(list(classes), cls_conf.device)] = 1.0
+    count("postproc.host_syncs")  # the assignment's value, copied blocking
     return cls_conf * keep
 
 
@@ -271,8 +293,11 @@ def non_max_suppression_obb(prediction, num_classes: int,
     90)°`` over the sigmoid bins (saturated bins tie in float32 and the
     first wins, as in the JAX package).  Same output as
     :func:`non_max_suppression_from_maps`."""
-    rb, scores, cls_id = obb_candidates(prediction, num_classes, conf_thres,
-                                        max_candidates, multi_label, classes)
+    count("postproc.calls")
+    with span("postproc.decode"):
+        rb, scores, cls_id = obb_candidates(prediction, num_classes,
+                                            conf_thres, max_candidates,
+                                            multi_label, classes)
     return _suppress_compact_batch(rb, scores, cls_id, iou_thres, agnostic,
                                    max_det, plain=plain)
 
@@ -297,11 +322,11 @@ def decode_planes(maps, meta, classes=None, multi_label: bool = False):
         ii = np.arange(n)
         a, cell = ii % na, ii // na
         dev = p.device
-        gx = torch.as_tensor((cell % nx).astype(np.float32), device=dev)
-        gy = torch.as_tensor((cell // nx).astype(np.float32), device=dev)
+        gx = _to_device((cell % nx).astype(np.float32), dev)
+        gy = _to_device((cell // nx).astype(np.float32), dev)
         anchors = np.asarray(meta.anchors_px[li], np.float32)
-        aw = torch.as_tensor(anchors[a, 0], device=dev)
-        ah = torch.as_tensor(anchors[a, 1], device=dev)
+        aw = _to_device(anchors[a, 0], dev)
+        ah = _to_device(anchors[a, 1], dev)
         stride = float(meta.strides[li])
 
         f = lambda k: p[..., k].float()
@@ -323,6 +348,25 @@ def decode_planes(maps, meta, classes=None, multi_label: bool = False):
     return {k: torch.cat(v, 1) for k, v in cols.items()}
 
 
+def _map_candidates(maps, meta, conf_thres, max_candidates, multi_label,
+                    classes):
+    """Decode and candidate selection of
+    :func:`non_max_suppression_from_maps`, as :func:`obb_candidates`."""
+    pl = decode_planes(maps, meta, classes, multi_label)
+    if multi_label:
+        scores, box_idx, cls_id = exact_select_pairs(
+            pl["conf"], conf_thres, max_candidates)
+    else:
+        gate = torch.where((pl["best"] > conf_thres) & (pl["obj"] > conf_thres),
+                           pl["best"], torch.zeros_like(pl["best"]))
+        scores, box_idx = exact_select(gate, min(max_candidates, gate.shape[1]))
+        cls_id = torch.gather(pl["cid"], 1, box_idx)
+    theta = (torch.gather(pl["th"], 1, box_idx).float() - 90.0) / 180.0 * PI
+    rb = torch.stack([torch.gather(pl[c], 1, box_idx) for c in "xywh"]
+                     + [theta], -1)
+    return rb, scores, cls_id
+
+
 def non_max_suppression_from_maps(maps, meta, conf_thres: float = 0.25,
                                   iou_thres: float = 0.45,
                                   max_candidates: int = 4096,
@@ -338,17 +382,10 @@ def non_max_suppression_from_maps(maps, meta, conf_thres: float = 0.25,
         ``(bin - 90)°`` in radians), rows score-sorted, zero padding;
         num ``(B,)`` int32.
     """
-    pl = decode_planes(maps, meta, classes, multi_label)
-    if multi_label:
-        scores, box_idx, cls_id = exact_select_pairs(
-            pl["conf"], conf_thres, max_candidates)
-    else:
-        gate = torch.where((pl["best"] > conf_thres) & (pl["obj"] > conf_thres),
-                           pl["best"], torch.zeros_like(pl["best"]))
-        scores, box_idx = exact_select(gate, min(max_candidates, gate.shape[1]))
-        cls_id = torch.gather(pl["cid"], 1, box_idx)
-    theta = (torch.gather(pl["th"], 1, box_idx).float() - 90.0) / 180.0 * PI
-    rb = torch.stack([torch.gather(pl[c], 1, box_idx) for c in "xywh"]
-                     + [theta], -1)
+    count("postproc.calls")
+    with span("postproc.decode"):
+        rb, scores, cls_id = _map_candidates(maps, meta, conf_thres,
+                                             max_candidates, multi_label,
+                                             classes)
     return _suppress_compact_batch(rb, scores, cls_id, iou_thres, agnostic,
                                    max_det, plain=plain)

@@ -6,15 +6,47 @@ from ``torch.utils.flop_counter`` where the JAX package reads XLA's cost
 analysis), ``profile`` (the same printed table) and ``trace`` (a
 ``torch.profiler`` trace for Chrome or TensorBoard where the JAX package
 writes a ``jax.profiler`` one).
+
+The port's own spans and counters live here too: :func:`span` names a
+stretch of the predict call or the train step in a ``torch.profiler``
+trace (``trace`` shows them), and :func:`count` / :func:`counters` keep
+process-wide tallies (post-processing's calls and host syncs).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
 import numpy as np
 import torch
+
+
+_OFF = contextlib.nullcontext()
+_COUNTS: collections.Counter = collections.Counter()
+
+
+def span(name: str):
+    """A context manager that names the block ``name`` in the host timeline
+    of a ``torch.profiler`` session recording on this thread (``trace``,
+    the benchmark's traced run, or an operator's own), where it nests in
+    the enclosing span.  With no session recording it is one shared
+    ``nullcontext`` after one check: under a microsecond a span."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name`` (always on: an
+    integer add, as the kernels' ``launches``)."""
+    _COUNTS[name] += n
+
+
+def counters() -> collections.Counter:
+    """A snapshot of every counter; a name never counted reads 0."""
+    return collections.Counter(_COUNTS)
 
 
 def _synchronize() -> None:
@@ -75,7 +107,8 @@ def trace(log_dir: str = "runs/trace"):
     """``torch.profiler`` over the block (the CPU, and the card when one is
     visible), written to ``log_dir`` as a Chrome trace
     (``<host>_<pid>.<time>.pt.trace.json``) that TensorBoard's profiler
-    plugin also reads.  Yields ``log_dir``."""
+    plugin also reads; the port's spans (:func:`span`) appear in it as
+    user annotations.  Yields ``log_dir``."""
     from torch.profiler import (
         ProfilerActivity,
         profile as torch_profile,
