@@ -53,9 +53,12 @@ Phases, each fatal on failure:
       rows from the port's csl_gaussian_labels); 2 warm-up steps, 12 timed
       steps reading the loss every 4; train img/s, peak memory, a CUDA-event
       breakdown of one step, the train kernels' launches per step (stem 1+1,
-      downsample 2+2), and loss and gradients against the same step on the
-      plain versions; then the bn-half A/B: all of that again from the
-      same weights under YOLO_BN_HALF=1 (``--bn-half``), its plain step
+      downsample 2+2, each BatchNorm + SiLU kernel once a train-mode conv
+      block, 79), and loss and gradients against the same step on the
+      plain versions, the BatchNorm kernels held apart against the chain
+      (launched on the kernel step, not on the chain's); then the bn-half
+      A/B: all of that again from the same weights under YOLO_BN_HALF=1
+      (``--bn-half``; no BatchNorm kernel launched), its plain step
       under the flag too, its img/s and device time by group beside the
       float32 step's, its first step's loss items each within 5e-3 of the
       float32 step's loss and not all equal to them;
@@ -66,8 +69,9 @@ Phases, each fatal on failure:
   (e) the fused train path: the same model, batches and timing as (d) with
       ``fused_train`` (layers 0-3 as the stat-carrying pass chain), its
       launches per step (stem 1+1, 3x3 s2 2, 1x1 4+4, 3x3 s1 2, downsample
-      0), agreement with the same step on the plain versions, and loss items
-      and running statistics against the stock step of phase (d);
+      0, BatchNorm + SiLU 69), agreement with the same step on the plain
+      versions, and loss items and running statistics against the stock
+      step of phase (d);
   (f) the val path: phase (c)'s model through ``evaluate`` (multi-label,
       conf 0.01, IoU 0.4, 4096 candidates) on 48 seeded images whose labels
       are the plain path's conf-0.25 detections, against the plain run (mAP
@@ -143,9 +147,9 @@ Phases, each fatal on failure:
       its plain run (the same bars, detections within 1%), img/s and peak
       memory; (j3) a yolov5m6 train step at 1280², b16 if phase (d)'s
       peak times (1280/1024)² is under 60 GiB (else 8), against the plain
-      step (phase (d)'s bars), stem 1+1 and downsample 2+2 launches a
-      step, img/s and peak memory; (j4) yolov5s-transformer b16 at 1024²
-      (C3TR over 32x32 tokens) as (j2);
+      step (phase (d)'s bars), stem 1+1, downsample 2+2 and BatchNorm +
+      SiLU 103 launches a step, img/s and peak memory; (j4)
+      yolov5s-transformer b16 at 1024² (C3TR over 32x32 tokens) as (j2);
   (k) the golden flow (OpenCV must import; its version and matplotlib's
       presence printed): (k1) ``tools/golden_e2e.run_flow`` at the JAX
       nightly's setting (4 raw PNGs at 640² → 16 tiles of 384 at gap 128,
@@ -154,8 +158,9 @@ Phases, each fatal on failure:
       CLI with ``--save-json``, the merge at 0.2, the OBB mAP and mAOE),
       held to the nightly's floors (merged OBB mAP >= 0.12, HBB mAP50 >=
       0.13, 0 < mAOE <= 55°), the kernels the gates allow launched and no
-      other, train img/s over the run and per epoch, first-batch wait, val
-      ms per tile, each stage's seconds; (k2) the committed golden yolov5n
+      other (with the BatchNorm + SiLU train kernels), train img/s over
+      the run and per epoch, first-batch wait, val ms per tile, each
+      stage's seconds; (k2) the committed golden yolov5n
       (releases/golden_yolov5n_192_torch) on the 90 tiles of its own
       training set through the val CLI at 192, merged and scored, in
       float32 (row 4) and bfloat16 (rows 1 and 4), each kernel run within
@@ -176,7 +181,8 @@ Phases, each fatal on failure:
       repeat is, else within the repeat's difference; peak memory, img/s
       and the train kernels' launches (full remat: every forward kernel
       twice a step); (l2 i) the data-parallel stock and fused steps in a
-      world of one through NCCL against (l1)'s, by the same bar; (l2 ii)
+      world of one through NCCL against (l1)'s, by the same bar (the
+      BatchNorm kernels' two finalizes twice a block, around the sum); (l2 ii)
       two processes on the card through gloo (``--dp-worker``), 8 rows a
       rank, three stock and three fused steps against (l1)'s one-process
       steps (the first step's loss items within 1e-2; after updates the
@@ -289,6 +295,12 @@ TRAIN_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
 FUSED_LAUNCHES = {"stem_train_fwd": 1, "stem_train_wgrad": 1,
                   "pass_3x3s2": 2, "pass_1x1_fwd": 4, "pass_1x1_bwd": 4,
                   "pass_3x3s1": 2, "down_train_fwd": 0, "down_train_wgrad": 0}
+# the train-mode BatchNorm + SiLU kernels (ops/kernels/bn_act_train.py) and
+# the train-mode conv blocks a step that launch them: yolov5m, yolov5m with
+# the fused train region (which has its own BatchNorm), yolov5m6
+BN_ACT_KERNELS = ("bn_act_stats", "bn_act_fwd_finalize", "bn_act_fwd",
+                  "bn_act_bwd", "bn_act_bwd_finalize", "bn_act_dz")
+BN_BLOCKS = {"yolov5m": 79, "yolov5m_fused": 69, "yolov5m6": 103}
 # the train CLI (phase g): seeded images, pre-augmented variants each, stock
 # epochs, the resumed epoch
 CLI_IMAGES, CLI_AUG_EPOCHS, CLI_EPOCHS = 48, 2, 2
@@ -316,6 +328,22 @@ PROFILE_PAUSE_S = 0.05
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
+
+
+def with_bn_act(expected, blocks, mesh=False) -> dict:
+    """``expected`` launches a step and the BatchNorm + SiLU kernels' for
+    ``blocks`` train-mode conv blocks: each once a block (none where the
+    BatchNorm runs in bfloat16, ``YOLO_BN_HALF=1``); under a
+    data-parallel mesh the two finalizes twice (around the ranks' sum)."""
+    import torch
+
+    from yolov5_obb_tpu_torch.models.layers import bn_dtype
+
+    if bn_dtype() != torch.float32:
+        blocks = 0
+    fin = ("bn_act_fwd_finalize", "bn_act_bwd_finalize")
+    return {**expected, **{n: blocks * (2 if mesh and n in fin else 1)
+                           for n in BN_ACT_KERNELS}}
 
 
 def require(cond, msg) -> None:
@@ -1640,9 +1668,21 @@ def compare_plain_step(model, loss_fn, opt, batch, fused=False):
     percent (the JAX package's tests/test_packed_train.py found the same and
     compares directions).  They are held to the direction of the plain
     step's, no worse than a control: the plain step with the stem weights
-    scaled by 1 + 2^-8, a one-bf16-ulp perturbation."""
+    scaled by 1 + 2^-8, a one-bf16-ulp perturbation.
+
+    The conv blocks' train-mode BatchNorm + SiLU kernels (csrc/
+    bn_act_train.cu) run on both of those steps, so they compare the conv
+    kernels alone, as before those kernels existed.  The BatchNorm kernels
+    are held apart to the same bars: the kernel step against the same step
+    with their plain version, the chain of PyTorch ops, in their place
+    (``bn_chain``).  One comparison of both families at once would add two
+    roundings' noise, which the depth amplifies to ~1% of an item, the
+    items' bar (the plain step's items alone move ~0.5% from run to run:
+    cuDNN's choice of float32 algorithms)."""
     import torch
 
+    from yolov5_obb_tpu_torch.models import layers
+    from yolov5_obb_tpu_torch.ops.kernels import bn_act_train as BN
     from yolov5_obb_tpu_torch.ops.kernels import down_kernel, stem_kernel
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
@@ -1673,13 +1713,22 @@ def compare_plain_step(model, loss_fn, opt, batch, fused=False):
     saved = {k: b.clone() for k, b in model.named_buffers()}
     w0 = model.model[0].conv.weight
     w0_saved = w0.detach().clone()
-    out = {}
+    out, bn_launches = {}, {}
     model.train()
-    for name, plain, scale in (("kernel", False, 1.0), ("plain", True, 1.0),
-                               ("control", True, 1.0 + 2.0**-8)):
+    bn_act = layers._bn_act
+    for name, plain, scale, bn_plain in (
+            ("kernel", False, 1.0, False), ("plain", True, 1.0, False),
+            ("control", True, 1.0 + 2.0**-8, False),
+            ("bn_chain", False, 1.0, True)):
         with torch.no_grad():
             w0.mul_(scale)
-        total, items = loss_fn(model(image, plain=plain), tg, mask)
+        before = {n: k.launches for n, k in BN.KERNELS.items()}
+        layers._bn_act = (lambda m, z, dtype, plain=False, bp=bn_plain:
+                          bn_act(m, z, dtype, bp))
+        try:
+            total, items = loss_fn(model(image, plain=plain), tg, mask)
+        finally:
+            layers._bn_act = bn_act
         for mod, fn_name, _, wrapper in patches if name == "kernel" else ():
             setattr(mod, fn_name, wrapper)
         try:
@@ -1688,6 +1737,8 @@ def compare_plain_step(model, loss_fn, opt, batch, fused=False):
             for mod, fn_name, fn, _ in patches:
                 setattr(mod, fn_name, fn)
         out[name] = (items.detach().float(), dict(zip(opt.names, grads)))
+        bn_launches[name] = {n: k.launches - before[n]
+                             for n, k in BN.KERNELS.items()}
         with torch.no_grad():
             w0.copy_(w0_saved)
             for k, b in model.named_buffers():
@@ -1701,16 +1752,25 @@ def compare_plain_step(model, loss_fn, opt, batch, fused=False):
               "detect": det, "all": list(gp)}
     if fused:
         groups["model.2 (C3)"] = [n for n in gp if n.startswith("model.2.")]
-    res = {"items_plain": ip.tolist()}
-    for name in ("kernel", "control"):
-        i, g = out[name]
-        rel = {n: float((g[n] - gp[n]).abs().max()
-                        / gp[n].abs().max().clamp(min=1e-30)) for n in gp}
+    res = {"items_plain": ip.tolist(), "bn_act_launches": bn_launches}
+    # every step but bn_chain runs the BatchNorm kernels, each kernel once a
+    # train-mode conv block (none where the BatchNorm is bfloat16)
+    on = layers.bn_dtype() == torch.float32
+    for name, per in bn_launches.items():
+        n = set(per.values())
+        require(len(n) == 1 and (n.pop() > 0) == (on and name != "bn_chain"),
+                f"{name} step: BatchNorm kernel launches {per}")
+    for name, ref in (("kernel", "plain"), ("control", "plain"),
+                      ("bn_kernels", "bn_chain")):
+        i, g = out["kernel" if name == "bn_kernels" else name]
+        ri, rg = out[ref]
+        rel = {n: float((g[n] - rg[n]).abs().max()
+                        / rg[n].abs().max().clamp(min=1e-30)) for n in rg}
         res[name] = {
             "items": i.tolist(),
-            "items_max_rel_err": float(((i - ip).abs() / ip.abs()).max()),
+            "items_max_rel_err": float(((i - ri).abs() / ri.abs()).max()),
             "cos": {k: _cos(torch.cat([g[n].flatten() for n in v]),
-                            torch.cat([gp[n].flatten() for n in v]))
+                            torch.cat([rg[n].flatten() for n in v]))
                     for k, v in groups.items()},
             "grad_max_rel_err": {
                 "median": float(np.median(list(rel.values()))),
@@ -1728,9 +1788,12 @@ def compare_plain_step(model, loss_fn, opt, batch, fused=False):
                 for a, b in zip(dws(out), want))))
     res["kernel_wgrads_in_step_rel_err"] = wgrads
     del recorded
-    k, c = res["kernel"], res["control"]
+    k, c, bn = res["kernel"], res["control"], res["bn_kernels"]
     require(k["items_max_rel_err"] <= 1e-2,
             f"loss items differ from the plain step: {res}")
+    require(bn["items_max_rel_err"] <= 1e-2 and bn["cos"]["detect"] > 0.9
+            and all(bn["cos"][n] >= c["cos"][n] - 0.05 for n in groups),
+            f"the BatchNorm kernels' step differs from the chain's: {res}")
     want_names = ["pass_1x1_bwd"] * 4 if fused else ["down_train_wgrad"] * 2
     require(sorted(n for n, _, _ in wgrads)
             == sorted(want_names + ["stem_train_wgrad"])
@@ -1938,7 +2001,8 @@ def _train_path(dev, report, fused, pre):
     from yolov5_obb_tpu_torch.models.yolo import create_model
     from yolov5_obb_tpu_torch.utils.general import load_hyp, scale_hyp_gains
 
-    expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
+    expected = with_bn_act(FUSED_LAUNCHES if fused else TRAIN_LAUNCHES,
+                           BN_BLOCKS["yolov5m_fused" if fused else "yolov5m"])
     t0 = time.perf_counter()
     model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
                                device=dev, seed=0, packed_stem=True,
@@ -2678,8 +2742,9 @@ def train_cli_path(dev, report, val_set):
                 total[n] = total.get(n, 0) + v
 
         # two stock epochs
+        stock_launches = with_bn_act(TRAIN_LAUNCHES, BN_BLOCKS["yolov5m"])
         run, stock = cli_run(argv + ["--epochs", str(CLI_EPOCHS), "--name",
-                                     "stock"], TRAIN_LAUNCHES, BATCH)
+                                     "stock"], stock_launches, BATCH)
         add(stock["launches"])
         rows = _csv_rows(run / "results.csv")
         losses = [[r[k] for k in r if k.startswith("train/")] for r in rows]
@@ -2705,7 +2770,7 @@ def train_cli_path(dev, report, val_set):
         # --resume of last/ for a third epoch, its loop under the profiler
         run_r, resumed = cli_run(argv + [
             "--epochs", str(CLI_EPOCHS + 1), "--name", "stock", "--resume",
-            str(run / "last")], TRAIN_LAUNCHES, BATCH, profile_epochs=True)
+            str(run / "last")], stock_launches, BATCH, profile_epochs=True)
         add(resumed["launches"])
         rows = _csv_rows(run_r / "results.csv")
         after = torch.load(run_r / "last" / "state.pt", map_location="cpu",
@@ -2729,7 +2794,9 @@ def train_cli_path(dev, report, val_set):
 
         # one --fused-train epoch
         _, fused = cli_run(argv + ["--epochs", "1", "--name", "fused",
-                                   "--fused-train"], FUSED_LAUNCHES, BATCH)
+                                   "--fused-train"], with_bn_act(
+                                       FUSED_LAUNCHES,
+                                       BN_BLOCKS["yolov5m_fused"]), BATCH)
         add(fused["launches"])
         log(f"train CLI fused epoch: {fused}")
 
@@ -3869,8 +3936,8 @@ def zoo_train_step(dev, report):
     torch.cuda.reset_peak_memory_stats()
     for i in range(2):
         float(step(state, *batches[i])["loss"])
-    kernels = {n: k for n, k in _named_kernels().items()
-               if n in TRAIN_LAUNCHES}
+    expected = with_bn_act(TRAIN_LAUNCHES, BN_BLOCKS["yolov5m6"])
+    kernels = {n: k for n, k in _named_kernels().items() if n in expected}
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -3881,9 +3948,8 @@ def zoo_train_step(dev, report):
     dt = time.perf_counter() - t
     launches = {n: k.launches for n, k in kernels.items()}
     require(all(launches[n] == ZOO_TRAIN_ITERS * per
-                for n, per in TRAIN_LAUNCHES.items()),
-            f"(j3) train kernel launches {launches}, per step "
-            f"{TRAIN_LAUNCHES}")
+                for n, per in expected.items()),
+            f"(j3) train kernel launches {launches}, per step {expected}")
     items = m["items"].float().tolist()
     require(bool(np.isfinite([loss] + items).all()),
             f"(j3) non-finite loss {loss} / items {items}")
@@ -3975,7 +4041,9 @@ def golden_k1(dev, kernels, tmp):
 
     from yolov5_obb_tpu_torch.tools import golden_e2e
 
-    want = _wanted(dev, torch.float32, False, GOLDEN_K1["imgsz"])
+    # the val CLI's kernels, and the train CLI's float32 BatchNorm + SiLU
+    want = _wanted(dev, torch.float32, False, GOLDEN_K1["imgsz"]) | set(
+        BN_ACT_KERNELS)
     epochs = []
     for k in kernels.values():
         k.launches = 0
@@ -4352,7 +4420,8 @@ REMAT_STEPS = 3
 REMAT_RUNS = ("none", "repeat", "full", "selective")
 # the train kernels of a forward: full remat runs the forward twice a step
 FORWARD_KERNELS = ("stem_train_fwd", "down_train_fwd", "pass_1x1_fwd",
-                   "pass_3x3s1", "pass_3x3s2")
+                   "pass_3x3s1", "pass_3x3s2", "bn_act_stats",
+                   "bn_act_fwd_finalize", "bn_act_fwd")
 # (l2 ii b) the float32 case: yolov5n, stock stem, 256², batch 4
 DP_F32 = {"cfg": "yolov5n.yaml", "imgsz": 256, "batch": 4}
 # (l2 iii), (l3): the seeded set of the CLI runs; an image count that leaves
@@ -4475,7 +4544,8 @@ def remat_path(dev, report, fused):
     from yolov5_obb_tpu_torch.models.yolo import create_model
     from yolov5_obb_tpu_torch.utils.general import load_hyp
 
-    expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
+    expected = with_bn_act(FUSED_LAUNCHES if fused else TRAIN_LAUNCHES,
+                           BN_BLOCKS["yolov5m_fused" if fused else "yolov5m"])
     model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
                                device=dev, seed=0, packed_stem=True,
                                fused_train=fused)
@@ -4543,7 +4613,9 @@ def world_of_one(dev, ref, sd0, batches, bar, fused):
     from yolov5_obb_tpu_torch.engine.distributed import make_mesh
     from yolov5_obb_tpu_torch.models.yolo import create_model
 
-    expected = FUSED_LAUNCHES if fused else TRAIN_LAUNCHES
+    expected = with_bn_act(FUSED_LAUNCHES if fused else TRAIN_LAUNCHES,
+                           BN_BLOCKS["yolov5m_fused" if fused else "yolov5m"],
+                           mesh=True)
     model, meta = create_model("yolov5m.yaml", nc=15, dtype=torch.bfloat16,
                                device=dev, seed=0, packed_stem=True,
                                fused_train=fused)
@@ -5413,9 +5485,13 @@ def _named_kernels():
         neighbor_kernel,
         stem_kernel,
     )
+    from yolov5_obb_tpu_torch.ops.kernels import bn_act_train as BN
     from yolov5_obb_tpu_torch.ops.kernels import train_fused as TF
 
-    return {"stem_l1": stem_kernel.KERNEL, "c3": c3_kernel.KERNEL,
+    require(tuple(BN.KERNELS) == BN_ACT_KERNELS,
+            f"BatchNorm kernels {list(BN.KERNELS)}")
+    return {**BN.KERNELS,
+            "stem_l1": stem_kernel.KERNEL, "c3": c3_kernel.KERNEL,
             "down": down_kernel.KERNEL, "neighbor": neighbor_kernel.KERNEL,
             "stem_train_fwd": stem_kernel.TRAIN_FWD_KERNEL,
             "stem_train_wgrad": stem_kernel.TRAIN_WGRAD_KERNEL,

@@ -14,7 +14,10 @@ running statistics; in train mode (``module.train()``) it normalises with
 the batch statistics and updates the running ones as flax does (see
 :func:`batch_norm_train`).  ``YOLO_BN_HALF=1`` (the train CLI's
 ``--bn-half``) casts the train-mode normalised values to bfloat16 and runs
-SiLU in bfloat16 (:func:`bn_dtype`).
+SiLU in bfloat16 (:func:`bn_dtype`).  On the card, train-mode float32
+BatchNorm + SiLU of a conv block runs on hand-written kernels
+(ops/kernels/bn_act_train.py) with the same math; the chain of PyTorch ops
+below is their plain version.
 
 Every module takes ``(x, plain=False)``; ``plain`` sends a kernel-bearing
 layer to its kernel's plain PyTorch version on any device.
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.kernels import bn_act_train as bn_act_kernel
 from ..ops.kernels.c3_kernel import fold_c3_params, fused_c3, fused_c3_plain
 from ..ops.kernels.down_kernel import (
     down_conv_train,
@@ -44,6 +48,7 @@ from ..ops.kernels.stem_kernel import (
     fused_stem_plain,
     stem_conv_train,
 )
+from ..utils.profiler import count
 from . import step_context
 
 BN_EPS = 1e-3
@@ -148,12 +153,24 @@ def _bn_act_chain(m, z, dtype):
     return y.to(dtype)
 
 
-def _bn_act(m, z, dtype):
+def _bn_act(m, z, dtype, plain: bool = False):
     """BatchNorm (batch statistics in train mode, running ones in eval) +
-    SiLU in :func:`bn_dtype` → ``dtype``; in train mode under selective
-    remat (``step_context.remat``) as a checkpoint that saves ``z``
-    alone."""
-    if step_context.remat() == "selective" and m.bn.training:
+    SiLU in :func:`bn_dtype` → ``dtype``.
+
+    Train mode counts ``bn_act.calls``.  On the card with float32
+    BatchNorm (and not ``plain``) it is the hand-written kernels
+    (ops/kernels/bn_act_train.py, which raise on a tensor they do not
+    take), counted in ``bn_act.fused``; they keep ``z`` alone for the
+    backward, as selective remat's checkpoint does.  Otherwise the chain of
+    PyTorch ops, under selective remat (``step_context.remat``) as a
+    checkpoint that saves ``z`` alone."""
+    if not m.bn.training:
+        return _bn_act_chain(m, z, dtype)
+    count("bn_act.calls")
+    if z.is_cuda and not plain and bn_dtype() == torch.float32:
+        count("bn_act.fused")
+        return bn_act_kernel.bn_act_train(m.bn, z, m.act)
+    if step_context.remat() == "selective":
         return checkpoint(_bn_act_chain, m, z, dtype, use_reentrant=False)
     return _bn_act_chain(m, z, dtype)
 
@@ -212,7 +229,7 @@ class ConvBnAct(nn.Module):
             z = down_conv_train(x, w, plain=plain)
         else:
             z = _conv(self.conv, x)
-        return _bn_act(self, z, x.dtype)
+        return _bn_act(self, z, x.dtype, plain)
 
 
 class PackedStem(ConvBnAct):
@@ -244,7 +261,7 @@ class PackedStem(ConvBnAct):
                                                                self.dtype)
         z = stem_conv_train(x, self.conv.weight / 255.0, self.dtype,
                             plain=plain)
-        return _bn_act(self, z, self.dtype)
+        return _bn_act(self, z, self.dtype, plain)
 
 
 class Bottleneck(nn.Module):

@@ -40,7 +40,7 @@ _EXTRA_FLAGS = {"neighbor": ["-fmad=false"], "pairs_iou": ["-fmad=false"],
 
 SOURCES = ("neighbor", "stem_l1", "down", "c3", "stem_train", "down_train",
            "train_fused_1x1", "train_fused_3x3", "stem", "pairs_iou",
-           "riou_boxes")
+           "riou_boxes", "bn_act_train")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 PTXAS_LOG: dict[str, str] = {}
